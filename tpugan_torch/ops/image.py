@@ -1,0 +1,23 @@
+"""Image-space ops on NCHW tensors (``tpugan/ops/image.py`` and the pads of
+``tpugan/nn/im2im.py``), as the PyTorch operators the reference uses."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def reflection_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """nn.ReflectionPad2d(pad)."""
+    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+
+def upsample_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """nn.Upsample(scale_factor=scale), nearest."""
+    return F.interpolate(x, scale_factor=scale, mode="nearest")
+
+
+def zero_pad_lt(x: torch.Tensor) -> torch.Tensor:
+    """nn.ZeroPad2d((1, 0, 1, 0)): one zero column on the left, one zero row
+    on top (the PatchGAN head's asymmetric pad)."""
+    return F.pad(x, (1, 0, 1, 0))
