@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the launch counts of one CycleGAN step.
+version, and the launch counts of one CycleGAN step and one WGAN-GP critic
+step.
 
 These need a CUDA device and skip without one. The file imports no JAX, so
 it also runs where JAX is not installed; there, skip the JAX-importing
@@ -8,13 +9,16 @@ it also runs where JAX is not installed; there, skip the JAX-importing
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_port_kernels_gpu.py
 
 Tolerances as in ``chip_smoke.py``: fp32 with sums in different orders,
-1e-5 absolute on y and 1e-4 of the largest |dx| on dx.
+1e-5 absolute on y and 1e-4 of the largest |dx| on dx for instance norm; for
+the GP pair 1e-5 of the largest |g| on g and t, and 1e-4 of the largest
+entry on each weight gradient.
 """
 
 import pytest
 import torch
 
 from tpugan_torch.ops import instance_norm as tin
+from tpugan_torch.ops import mlp_gp as gp
 
 pytestmark = pytest.mark.gpu
 
@@ -68,3 +72,62 @@ def test_one_step_launches_every_site_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert (tin.fwd_launches, tin.bwd_launches) == (104, 104)
     assert all(torch.isfinite(v) for v in out.values())
+
+
+def _gp_inputs(shape, device, seed=0):
+    b, n0, n1, n2 = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def u(*dims, fan_in=1):
+        return (torch.rand(dims, device=device, generator=gen) * 2 - 1) / fan_in ** 0.5
+
+    return (u(b, n0), u(n1, n0, fan_in=n0), u(n1, fan_in=n0), u(n2, n1, fan_in=n1),
+            u(n2, fan_in=n1), u(1, n2, fan_in=n2))
+
+
+@pytest.mark.parametrize("shape", [(64, 784, 512, 256), (1, 784, 512, 256), (7, 13, 100, 36)])
+def test_gp_kernels_match_plain_version(cuda, shape):
+    ins = _gp_inputs(shape, cuda)
+    before = (gp.gp_fwd_launches, gp.gp_bwd_launches)
+    got = gp.mlp_gp_fwd(*ins)
+    want = gp.mlp_gp_fwd_ref(*ins)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])  # masks
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(b.abs().max()))
+    g, m1, m2, u, t = want
+    q = gp.q_from(g, gp.norm_penalty(g)[1], 1.0).contiguous()
+    res = (q, m1, m2, ins[1], ins[3], u, t)
+    for a, b in zip(gp.mlp_gp_bwd(*res), gp.mlp_gp_bwd_ref(*res)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+    assert (gp.gp_fwd_launches, gp.gp_bwd_launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_gp_kernels_reject_what_they_do_not_take(cuda):
+    x, w1, b1, w2, b2, w3 = _gp_inputs((4, 16, 8, 8), cuda)
+    with pytest.raises(TypeError):
+        gp.mlp_gp_fwd(x.double(), w1, b1, w2, b2, w3)
+    with pytest.raises(ValueError):
+        gp.mlp_gp_fwd(x, w1.t().contiguous().t(), b1, w2, b2, w3)  # same values, strided
+    g, m1, m2, u, t = gp.mlp_gp_fwd(x, w1, b1, w2, b2, w3)
+    with pytest.raises(TypeError):
+        gp.mlp_gp_bwd(g.double(), m1, m2, w1, w2, u, t)
+    with pytest.raises(ValueError):
+        gp.mlp_gp_bwd(g, m1.t(), m2, w1, w2, u, t)
+
+
+def test_one_wgan_gp_d_step_launches_the_gp_pair_once(cuda):
+    import numpy as np
+
+    from tpugan_torch.models import wgan_gp
+
+    cfg = wgan_gp.Config()
+    modules = wgan_gp.build(cfg, cuda)
+    state = wgan_gp.create_state(cfg, modules, cuda)
+    d_step, _ = wgan_gp.make_steps(cfg, state)
+    imgs = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (64, 28, 28, 1), dtype=np.uint8))
+    gp.reset_launch_counts()
+    state, out = d_step(state, imgs)
+    torch.cuda.synchronize()
+    assert (gp.gp_fwd_launches, gp.gp_bwd_launches) == (1, 1)
+    assert torch.isfinite(out["d_loss"])

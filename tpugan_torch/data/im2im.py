@@ -155,11 +155,11 @@ def resize_crop_flip_transform(
 ):
     """CycleGAN train-time jitter (cyclegan/cyclegan.py:111-117): bicubic
     upscale ~1.12x, random crop back to (H, W), random h-flip. Runs on the
-    loader thread through the native host pipeline (tpugan.native
+    loader thread through the native host pipeline (tpugan_torch.native
     .augment_batch — PIL-bit-exact bicubic, fused crop/flip in C++, with a
     numpy fallback); crop offsets and flip flags come from the loader's
     seeded numpy Generator either way."""
-    from tpugan import native  # ctypes over csrc/host_pipeline.cpp; no JAX
+    from tpugan_torch import native
 
     up_h, up_w = int(height * scale), int(width * scale)
 

@@ -48,7 +48,7 @@ class DeviceLoader:
         return self.n // self.batch_size
 
     def _host_batches(self, epoch: int) -> Iterator[tuple]:
-        from tpugan import native  # ctypes over csrc/host_pipeline.cpp; no JAX
+        from tpugan_torch import native
 
         rng = np.random.default_rng(self.seed * 1000003 + epoch)
         idx = rng.permutation(self.n) if self.shuffle else np.arange(self.n)
@@ -128,7 +128,7 @@ class UnpairedLoader(DeviceLoader):
         self._b = b
 
     def _host_batches(self, epoch: int):
-        from tpugan import native  # ctypes over csrc/host_pipeline.cpp; no JAX
+        from tpugan_torch import native
 
         rng = np.random.default_rng(self.seed * 1000003 + epoch)
         idx_a = rng.permutation(self.n) % len(self._a)

@@ -1,0 +1,128 @@
+"""MNIST-class dataset sources: the port's copy of ``tpugan/data/sources.py``
+(:28-101, :190-211), in numpy, byte-identical.
+
+MNIST IDX files are read from disk when present under ``--data_dir``;
+otherwise, or with ``--synthetic_data``, a deterministic procedural dataset
+of class-conditioned Gaussian-bump glyphs stands in.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gzip
+import os
+import struct
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class ArrayDataset:
+    """In-memory dataset of uint8 images (N, H, W, C) + int labels (N,)."""
+
+    images: np.ndarray
+    labels: np.ndarray
+
+    def __post_init__(self):
+        assert self.images.dtype == np.uint8 and self.images.ndim == 4
+        assert len(self.images) == len(self.labels)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+
+def _read_idx(path: str) -> np.ndarray:
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rb") as f:
+        zero, dtype_code, ndim = struct.unpack(">HBB", f.read(4))
+        shape = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(shape)
+
+
+def load_mnist(data_dir: str, train: bool = True) -> Optional[ArrayDataset]:
+    """Load MNIST IDX files if present under several conventional layouts."""
+    prefix = "train" if train else "t10k"
+    candidates = [
+        os.path.join(data_dir, "mnist"),
+        os.path.join(data_dir, "mnist", "MNIST", "raw"),
+        data_dir,
+    ]
+    for root in candidates:
+        for ext in ("", ".gz"):
+            img_p = os.path.join(root, f"{prefix}-images-idx3-ubyte{ext}")
+            lbl_p = os.path.join(root, f"{prefix}-labels-idx1-ubyte{ext}")
+            if os.path.exists(img_p) and os.path.exists(lbl_p):
+                imgs = _read_idx(img_p)[..., None]  # (N, 28, 28, 1)
+                labels = _read_idx(lbl_p).astype(np.int32)
+                return ArrayDataset(imgs, labels)
+    return None
+
+
+def synthetic_image_dataset(
+    n: int = 4096,
+    img_size: int = 28,
+    channels: int = 1,
+    n_classes: int = 10,
+    seed: int = 0,
+) -> ArrayDataset:
+    """Deterministic procedural dataset: class-conditioned Gaussian-bump
+    glyphs with per-sample jitter. Non-degenerate (distinct per-class modes,
+    continuous intra-class variation) so adversarial losses behave, and
+    cheap enough to regenerate in tests."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:img_size, 0:img_size].astype(np.float32) / (img_size - 1)
+    images = np.zeros((n, img_size, img_size, channels), np.float32)
+    labels = rng.integers(0, n_classes, size=n).astype(np.int32)
+    # Fixed per-class anchor blob layout.
+    class_rng = np.random.default_rng(1234)
+    anchors = class_rng.uniform(0.15, 0.85, size=(n_classes, 3, 2)).astype(np.float32)
+    widths = class_rng.uniform(0.08, 0.2, size=(n_classes, 3)).astype(np.float32)
+    for i in range(n):
+        c = labels[i]
+        jitter = rng.normal(0, 0.04, size=(3, 2)).astype(np.float32)
+        img = np.zeros((img_size, img_size), np.float32)
+        for b in range(3):
+            cy, cx = anchors[c, b] + jitter[b]
+            w = widths[c, b]
+            img += np.exp(-(((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * w * w)))
+        img = img / max(img.max(), 1e-6)
+        for ch in range(channels):
+            scale = 1.0 if channels == 1 else float(0.5 + 0.5 * ((c + ch) % 3) / 2)
+            images[i, :, :, ch] = img * scale
+    return ArrayDataset((images * 255).astype(np.uint8), labels)
+
+
+def resize_dataset(ds: ArrayDataset, img_size: int) -> ArrayDataset:
+    """The whole-dataset bilinear resize of ``tpugan/data/sources.py:103``
+    runs through ``jax.image.resize``. Not ported yet: at the dataset's own
+    size it returns ``ds`` unchanged, and otherwise raises."""
+    if ds.images.shape[1] == img_size and ds.images.shape[2] == img_size:
+        return ds
+    raise NotImplementedError(
+        "resize_dataset to %d px: ROADMAP queue 1, item 1 (DCGAN spine)" % img_size
+    )
+
+
+def mnist_or_synthetic(
+    data_dir: str,
+    img_size: int = 28,
+    channels: int = 1,
+    synthetic: bool = False,
+    synthetic_n: int = 4096,
+    seed: int = 0,
+) -> Tuple[ArrayDataset, bool]:
+    """MNIST from disk when available (and not forced synthetic); else the
+    procedural fallback. Returns (dataset, is_real)."""
+    if not synthetic:
+        ds = load_mnist(data_dir)
+        if ds is not None:
+            ds = resize_dataset(ds, img_size)
+            if channels != 1:
+                imgs = np.repeat(ds.images, channels, axis=-1)
+                ds = ArrayDataset(imgs, ds.labels)
+            return ds, True
+    return (
+        synthetic_image_dataset(synthetic_n, img_size, channels, seed=seed),
+        False,
+    )

@@ -1,17 +1,22 @@
 """Load JAX-package parameters into the port's modules.
 
-``load_jax_params(module, params)`` takes a nested dict of numpy arrays, as
-``jax.device_get(state.params["G_AB"])`` gives, and copies it into the
-module. Pairing follows ``tpugan/io/torch_interop.py:export_state_dict``:
-each ``state_dict`` entry, in registration order, takes the first unused
-flax leaf of the same kind whose layout-transformed shape matches, the flax
-leaves walked in insertion order (which is call order). This module repeats
-that logic so the port does not import ``tpugan.io``, which imports JAX.
+``load_jax_params(module, params, batch_stats)`` takes nested dicts of numpy
+arrays, as ``jax.device_get(state.params["G_AB"])`` and
+``state.model_state[...]`` give, and copies them into the module. BatchNorm's
+``running_mean``/``running_var`` come from the flax ``batch_stats`` leaves
+``mean``/``var``, paired in the same order; ``num_batches_tracked`` has no
+flax counterpart and is left as it is.
+
+Pairing follows ``tpugan/io/torch_interop.py:export_state_dict``: each
+``state_dict`` entry, in registration order, takes the first unused flax leaf
+of the same kind whose layout-transformed shape matches, the flax leaves
+walked in insertion order (which is call order). This module repeats that
+logic so the port does not import ``tpugan.io``, which imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,9 +59,22 @@ def _flax_groups(params: Dict) -> Dict[str, List[np.ndarray]]:
     return groups
 
 
+def _stat_groups(batch_stats: Dict) -> Dict[str, List[np.ndarray]]:
+    """flax ``batch_stats`` leaves by kind, in insertion order."""
+    groups: Dict[str, list] = {"bn_mean": [], "bn_var": []}
+    for path, leaf in _walk(batch_stats):
+        kind = {"mean": "bn_mean", "var": "bn_var"}.get(path[-1])
+        if kind is None:
+            raise ValueError(f"flax batch_stats leaf {path} has no counterpart in the port")
+        groups[kind].append(np.asarray(leaf))
+    return groups
+
+
 def _torch_kind(sd, key: str) -> str:
     scope, _, base = key.rpartition(".")
     nd = sd[key].dim()
+    if base in ("running_mean", "running_var"):
+        return "bn_" + base[len("running_"):]
     if base == "weight":
         return {4: "conv_kernel", 2: "linear_kernel", 1: "norm_scale"}[nd]
     if base == "bias":
@@ -76,13 +94,18 @@ def _to_torch(kind: str, a: np.ndarray) -> np.ndarray:
 
 
 @torch.no_grad()
-def load_jax_params(module: torch.nn.Module, params: Dict) -> torch.nn.Module:
-    """Copy flax ``params`` into ``module`` in place and return it. Raises on
-    any entry without a counterpart and on leaves left over."""
-    groups = _flax_groups(params)
+def load_jax_params(
+    module: torch.nn.Module, params: Dict, batch_stats: Optional[Dict] = None
+) -> torch.nn.Module:
+    """Copy flax ``params`` (and ``batch_stats``, for a module with
+    BatchNorm) into ``module`` in place and return it. Raises on any entry
+    without a counterpart and on leaves left over."""
+    groups = {**_flax_groups(params), **_stat_groups(batch_stats or {})}
     used = {k: [False] * len(v) for k, v in groups.items()}
     sd = module.state_dict()
     for key, tensor in sd.items():
+        if key.endswith(".num_batches_tracked"):
+            continue
         kind = _torch_kind(sd, key)
         pool = groups[kind]
         hit = next(

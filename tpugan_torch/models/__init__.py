@@ -1,6 +1,7 @@
-"""Trainer registry of the port: ``cyclegan`` only, so far. Each trainer
-module exposes ``Config``, ``build``, ``create_state``, ``make_step``,
-``make_loader``, ``make_sampler``, ``run`` and ``main``."""
+"""Trainer registry of the port: ``cyclegan`` and ``wgan_gp``, so far. Each
+trainer module exposes ``Config``, ``build``, ``create_state``, its step
+makers (``make_step`` or ``make_steps``), ``make_loader``, ``run`` and
+``main``."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import importlib
 
 _REGISTRY = {
     "cyclegan": "tpugan_torch.models.cyclegan",
+    "wgan_gp": "tpugan_torch.models.wgan_gp",
 }
 
 

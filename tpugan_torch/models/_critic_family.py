@@ -1,0 +1,213 @@
+"""Shared machinery of the n_critic Wasserstein family
+(``tpugan/models/_critic_family.py``): wgan_gp now; wgan and wgan_div later.
+
+Reference control flow (wgan/wgan.py:117-166, wgan_gp/wgan_gp.py:144-203):
+the critic trains on every batch with a fresh z; the generator trains every
+``n_critic`` batches on the same z. The host loop mirrors that schedule
+around two step functions, ``d_step`` and ``g_step``.
+
+Random draws (z and the penalty's interpolation weights) come from the
+state's ``torch.Generator`` on the device, or are passed in, so a test can
+hand both frameworks the same numbers. The library functions take an explicit
+device; the trainers' ``run`` asks for CUDA unless the caller names another.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import os
+from typing import Callable
+
+import torch
+
+from tpugan_torch.data.loader import DeviceLoader
+from tpugan_torch.data.sources import mnist_or_synthetic
+from tpugan_torch.io.images import save_image
+from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
+from tpugan_torch.train.loop import StepObserver
+from tpugan_torch.train.state import normalize_uint8
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What the steps update: the modules' parameters and BatchNorm running
+    statistics (through the modules), the optimizers' moments, and the
+    generator of z and penalty draws. ``step`` counts critic steps."""
+
+    modules: dict
+    optimizers: dict
+    draws: torch.Generator
+    step: int = 0
+
+
+def build_a(cfg, device) -> dict:
+    """Template-A generator and critic (no sigmoid), weights drawn from a
+    generator seeded by ``--seed`` (on the CPU, so they do not depend on the
+    device)."""
+    gen = torch.Generator().manual_seed(cfg.seed)
+    img_shape = (cfg.channels, cfg.img_size, cfg.img_size)
+    modules = {
+        "generator": MLPGenerator(img_shape, cfg.latent_dim, generator=gen),
+        "discriminator": MLPDiscriminator(math.prod(img_shape), sigmoid=False, generator=gen),
+    }
+    return {k: m.to(device) for k, m in modules.items()}
+
+
+def create_state_a(cfg, modules: dict, opt_g, opt_d, device) -> TrainState:
+    draws = torch.Generator(device=torch.device(device)).manual_seed(cfg.seed)
+    return TrainState(modules, {"generator": opt_g, "discriminator": opt_d}, draws)
+
+
+def _device(module: torch.nn.Module) -> torch.device:
+    return next(module.parameters()).device
+
+
+def make_d_step(cfg, modules: dict, opt_d, d_loss_fn: Callable, post_update=None):
+    """``d_step(state, imgs_u8, labels, z=None, alpha=None) -> (state, out)``:
+    one critic update (``_critic_family.py:52-102``).
+
+    ``d_loss_fn(D, real, fake, alpha)`` is the critic loss; ``alpha`` holds
+    one interpolation weight per sample, (B, 1, 1, 1). ``z`` and ``alpha``
+    are drawn from ``state.draws`` in that order unless passed in. G runs in
+    train mode under ``no_grad``: its BatchNorm running statistics advance,
+    as in JAX, and ``fake`` carries no graph. ``post_update(D)`` runs after
+    the optimizer step (wgan's weight clip). ``out`` holds ``d_loss`` and the
+    ``z`` the following g_step reuses."""
+    G, D = modules["generator"], modules["discriminator"]
+
+    def d_step(state: TrainState, imgs_u8, labels=None, z=None, alpha=None):
+        del labels
+        device = _device(D)
+        real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
+        b = real.shape[0]
+        if z is None:
+            z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
+        if alpha is None:
+            alpha = torch.rand(b, 1, 1, 1, generator=state.draws, device=device)
+        with torch.no_grad():
+            fake = G(z)
+        opt_d.zero_grad(set_to_none=True)
+        d_loss = d_loss_fn(D, real, fake, alpha)
+        d_loss.backward()
+        opt_d.step()
+        if post_update is not None:
+            post_update(D)
+        state.step += 1
+        return state, {"d_loss": d_loss.detach(), "z": z}
+
+    return d_step
+
+
+def make_g_step(cfg, modules: dict, opt_g):
+    """``g_step(state, z) -> (state, out)``: one generator update on the
+    d_step's z, -mean(D(G(z))) (``_critic_family.py:105-136``). Only G's
+    parameters take gradients."""
+    G, D = modules["generator"], modules["discriminator"]
+    g_params = list(G.parameters())
+
+    def g_step(state: TrainState, z):
+        opt_g.zero_grad(set_to_none=True)
+        gen = G(z)
+        g_loss = -D(gen).mean()
+        g_loss.backward(inputs=g_params)
+        opt_g.step()
+        return state, {"g_loss": g_loss.detach(), "gen_imgs": gen.detach()}
+
+    return g_step
+
+
+def make_loader_a(cfg, device) -> DeviceLoader:
+    ds, is_real = mnist_or_synthetic(
+        cfg.data_dir,
+        img_size=cfg.img_size,
+        channels=cfg.channels,
+        synthetic=cfg.synthetic_data,
+        seed=cfg.seed,
+    )
+    if not is_real:
+        print("[tpugan] MNIST not found on disk — using synthetic dataset")
+    return DeviceLoader(
+        [ds.images, ds.labels], cfg.batch_size, device, shuffle=True, seed=cfg.seed
+    )
+
+
+def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gstep: bool,
+                      device) -> TrainState:
+    """Host loop with the reference's ``batches_done`` accounting
+    (``_critic_family.py:207-375``, its unfused path).
+
+    sample_inside_gstep=False: wgan style (check every batch, save the latest
+    G output, batches_done += 1 per batch; wgan.py:160-166).
+    sample_inside_gstep=True: wgan_gp/div style (check only on G batches,
+    batches_done += n_critic; wgan_gp.py:196-203).
+
+    Samples are ``images/<batches_done>.png``: 25 images, 5 a row,
+    normalized. ``--steps_per_dispatch`` above 1 prints the JAX package's
+    notice, and the loop runs one step at a time."""
+    imgdir = os.path.join(cfg.output_dir, "images")
+    os.makedirs(imgdir, exist_ok=True)
+    loader = make_loader_a(cfg, device)
+    observer = StepObserver(cfg)
+    bpe = len(loader)
+    if cfg.max_batches >= 0:
+        bpe = min(bpe, cfg.max_batches)
+    batches_done = 0
+    last_gen = None
+
+    def save(imgs, tag):
+        save_image(
+            imgs[:25].permute(0, 2, 3, 1).cpu().numpy(),
+            os.path.join(imgdir, "%d.png" % tag),
+            nrow=5,
+            normalize=True,
+        )
+
+    def log_line(epoch, i, d_loss, g_loss):
+        print(
+            "[Epoch %d/%d] [Batch %d/%d] [D loss: %f] [G loss: %f]"
+            % (
+                epoch,
+                cfg.n_epochs,
+                (batches_done % bpe) if not sample_inside_gstep else i,
+                bpe,
+                float(d_loss),
+                float(g_loss),
+            )
+        )
+
+    for epoch in range(cfg.n_epochs):
+        with contextlib.closing(loader.epoch(epoch)) as batches:
+            for i, batch in enumerate(batches):
+                if cfg.max_batches >= 0 and i >= cfg.max_batches:
+                    break
+                state, d_out = d_step(state, *batch)
+                if i % cfg.n_critic != 0:
+                    observer.observe(epoch * bpe + i, {"d_loss": d_out["d_loss"]})
+                else:
+                    state, g_out = g_step(state, d_out["z"])
+                    observer.observe(
+                        epoch * bpe + i, {"d_loss": d_out["d_loss"], "g_loss": g_out["g_loss"]}
+                    )
+                    last_gen = g_out["gen_imgs"]
+                    if cfg.log_interval > 0 and i % cfg.log_interval == 0:
+                        log_line(epoch, i, d_out["d_loss"], g_out["g_loss"])
+                    if (
+                        sample_inside_gstep
+                        and cfg.sample_interval > 0
+                        and batches_done % cfg.sample_interval == 0
+                    ):
+                        save(last_gen, batches_done)
+                if not sample_inside_gstep:
+                    if (
+                        cfg.sample_interval > 0
+                        and batches_done % cfg.sample_interval == 0
+                        and last_gen is not None
+                    ):
+                        save(last_gen, batches_done)
+                    batches_done += 1
+                elif i % cfg.n_critic == 0:
+                    batches_done += cfg.n_critic
+    observer.close()
+    return state

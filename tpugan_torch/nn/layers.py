@@ -1,11 +1,12 @@
 """Layers with the JAX package's semantics (``tpugan/nn/layers.py``), on NCHW.
 
-Only what the CycleGAN slice needs is here. Options the slice does not use
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Only what the CycleGAN and WGAN-GP slices need is here. Options they do not
+use raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -46,6 +47,45 @@ class Conv2d(nn.Conv2d):
             self.weight.normal_(0.0, 0.02, generator=generator)
             if self.bias is not None:
                 self.bias.zero_()
+
+
+class Linear(nn.Linear):
+    """torch.nn.Linear with torch's default init (``init_mode="torch"`` of
+    ``tpugan/nn/layers.py:Linear``): weight ``kaiming_uniform_(a=sqrt(5))``,
+    bias U(+-1/sqrt(fan_in)), both drawn from ``generator`` so a seed fixes
+    them. The other init modes come with the DCGAN spine."""
+
+    def __init__(
+        self,
+        in_features: int,
+        out_features: int,
+        bias: bool = True,
+        *,
+        init_mode: str = "torch",
+        generator: Optional[torch.Generator] = None,
+    ):
+        if init_mode != "torch":
+            raise NotImplementedError(f"Linear(init_mode={init_mode!r}): {_LAYERS_ITEM}")
+        super().__init__(in_features, out_features, bias=bias)
+        with torch.no_grad():
+            nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5), generator=generator)
+            if self.bias is not None:
+                bound = 1.0 / math.sqrt(in_features)
+                self.bias.uniform_(-bound, bound, generator=generator)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """torch.nn.BatchNorm1d, the semantics ``tpugan/nn/layers.py:BatchNorm``
+    reproduces in flax: ``eps`` passed verbatim (the reference's 0.8),
+    momentum 0.1, the biased batch variance to normalize and the unbiased
+    one folded into ``running_var``. Scale 1, bias 0 (``init_mode="torch"``);
+    the other init modes come with the DCGAN spine."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 *, init_mode: str = "torch"):
+        if init_mode != "torch":
+            raise NotImplementedError(f"BatchNorm1d(init_mode={init_mode!r}): {_LAYERS_ITEM}")
+        super().__init__(num_features, eps=eps, momentum=momentum)
 
 
 class InstanceNorm(nn.Module):

@@ -2,7 +2,8 @@
 
 ``tpugan_torch/csrc/*.cu`` compile with ``nvcc`` for Hopper (``sm_90a``) into
 one shared library with a plain C interface, at first use, under
-``build/tpugan_torch/`` in the checkout. The file name carries a content hash
+``build/tpugan_torch/`` in the checkout: one ``nvcc -c`` per source, all
+started together, then one link. The file name carries a content hash
 of the sources (as ``tpugan/native`` does for the host pipeline), so an edited
 kernel is rebuilt and an unchanged one is not. The library is loaded with
 ctypes. A failed build raises: there is no fallback.
@@ -24,7 +25,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpugan_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -51,18 +52,38 @@ def _nvcc() -> str:
     return found
 
 
-def _compile(srcs: list, so: str) -> str:
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = "%s.tmp.%d" % (so, os.getpid())
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+def _run(cmd: list) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _wait(proc: subprocess.Popen) -> str:
+    out, _ = proc.communicate(timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(
-            "nvcc failed (rc=%d): %s\n%s%s"
-            % (proc.returncode, " ".join(cmd), proc.stdout, proc.stderr)
+            "nvcc failed (rc=%d): %s\n%s" % (proc.returncode, " ".join(proc.args), out)
         )
-    os.replace(tmp, so)
-    return proc.stdout + proc.stderr
+    return out
+
+
+def _compile(srcs: list, so: str) -> str:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    tag = "%s.tmp.%d" % (so, os.getpid())
+    objs = ["%s.%d.o" % (tag, i) for i in range(len(srcs))]
+    procs = [_run([nvcc, *NVCC_FLAGS, "-c", "-o", o, src]) for src, o in zip(srcs, objs)]
+    try:
+        log = "".join(_wait(p) for p in procs)
+        log += _wait(_run([nvcc, *NVCC_FLAGS, "-shared", "-o", tag, *objs]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    os.replace(tag, so)
+    return log
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -71,6 +92,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.in_act_fwd.restype = ctypes.c_int
     lib.in_act_bwd.argtypes = [p, p, p, p, p, i64, i64, f32, p]
     lib.in_act_bwd.restype = ctypes.c_int
+    lib.mlp_gp_fwd.argtypes = [p] * 12 + [i64] * 4 + [p]
+    lib.mlp_gp_fwd.restype = ctypes.c_int
+    lib.mlp_gp_bwd.argtypes = [p] * 11 + [i64] * 4 + [p]
+    lib.mlp_gp_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -84,7 +109,7 @@ def library() -> ctypes.CDLL:
     for path in srcs:
         with open(path, "rb") as f:
             digest.update(f.read())
-    so =os.path.join(BUILD_DIR, "libtpugan_torch_%s.so" % digest.hexdigest()[:16])
+    so = os.path.join(BUILD_DIR, "libtpugan_torch_%s.so" % digest.hexdigest()[:16])
     t0 = time.perf_counter()
     BuildInfo.compiled = not os.path.exists(so)
     BuildInfo.log = _compile(srcs, so) if BuildInfo.compiled else ""
