@@ -25,14 +25,34 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    configuration (batch 64, 28x28x1, latent 100, n_critic 5) for 50 batches;
    checks finite losses, the sample PNGs and exactly one GP forward and one
    backward launch per critic step; then the steady-state schedule unit.
+7. AdaIN parity and time: the AdaIN pair against its plain version on the
+   card, forward and backward, at the MUNIT slice's shapes and at a ragged
+   H*W, 1x1 planes, a large offset, w with zeros and negatives, and w and
+   bias as strided slices through ``adain()``; both directions must repeat
+   bit for bit. Then the kernels' times at the slice's two shapes beside the
+   plain version, the bound and ``F.instance_norm`` (forward) or
+   ``native_batch_norm_backward`` (backward) on the (1, B*C, H, W) view.
+8. MUNIT IN parity and time: the instance-norm pair against its plain
+   version at every (shape, slope) site of the MUNIT path, the step's and the
+   sample grid's, down to the discriminator's 2x2 planes; then the times at
+   each site and their sums over one MUNIT step.
+9. MUNIT slice: ``tpugan_torch.models.munit.main`` at the reference
+   configuration (128px, batch 1, dim 64, 3 residual blocks) for 6 steps
+   with samples and checkpoints; checks finite losses, the sample sheets and
+   checkpoints, and the exact AdaIN and IN launch counts; then the
+   steady-state step time, the step's FLOPs and operations bound, the
+   device's busy share and the step's largest device kernels
+   (torch.profiler).
 
 The bounds use the published peaks of the card ``nvidia-smi`` names
 (``PEAKS``): FP32 outside the tensor cores and HBM bandwidth.
 
 Any failure raises, and the script exits non-zero without the final line.
 The last three lines are the kernels' JSON record (every kernel with its
-launches on the main path, error, times, bound and library-call time), ``nvidia-smi``'s name and
-power limit, and ``{"ok": true, "device": {...}}``. Imports no JAX.
+launches on the main path, error, times, bound and library-call time; the IN
+pair, which runs on the CycleGAN and the MUNIT paths, also by path),
+``nvidia-smi``'s name and power limit, and ``{"ok": true, "device": {...}}``.
+Imports no JAX.
 """
 
 from __future__ import annotations
@@ -98,6 +118,47 @@ GP_CASES = [
 GP_RTOL, GP_GRAD_RTOL, GP_FLIP_RTOL = 1e-5, 1e-4, 1e-5
 WGAN_BATCHES, WGAN_SAMPLE_INTERVAL = 50, 10
 
+# AdaIN at the MUNIT slice (128px, batch 1, dim 64, 3 residual blocks): every
+# AdaIN of the decoder runs at (B, 256, 32, 32), 6 a decoder call. A step
+# makes 4 decoder calls; the sample grid one at batch 40 (5 images x 8
+# style codes). IN sites: 9 an encoder call (3 head and down, 6 in the
+# residual blocks) and 9 a MultiDiscriminator call; a step makes 4 encoder
+# calls and 6 discriminator calls (2 in the G phase, 2 in each D phase), every
+# one differentiated; the sample grid makes 1 content-encoder call.
+ADAIN_STEP_SHAPE, ADAIN_SAMPLE_SHAPE = (1, 256, 32, 32), (40, 256, 32, 32)
+ADAIN_PER_STEP, ADAIN_PER_SAMPLE = 24, 6
+# ((B, C, H, W), slope) of every MUNIT instance-norm site and how often one
+# step makes it (the sample grid's: per grid). Encoder: the head and down
+# convs at slope 1 (ReLU follows unfused), the residual blocks at 0 then 1;
+# discriminator towers at 128, 64 and 32 px, LeakyReLU(0.2) fused.
+MUNIT_IN_STEP = {
+    ((1, 64, 128, 128), 1.0): 4, ((1, 128, 64, 64), 1.0): 4,
+    ((1, 256, 32, 32), 1.0): 16, ((1, 256, 32, 32), 0.0): 12,
+    ((1, 128, 32, 32), 0.2): 6, ((1, 256, 16, 16), 0.2): 6, ((1, 512, 8, 8), 0.2): 6,
+    ((1, 128, 16, 16), 0.2): 6, ((1, 256, 8, 8), 0.2): 6, ((1, 512, 4, 4), 0.2): 6,
+    ((1, 128, 8, 8), 0.2): 6, ((1, 256, 4, 4), 0.2): 6, ((1, 512, 2, 2), 0.2): 6,
+}
+MUNIT_IN_SAMPLE = {
+    ((40, 64, 128, 128), 1.0): 1, ((40, 128, 64, 64), 1.0): 1,
+    ((40, 256, 32, 32), 1.0): 4, ((40, 256, 32, 32), 0.0): 3,
+}
+MUNIT_IN_PER_STEP = sum(MUNIT_IN_STEP.values())  # 90
+MUNIT_IN_PER_SAMPLE = sum(MUNIT_IN_SAMPLE.values())  # 9
+MUNIT_STEPS, MUNIT_SAMPLE_INTERVAL = 6, 5
+# (shape, offset, w kind): "normal" w ~ 1 +- 0.3, "zeros" with zeros and
+# negatives. Tolerances, kernel against plain: y within 1e-5 * (1 + |offset|)
+# * max(1, max|w|), mean within 1e-5 * (1 + |offset|), rstd within 1e-5
+# relative; dx, dw and dbias each within 1e-4 of their largest |.| (plus
+# 1e-7 where that is 0, as at 1x1 planes).
+ADAIN_CASES = [
+    (ADAIN_STEP_SHAPE, 0.0, "normal"),
+    (ADAIN_SAMPLE_SHAPE, 0.0, "normal"),
+    ((2, 8, 31, 31), 0.0, "normal"),  # ragged H*W: the scalar path
+    ((2, 4, 1, 1), 0.0, "normal"),  # 1x1 planes: xh = 0
+    ((2, 64, 64, 64), 100.0, "normal"),  # mean = 100 * std
+    (ADAIN_STEP_SHAPE, 0.0, "zeros"),
+]
+
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
@@ -133,6 +194,16 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_kernels(prof):
+    """The device kernels of a torch.profiler run: its CUDA events without
+    the user-annotation ranges (``Optimizer.step#Adam.step``), which span
+    kernels and would count their time twice."""
+    import torch
+
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def phase_device():
@@ -218,43 +289,56 @@ def phase_parity():
         f"max |ddx| {worst['bwd']:.3g} (y tol {Y_ATOL:g}*(1+|offset|), dx tol "
         f"{DX_RTOL:g} of max|dx|)")
 
-    # Times at every shape of the step, kernel beside plain, CUDA events; the
-    # bound (8 bytes an element forward, 12 backward) and F.instance_norm,
-    # the one PyTorch call that computes the slope-1 forward.
+    # Times at every shape of the step (slope 0), then their sums over one
+    # step's launches.
+    per_step = _in_times("[in time]", [(s, 0.0, n) for s, n in STEP_SHAPES.items()],
+                         [(s, 0.0, n) for s, n in SAMPLE_SHAPES.items()], gen)
+    return worst, per_step
+
+
+def _in_times(tag, step_sites, sample_sites, gen):
+    """At each (shape, slope, launches) site: the IN pair's times beside the
+    plain version's, the bound (8 bytes an element forward, 12 backward) and
+    ``F.instance_norm``, the one PyTorch call that computes the slope-1
+    forward (CUDA events). Returns their sums over one step's sites."""
+    import torch
     import torch.nn.functional as F
+
+    from tpugan_torch.ops import instance_norm as tin
 
     per_step = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for k in ("fwd", "bwd")}
     per_step["fwd"]["library_ms"] = 0.0
-    log("[in time] shape            launches/step  fwd ms  plain   bound  F.inst  "
+    log(f"{tag} shape          slope launches/step  fwd ms  plain   bound  F.inst  "
         "bwd ms  plain   bound")
-    for shape, n in {**STEP_SHAPES, **SAMPLE_SHAPES}.items():
+    for i, (shape, slope, n) in enumerate(step_sites + sample_sites):
         x = torch.randn(shape, device="cuda", generator=gen)
         g = torch.randn(shape, device="cuda", generator=gen)
-        _, mean, rstd = tin.in_act_fwd_ref(x, EPS, 0.0)
+        _, mean, rstd = tin.in_act_fwd_ref(x, EPS, slope)
         reps = max(5, min(200, int(2e8 / x.numel())))
         t = {
-            "fwd": (cuda_ms(lambda: tin.in_act_fwd(x, EPS, 0.0), reps),
-                    cuda_ms(lambda: tin.in_act_fwd_ref(x, EPS, 0.0), reps),
+            "fwd": (cuda_ms(lambda: tin.in_act_fwd(x, EPS, slope), reps),
+                    cuda_ms(lambda: tin.in_act_fwd_ref(x, EPS, slope), reps),
                     bound_ms(0.0, 8 * x.numel())[0]),
-            "bwd": (cuda_ms(lambda: tin.in_act_bwd(g, x, mean, rstd, 0.0), reps),
-                    cuda_ms(lambda: tin.in_act_bwd_ref(g, x, mean, rstd, 0.0), reps),
+            "bwd": (cuda_ms(lambda: tin.in_act_bwd(g, x, mean, rstd, slope), reps),
+                    cuda_ms(lambda: tin.in_act_bwd_ref(g, x, mean, rstd, slope), reps),
                     bound_ms(0.0, 12 * x.numel())[0]),
         }
         lib = cuda_ms(lambda: F.instance_norm(x, eps=EPS), reps)
-        if shape in STEP_SHAPES:
+        in_step = i < len(step_sites)
+        if in_step:
             for k in ("fwd", "bwd"):
                 for key, v in zip(("ms", "plain_ms", "bound_ms"), t[k]):
                     per_step[k][key] += n * v
             per_step["fwd"]["library_ms"] += n * lib
-        log(f"[in time] {str(shape):18s} {n:3d}"
-            f"{' (sample)' if shape in SAMPLE_SHAPES else '         '}"
+        log(f"{tag} {str(shape):18s} {slope:3g} {n:3d}{'         ' if in_step else ' (sample)'}"
             f" {t['fwd'][0]:7.4f} {t['fwd'][1]:7.4f} {t['fwd'][2]:7.4f} {lib:7.4f}"
             f" {t['bwd'][0]:7.4f} {t['bwd'][1]:7.4f} {t['bwd'][2]:7.4f}")
     f, b = per_step["fwd"], per_step["bwd"]
-    log(f"[in time] one step's 104 launches: fwd {f['ms']:.3f} ms (plain {f['plain_ms']:.3f}, "
-        f"bound {f['bound_ms']:.3f}, F.instance_norm {f['library_ms']:.3f}), bwd {b['ms']:.3f} "
-        f"ms (plain {b['plain_ms']:.3f}, bound {b['bound_ms']:.3f}, library none)")
-    return worst, per_step
+    log(f"{tag} one step's {sum(n for *_, n in step_sites)} launches: fwd {f['ms']:.3f} ms "
+        f"(plain {f['plain_ms']:.3f}, bound {f['bound_ms']:.3f}, F.instance_norm "
+        f"{f['library_ms']:.3f}), bwd {b['ms']:.3f} ms (plain {b['plain_ms']:.3f}, bound "
+        f"{b['bound_ms']:.3f}, library none)")
+    return per_step
 
 
 def phase_slice(smi):
@@ -634,7 +718,7 @@ def phase_wgan_slice(smi):
             unit(m)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     log(f"[wgan_gp slice] profiled {n_prof} units: {len(kernels) / n_prof:.0f} device kernels "
         f"and {busy_ms / n_prof:.3f} ms of device time per unit, in {prof_ms / n_prof:.3f} ms of "
@@ -643,6 +727,341 @@ def phase_wgan_slice(smi):
         f"{unit_ms:.3f} ms per schedule unit ({cfg.n_critic} d_steps + 1 g_step), "
         f"{d_ms:.3f} ms per d_step, {g_ms:.3f} ms per g_step, {images_s:.0f} critic images/s "
         f"(batch {cfg.batch_size}, fp32, TF32 off; mean of {n_timed} units after 3 warm-up)")
+    return launches
+
+
+def _adain_inputs(shape, offset, w_kind, gen):
+    import torch
+
+    b, c = shape[:2]
+    x = torch.randn(shape, device="cuda", generator=gen) + offset
+    g = torch.randn(shape, device="cuda", generator=gen)
+    w = 1.0 + 0.3 * torch.randn((b, c), device="cuda", generator=gen)
+    if w_kind == "zeros":
+        w[:, ::3] = 0.0
+        w[:, 1::3] *= -1.0
+    bias = 0.3 * torch.randn((b, c), device="cuda", generator=gen)
+    return x, w, bias, g
+
+
+def _adain_errors(got, want, offset, w):
+    """Largest errors of (y, mean, rstd, dx, dw, db), kernel against plain;
+    raises past the tolerances of ``ADAIN_CASES``."""
+    y_k, mean_k, rstd_k, *grads_k = got
+    y_r, mean_r, rstd_r, *grads_r = want
+    y_tol = Y_ATOL * (1.0 + abs(offset)) * max(1.0, float(w.abs().max()))
+    errs = {
+        "y": float((y_k - y_r).abs().max()),
+        "mean": float((mean_k - mean_r).abs().max()),
+        "rstd": float(((rstd_k - rstd_r).abs() / rstd_r).max()),
+    }
+    tols = {"y": y_tol, "mean": Y_ATOL * (1.0 + abs(offset)), "rstd": Y_ATOL}
+    for name, a, b in zip(("dx", "dw", "db"), grads_k, grads_r):
+        errs[name] = float((a - b).abs().max())
+        tols[name] = DX_RTOL * float(b.abs().max()) + 1e-7
+    bad = {k: (errs[k], tols[k]) for k in errs if not errs[k] <= tols[k]}
+    return errs, bad
+
+
+def phase_adain_parity():
+    import torch
+
+    from tpugan_torch.ops import adain as ta
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for shape, offset, w_kind in ADAIN_CASES:
+        x, w, bias, g = _adain_inputs(shape, offset, w_kind, gen)
+        fwd = ta.adain_fwd(x, w, bias, EPS)
+        fwd_again = ta.adain_fwd(x, w, bias, EPS)
+        y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w, bias, EPS)
+        bwd = ta.adain_bwd(g, x, w, mean_r, rstd_r)
+        bwd_again = ta.adain_bwd(g, x, w, mean_r, rstd_r)
+        bwd_r = ta.adain_bwd_ref(g, x, w, mean_r, rstd_r)
+        torch.cuda.synchronize()
+        for name, a, b in (("forward", fwd, fwd_again), ("backward", bwd, bwd_again)):
+            if not all(torch.equal(u, v) for u, v in zip(a, b)):
+                raise AssertionError(f"adain {name} at {shape} does not repeat bit for bit")
+        errs, bad = _adain_errors((*fwd, *bwd), (y_r, mean_r, rstd_r, *bwd_r), offset, w)
+        if bad:
+            raise AssertionError(f"adain disagrees at {shape} offset {offset} w {w_kind}: "
+                                 f"{bad} (error, tolerance)")
+        worst["fwd"] = max(worst["fwd"], errs["y"])
+        worst["bwd"] = max(worst["bwd"], errs["dx"], errs["dw"], errs["db"])
+        log(f"[adain parity] {str(shape):18s} offset {offset:<5g} w {w_kind:6s} | "
+            + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " | bit-repeatable")
+
+    # w and bias as strided slices of the style MLP's output, through the
+    # autograd Function, as the AdaIN residual block takes them.
+    b, c = ADAIN_SAMPLE_SHAPE[:2]
+    x, _, _, g = _adain_inputs(ADAIN_SAMPLE_SHAPE, 0.0, "normal", gen)
+    params = 0.5 + 0.5 * torch.randn((b, 4 * c), device="cuda", generator=gen)
+    params.requires_grad_()
+    xg = x.clone().requires_grad_()
+    w_s, b_s = params[:, c:2 * c], params[:, :c]
+    if w_s.is_contiguous() or b_s.is_contiguous():
+        raise AssertionError("the strided case's slices are contiguous")
+    y = ta.adain(xg, w_s, b_s, EPS)
+    y.backward(g)
+    w_c, b_c = w_s.detach().contiguous(), b_s.detach().contiguous()
+    y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w_c, b_c, EPS)
+    dx_r, dw_r, db_r = ta.adain_bwd_ref(g, x, w_c, mean_r, rstd_r)
+    dp_r = torch.zeros_like(params)
+    dp_r[:, :c], dp_r[:, c:2 * c] = db_r, dw_r
+    torch.cuda.synchronize()
+    errs = {"y": float((y.detach() - y_r).abs().max()),
+            "dx": float((xg.grad - dx_r).abs().max()),
+            "dparams": float((params.grad - dp_r).abs().max())}
+    tols = {"y": Y_ATOL * max(1.0, float(w_c.abs().max())),
+            "dx": DX_RTOL * float(dx_r.abs().max()), "dparams": DX_RTOL * float(dp_r.abs().max())}
+    bad = {k: (errs[k], tols[k]) for k in errs if not errs[k] <= tols[k]}
+    if bad:
+        raise AssertionError(f"adain() on strided w/bias slices disagrees: {bad}")
+    worst["fwd"] = max(worst["fwd"], errs["y"])
+    worst["bwd"] = max(worst["bwd"], errs["dx"], errs["dparams"])
+    log(f"[adain parity] strided w/bias slices of a {tuple(params.shape)} tensor through "
+        f"adain(): y {errs['y']:.2e} dx {errs['dx']:.2e} dparams {errs['dparams']:.2e}")
+    log(f"[adain parity] {len(ADAIN_CASES) + 1} cases pass: max |dy| {worst['fwd']:.3g}, max "
+        f"|d(dx, dw, db)| {worst['bwd']:.3g}")
+    return worst
+
+
+def phase_adain_time(smi):
+    """At the slice's two shapes: kernel, plain version, bound and the
+    PyTorch call that computes the same function on the (1, B*C, H, W) view,
+    forward and backward, CUDA events; then forward + backward through
+    autograd beside ``F.instance_norm``'s. The step's sums are over its 24
+    launches at ``ADAIN_STEP_SHAPE``."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpugan_torch.ops import adain as ta
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for shape in (ADAIN_STEP_SHAPE, ADAIN_SAMPLE_SHAPE):
+        x, w, bias, g = _adain_inputs(shape, 0.0, "normal", gen)
+        b, c, h, wd = shape
+        planes, n = b * c, x.numel()
+        _, mean, rstd = ta.adain_fwd_ref(x, w, bias, EPS)
+        x1, g1 = x.view(1, planes, h, wd), g.view(1, planes, h, wd)
+        w1, b1 = w.flatten(), bias.flatten()
+
+        def lib_fwd():
+            return F.instance_norm(x1, weight=w1, bias=b1, eps=EPS)
+
+        def lib_bwd():
+            return torch.ops.aten.native_batch_norm_backward(
+                g1, x1, w1, None, None, mean, rstd, True, EPS, [True, True, True])
+
+        # The yardsticks must compute the same function: held to the plain
+        # version as the kernels are.
+        lib = (lib_fwd(), *lib_bwd())
+        plain = (ta.adain_fwd_ref(x, w, bias, EPS)[0], *ta.adain_bwd_ref(g, x, w, mean, rstd))
+        lib_err = max(float((a.reshape(r.shape) - r).abs().max()) / max(1.0, float(r.abs().max()))
+                      for a, r in zip(lib, plain))
+        if lib_err > DX_RTOL:
+            raise AssertionError(f"the library calls differ from AdaIN at {shape}: {lib_err:.3g}")
+        reps = max(20, min(200, int(2e8 / n)))
+        t = {
+            "fwd": {"ms": cuda_ms(lambda: ta.adain_fwd(x, w, bias, EPS), reps),
+                    "plain_ms": cuda_ms(lambda: ta.adain_fwd_ref(x, w, bias, EPS), reps),
+                    "library_ms": cuda_ms(lib_fwd, reps)},
+            "bwd": {"ms": cuda_ms(lambda: ta.adain_bwd(g, x, w, mean, rstd), reps),
+                    "plain_ms": cuda_ms(lambda: ta.adain_bwd_ref(g, x, w, mean, rstd), reps),
+                    "library_ms": cuda_ms(lib_bwd, reps)},
+        }
+        # Bytes: x in and y out, w and bias in and mean and rstd out per plane;
+        # g and x in and dx out, w, mean and rstd in and dw and dbias out.
+        # Operations: 8 a forward element (sum; centred square; normalise and
+        # affine), 9 a backward element (xh; the two sums; dx).
+        for k, nbytes, flops in (("fwd", 8 * n + 16 * planes, 8 * n),
+                                 ("bwd", 12 * n + 20 * planes, 9 * n)):
+            t[k]["bound_ms"], t[k]["bound_by"] = bound_ms(flops, nbytes)
+
+        xg = x.clone().requires_grad_()
+        wg, bg = w.clone().requires_grad_(), bias.clone().requires_grad_()
+        x1g = x1.clone().requires_grad_()
+        w1g, b1g = w1.clone().requires_grad_(), b1.clone().requires_grad_()
+        both = cuda_ms(lambda: ta.adain(xg, wg, bg, EPS).backward(g), reps)
+        both_lib = cuda_ms(
+            lambda: F.instance_norm(x1g, weight=w1g, bias=b1g, eps=EPS).backward(g1), reps)
+        out[shape] = t
+        for k in ("fwd", "bwd"):
+            o = t[k]
+            log(f"[adain time] {k} {str(shape):18s} kernel {o['ms']:.4f} ms, plain "
+                f"{o['plain_ms']:.4f}, bound {o['bound_ms']:.4f} ({o['bound_by']}), library "
+                f"{o['library_ms']:.4f} ({o['bound_ms'] / o['ms']:.1%} of bound)")
+        log(f"[adain time] fwd+bwd {str(shape):14s} through autograd: adain() {both:.4f} ms, "
+            f"F.instance_norm {both_lib:.4f} ms")
+    step = {k: {key: ADAIN_PER_STEP * v for key, v in out[ADAIN_STEP_SHAPE][k].items()
+                if key != "bound_by"} for k in ("fwd", "bwd")}
+    for k in ("fwd", "bwd"):
+        step[k]["bound_by"] = out[ADAIN_STEP_SHAPE][k]["bound_by"]
+        o = step[k]
+        log(f"[adain time] one step's {ADAIN_PER_STEP} {k} launches: kernel {o['ms']:.3f} ms, "
+            f"plain {o['plain_ms']:.3f}, bound {o['bound_ms']:.3f}, library {o['library_ms']:.3f}")
+    log(f"[adain time] on {torch.cuda.get_device_name(0)} ({smi})")
+    return step
+
+
+def phase_munit_in():
+    """The IN pair against its plain version at every (shape, slope) of the
+    MUNIT path, forward and backward; then the times at each site and their
+    sums over one MUNIT step."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    sites = list(MUNIT_IN_STEP) + list(MUNIT_IN_SAMPLE)
+    for shape, slope in sites:
+        y_err, dx_err = _parity_case(shape, slope, 0.0, gen)
+        worst["fwd"] = max(worst["fwd"], y_err)
+        worst["bwd"] = max(worst["bwd"], dx_err)
+    log(f"[munit in parity] {len(sites)} sites pass: max |dy| {worst['fwd']:.3g}, max |ddx| "
+        f"{worst['bwd']:.3g} (y tol {Y_ATOL:g}, dx tol {DX_RTOL:g} of max|dx|)")
+    per_step = _in_times("[munit in time]", [(s, sl, n) for (s, sl), n in MUNIT_IN_STEP.items()],
+                         [(s, sl, n) for (s, sl), n in MUNIT_IN_SAMPLE.items()], gen)
+    return worst, per_step
+
+
+def phase_munit_slice(smi):
+    import numpy as np
+    import torch
+
+    from tpugan_torch.models import munit
+    from tpugan_torch.ops import adain as ta
+    from tpugan_torch.ops import instance_norm as tin
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_munit_")
+    metrics = os.path.join(out_dir, "metrics.jsonl")
+    argv = [
+        "--synthetic_data", "--n_epochs", "1", "--max_batches", str(MUNIT_STEPS),
+        "--sample_interval", str(MUNIT_SAMPLE_INTERVAL), "--checkpoint_interval", "1",
+        "--output_dir", out_dir, "--metrics_jsonl", metrics,
+    ]
+    ta.reset_launch_counts()
+    tin.reset_launch_counts()
+    t0 = time.perf_counter()
+    munit.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"adain_fwd": ta.adain_fwd_launches, "adain_bwd": ta.adain_bwd_launches,
+                "in_fwd": tin.fwd_launches, "in_bwd": tin.bwd_launches}
+    log("")
+    n_samples = len(range(0, MUNIT_STEPS, MUNIT_SAMPLE_INTERVAL))
+    want = {
+        "adain_fwd": MUNIT_STEPS * ADAIN_PER_STEP + n_samples * ADAIN_PER_SAMPLE,
+        "adain_bwd": MUNIT_STEPS * ADAIN_PER_STEP,
+        "in_fwd": MUNIT_STEPS * MUNIT_IN_PER_STEP + n_samples * MUNIT_IN_PER_SAMPLE,
+        "in_bwd": MUNIT_STEPS * MUNIT_IN_PER_STEP,
+    }
+    log(f"[munit slice] main() took {wall:.1f} s (data, modules, {MUNIT_STEPS} steps, "
+        f"{n_samples} samples); launches {launches}, expected {want}")
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 run with TF32 left on")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != expected {want}")
+    with open(metrics) as f:
+        rows = [json.loads(line) for line in f]
+    if len(rows) != MUNIT_STEPS:
+        raise AssertionError(f"{len(rows)} metric rows, expected {MUNIT_STEPS}")
+    for row in rows:
+        bad = {k: v for k, v in row.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"non-finite losses at step {row['step']}: {bad}")
+    log(f"[munit slice] losses finite at all {MUNIT_STEPS} steps; last: {rows[-1]}")
+    imgs = os.path.join(out_dir, "images", "edges2shoes")
+    ckpts = os.path.join(out_dir, "saved_models", "edges2shoes")
+    pngs = [os.path.join(imgs, f"{i}.png") for i in range(0, MUNIT_STEPS, MUNIT_SAMPLE_INTERVAL)]
+    pths = [os.path.join(ckpts, f"{m}_0.pth") for m in munit.MODULES]
+    missing = [p for p in pngs + pths if not os.path.exists(p)]
+    if missing:
+        raise AssertionError(f"missing outputs: {missing}")
+    cfg = munit.Config(synthetic_data=True, output_dir=out_dir)
+    # A sheet of 5 rows, each a validation image and its style_dim
+    # translations, with the grid's 2-pixel border.
+    sheet_wh = ((cfg.style_dim + 1) * cfg.img_width + 4, 5 * cfg.img_height + 4)
+    for path in pngs:
+        with open(path, "rb") as f:
+            head = f.read(24)
+        wh = (int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big"))
+        if head[:8] != b"\x89PNG\r\n\x1a\n" or wh != sheet_wh:
+            raise AssertionError(f"{path}: not a {sheet_wh} PNG sheet (size {wh})")
+    for path in pths:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if not all(torch.isfinite(v).all() for v in sd.values()):
+            raise AssertionError(f"non-finite weights in {os.path.basename(path)}")
+    log(f"[munit slice] wrote samples {[os.path.basename(p) for p in pngs]} ({sheet_wh[0]}x"
+        f"{sheet_wh[1]} sheets) and checkpoints {[os.path.basename(p) for p in pths]}, "
+        f"all finite")
+
+    # Steady state: the same entry points, one fixed uint8 batch on the card.
+    dev = torch.device("cuda")
+    modules = munit.build(cfg, dev)
+    state = munit.create_state(cfg, modules, dev)
+    step = munit.make_step(cfg, modules, dev)
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(rng.integers(0, 256, (1, cfg.img_height, cfg.img_width, 3),
+                                          dtype=np.uint8)).to(dev) for _ in range(2))
+    for _ in range(3):
+        state, out = step(state, a, b)
+    torch.cuda.synchronize()
+    n_timed = 20
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, out = step(state, a, b)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    if not all(math.isfinite(float(v)) for v in out.values()):
+        raise AssertionError(f"non-finite losses in the timed steps: {out}")
+
+    # The operations bound of a step: its convolutions and matmuls, forward
+    # and backward, counted from the shapes, at the FP32 peak.
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        state, out = step(state, a, b)
+    flops = counter.get_total_flops()
+    log(f"[munit slice] one step's convolutions and matmuls: {flops / 1e12:.4f} TFLOP forward "
+        f"and backward (torch.utils.flop_counter), {bound_ms(flops, 0)[0]:.2f} ms at the FP32 "
+        f"peak")
+
+    # The device's busy share and its largest kernels over a few steps
+    # (torch.profiler, one stream, against the host clock around the window).
+    from torch.profiler import ProfilerActivity, profile
+
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            state, out = step(state, a, b)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
+    log(f"[munit slice] profiled {n_prof} steps: {len(kernels) / n_prof:.0f} device kernels and "
+        f"{busy_ms / n_prof:.3f} ms of device time per step, in {prof_ms / n_prof:.3f} ms of host "
+        f"time (profiler on): device busy {busy_ms / prof_ms:.1%}")
+    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[munit slice]   {tot / n_prof:9.3f} ms/step  x{cnt / n_prof:5.0f}  {name[:110]}")
+    # The port's own kernels: in_act_{fwd,bwd}_kernel<kVec, kAffine>.
+    ours = {}
+    for name, (tot, cnt) in by_name.items():
+        for k in ("fwd", "bwd"):
+            if f"in_act_{k}_kernel<" in name:
+                key = ("adain_" if name.split("<")[1].split(">")[0].endswith("true") else "in_") + k
+                t, c = ours.get(key, (0.0, 0))
+                ours[key] = (t + tot / n_prof, c + cnt // n_prof)
+    log("[munit slice] the port's kernels, device time per step: " + ", ".join(
+        f"{k} {t:.3f} ms x{c}" for k, (t, c) in sorted(ours.items())))
+    log(f"[munit slice] steady state on {torch.cuda.get_device_name(0)} ({smi}): "
+        f"{step_ms:.2f} ms/step, {cfg.batch_size * 1e3 / step_ms:.2f} images/s (128px, batch 1, "
+        f"dim 64, 3 blocks, fp32, TF32 off; mean of {n_timed} steps after 3 warm-up)")
     return launches
 
 
@@ -656,21 +1075,42 @@ def main() -> int:
     gp_worst = phase_gp_parity()
     gp_time = phase_gp_time(smi)
     gp_launches = phase_wgan_slice(smi)
+    adain_worst = phase_adain_parity()
+    adain_time = phase_adain_time(smi)
+    munit_in_worst, munit_in_time = phase_munit_in()
+    munit_launches = phase_munit_slice(smi)
     in_src, gp_src = "tpugan_torch/csrc/instance_norm.cu", "tpugan_torch/csrc/mlp_gp.cu"
     replaces = {
         "in_act_fwd": "tpugan/ops/pallas_kernels.py:226",
         "in_act_bwd": "tpugan/ops/pallas_kernels.py:237",
         "mlp_gp_fwd": "tpugan/ops/pallas_critic.py:151",
         "mlp_gp_bwd": "tpugan/ops/pallas_critic.py:165",
+        "adain_fwd": "tpugan/ops/pallas_kernels.py:343",
+        "adain_bwd": "tpugan/ops/pallas_kernels.py:354",
     }
     kernels = []
     for k in ("fwd", "bwd"):
-        t = in_time[k]
+        # The IN pair runs on two paths. Its launches and error cover both;
+        # its times are one CycleGAN step's, and by_path keeps each path's
+        # own launches, error and times over one step of that path.
+        by_path = {
+            path: {"launches": n, "max_abs_err": worst[k], "ms": t[k]["ms"],
+                   "plain_ms": t[k]["plain_ms"], "bound_ms": t[k]["bound_ms"],
+                   "library_ms": t[k].get("library_ms"), "times_of": times_of}
+            for path, n, worst, t, times_of in (
+                ("cyclegan", in_launches[k], in_worst, in_time,
+                 f"one cyclegan step, {FWD_PER_STEP} launches"),
+                ("munit", munit_launches[f"in_{k}"], munit_in_worst, munit_in_time,
+                 f"one munit step, {MUNIT_IN_PER_STEP} launches"))
+        }
+        c = by_path["cyclegan"]
         kernels.append({
             "name": f"in_act_{k}", "route": "cuda", "source": in_src,
-            "replaces": replaces[f"in_act_{k}"], "launches": in_launches[k],
-            "max_abs_err": in_worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": "bytes", "library_ms": t.get("library_ms"),
+            "replaces": replaces[f"in_act_{k}"],
+            "launches": in_launches[k] + munit_launches[f"in_{k}"],
+            "max_abs_err": max(in_worst[k], munit_in_worst[k]), "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": "bytes",
+            "library_ms": c["library_ms"], "times_of": c["times_of"], "by_path": by_path,
         })
     for k in ("fwd", "bwd"):
         t = gp_time[k]
@@ -679,6 +1119,14 @@ def main() -> int:
             "replaces": replaces[f"mlp_gp_{k}"], "launches": gp_launches[k],
             "max_abs_err": gp_worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+        })
+    for k in ("fwd", "bwd"):
+        t = adain_time[k]
+        kernels.append({
+            "name": f"adain_{k}", "route": "cuda", "source": in_src,
+            "replaces": replaces[f"adain_{k}"], "launches": munit_launches[f"adain_{k}"],
+            "max_abs_err": adain_worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the launch counts of one CycleGAN step and one WGAN-GP critic
-step.
+version, and the launch counts of one CycleGAN step, one WGAN-GP critic step
+and one MUNIT step.
 
 These need a CUDA device and skip without one. The file imports no JAX, so
 it also runs where JAX is not installed; there, skip the JAX-importing
@@ -11,12 +11,14 @@ it also runs where JAX is not installed; there, skip the JAX-importing
 Tolerances as in ``chip_smoke.py``: fp32 with sums in different orders,
 1e-5 absolute on y and 1e-4 of the largest |dx| on dx for instance norm; for
 the GP pair 1e-5 of the largest |g| on g and t, and 1e-4 of the largest
-entry on each weight gradient.
+entry on each weight gradient; for AdaIN 1e-5 * max(1, max|w|) absolute on y
+and 1e-4 of the largest |.| on each of dx, dw and dbias.
 """
 
 import pytest
 import torch
 
+from tpugan_torch.ops import adain as ta
 from tpugan_torch.ops import instance_norm as tin
 from tpugan_torch.ops import mlp_gp as gp
 
@@ -31,7 +33,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("slope", [0.0, 0.2, 1.0])
-@pytest.mark.parametrize("shape", [(2, 64, 32, 32), (1, 256, 16, 16), (2, 8, 31, 31), (3, 5, 1, 7)])
+@pytest.mark.parametrize("shape", [(2, 64, 32, 32), (1, 256, 16, 16), (2, 8, 31, 31), (3, 5, 1, 7),
+                                   (1, 128, 8, 8), (1, 512, 2, 2)])
 def test_kernels_match_plain_version(cuda, shape, slope):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, device=cuda, generator=gen)
@@ -131,3 +134,67 @@ def test_one_wgan_gp_d_step_launches_the_gp_pair_once(cuda):
     torch.cuda.synchronize()
     assert (gp.gp_fwd_launches, gp.gp_bwd_launches) == (1, 1)
     assert torch.isfinite(out["d_loss"])
+
+
+def _adain_inputs(shape, device, seed=0):
+    b, c = shape[:2]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, device=device, generator=gen)
+    g = torch.randn(shape, device=device, generator=gen)
+    w = 1.0 + 0.3 * torch.randn((b, c), device=device, generator=gen)
+    w[:, ::3] = 0.0  # zeros and negatives
+    w[:, 1::3] *= -1.0
+    bias = 0.3 * torch.randn((b, c), device=device, generator=gen)
+    return x, w, bias, g
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 32, 32), (40, 256, 32, 32), (2, 8, 31, 31),
+                                   (2, 4, 1, 1)])
+def test_adain_kernels_match_plain_version(cuda, shape):
+    x, w, bias, g = _adain_inputs(shape, cuda)
+    before = (ta.adain_fwd_launches, ta.adain_bwd_launches)
+    y, mean, rstd = ta.adain_fwd(x, w, bias, 1e-5)
+    grads = ta.adain_bwd(g, x, w, mean, rstd)
+    assert (ta.adain_fwd_launches, ta.adain_bwd_launches) == (before[0] + 1, before[1] + 1)
+    y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w, bias, 1e-5)
+    torch.testing.assert_close(y, y_r, rtol=0, atol=1e-5 * max(1.0, float(w.abs().max())))
+    torch.testing.assert_close(mean, mean_r, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd_r, rtol=1e-5, atol=0)
+    for a, b in zip(grads, ta.adain_bwd_ref(g, x, w, mean, rstd)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)
+
+
+def test_adain_kernels_reject_what_they_do_not_take(cuda):
+    x, w, bias, g = _adain_inputs((2, 4, 8, 8), cuda)
+    with pytest.raises(TypeError):
+        ta.adain_fwd(x.double(), w, bias, 1e-5)
+    with pytest.raises(ValueError):
+        ta.adain_fwd(x.transpose(2, 3), w, bias, 1e-5)
+    wide = torch.randn(2, 16, device=cuda)
+    with pytest.raises(ValueError):
+        ta.adain_fwd(x, wide[:, 4:8], bias, 1e-5)  # a strided slice: adain() copies it first
+    _, mean, rstd = ta.adain_fwd(x, w, bias, 1e-5)
+    with pytest.raises(TypeError):
+        ta.adain_bwd(g.double(), x, w, mean, rstd)
+    with pytest.raises(ValueError):
+        ta.adain_bwd(g, x, wide[:, 4:8], mean, rstd)
+
+
+def test_one_munit_step_launches_every_site_through_the_kernels(cuda):
+    import numpy as np
+
+    from tpugan_torch.models import munit
+
+    cfg = munit.Config(img_height=64, img_width=64)
+    modules = munit.build(cfg, cuda)
+    state = munit.create_state(cfg, modules, cuda)
+    step = munit.make_step(cfg, modules, cuda)
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)) for _ in "ab")
+    ta.reset_launch_counts()
+    tin.reset_launch_counts()
+    state, out = step(state, a, b)
+    torch.cuda.synchronize()
+    assert (ta.adain_fwd_launches, ta.adain_bwd_launches) == (24, 24)
+    assert (tin.fwd_launches, tin.bwd_launches) == (90, 90)
+    assert all(torch.isfinite(v) for v in out.values())

@@ -224,7 +224,7 @@ def test_layer_init_is_seeded_and_other_modes_raise():
     bn = BatchNorm1d(256, 0.8)
     assert (bn.eps, bn.momentum) == (0.8, 0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Linear(4, 4, init_mode="normal02")
+        Linear(4, 4, init_mode="he")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BatchNorm1d(4, init_mode="normal02")
 

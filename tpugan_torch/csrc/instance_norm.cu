@@ -1,23 +1,35 @@
-// Instance norm followed by a leaky activation, forward and backward, on
-// contiguous NCHW float32: one (sample, channel) plane of H*W values at a time.
+// Instance norm followed by a leaky activation or by a per-plane affine
+// (AdaIN), forward and backward, on contiguous NCHW float32: one (sample,
+// channel) plane of H*W values at a time.
 //
-// Replaces the three Pallas TPU kernels of tpugan/ops/pallas_kernels.py that
-// compute this one function: instance_norm_pallas (slope 1), the fused
+// Replaces four Pallas TPU kernels of tpugan/ops/pallas_kernels.py. Three
+// compute one function: instance_norm_pallas (slope 1), the fused
 // instance_norm_act_pallas, and the HW-tiled two-pass instance_norm_act_tiled
-// for maps above the TPU's VMEM envelope. Here one thread block owns one plane
+// for maps above the TPU's VMEM envelope. The fourth is adain_pallas
+// (_adain_fwd_kernel, _adain_bwd_kernel), whose weight and bias come per
+// (sample, channel) from a style code. Here one thread block owns one plane
 // and loops over all of H*W, which takes the place of the TPU's sequential
-// tile axis; there is no size envelope.
+// tile axis; there is no size envelope. The affine variant is the same
+// kernels with kAffine set.
 //
 //   forward:  mean, var = mean((x - mean)^2)  (centred, two passes: no
 //             E[x^2] - mean^2 cancellation at large offsets),
 //             rstd = 1/sqrt(var + eps), xh = (x - mean) * rstd,
-//             y = xh >= 0 ? xh : slope * xh
-//   backward: gh = g * (xh >= 0 ? 1 : slope),
-//             dx = (gh - mean(gh) - xh * mean(gh * xh)) * rstd
+//             y = xh >= 0 ? xh : slope * xh       (leaky)
+//             y = xh * w[p] + b[p]                 (affine, p = n * C + c)
+//   backward: gh = g * (xh >= 0 ? 1 : slope)      (leaky; gh = g when affine),
+//             s = sum(gh), t = sum(gh * xh),
+//             dx = (gh - s/HW - xh * t/HW) * rstd * a,  a = 1 or w[p];
+//             affine also db[p] = s, dw[p] = t.
+//   The affine dx is (w g - mean(w g) - xh mean(w g xh)) * rstd with w taken
+//   out of the bracket: no division by w, so w = 0 is safe. One block owns a
+//   plane and its sums, so there are no atomics and both directions repeat
+//   bit for bit.
 //
 // Bound by memory bandwidth: the forward reads x three times (the later
 // reads mostly hit L2, a plane is at most 256 KB) and writes y once; the
-// backward reads g and x twice and writes dx once. Loads are 16 bytes wide
+// backward reads g and x twice and writes dx once. The affine variant adds
+// two floats a plane each way (w, b in; dw, db out). Loads are 16 bytes wide
 // where H*W % 4 == 0 and the pointers are aligned.
 //
 // C interface for ctypes: every entry takes the CUDA stream as void*, launches
@@ -72,12 +84,36 @@ __device__ __forceinline__ float leaky_grad(float xh, float slope) {
   return xh >= 0.f ? 1.f : slope;
 }
 
-template <bool kVec>
-__global__ void in_act_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
+// The forward's output from xh: leaky(slope), or the plane's affine.
+template <bool kAffine>
+__device__ __forceinline__ float fwd_out(float xh, float slope, float w, float b) {
+  if constexpr (kAffine) {
+    return xh * w + b;
+  } else {
+    return leaky(xh, slope);
+  }
+}
+
+// The backward's gh: the activation's gradient applied, or g as it is.
+template <bool kAffine>
+__device__ __forceinline__ float grad_in(float g, float xh, float slope) {
+  if constexpr (kAffine) {
+    return g;
+  } else {
+    return g * leaky_grad(xh, slope);
+  }
+}
+
+// w and b are read only when kAffine (one float each per plane).
+template <bool kVec, bool kAffine>
+__global__ void in_act_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_in,
+                                  const float* __restrict__ b_in, float* __restrict__ y,
                                   float* __restrict__ mean_out, float* __restrict__ rstd_out,
                                   int64_t hw, float eps, float slope) {
   __shared__ float red[2 * kMaxWarps];
   const int64_t base = static_cast<int64_t>(blockIdx.x) * hw;
+  const float w = kAffine ? w_in[blockIdx.x] : 1.f;
+  const float b = kAffine ? b_in[blockIdx.x] : 0.f;
   const float* xp = x + base;
   float* yp = y + base;
   const int64_t n4 = kVec ? hw / 4 : 0;
@@ -114,21 +150,21 @@ __global__ void in_act_fwd_kernel(const float* __restrict__ x, float* __restrict
   block_sum2(q, unused, red);
   const float rstd = 1.f / sqrtf(q / static_cast<float>(hw) + eps);
 
-  // Pass 3: normalise and activate.
+  // Pass 3: normalise, then activate or apply the affine.
   if (kVec) {
     float4* y4 = reinterpret_cast<float4*>(yp);
     for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
       const float4 v = x4[i];
       float4 o;
-      o.x = leaky((v.x - mean) * rstd, slope);
-      o.y = leaky((v.y - mean) * rstd, slope);
-      o.z = leaky((v.z - mean) * rstd, slope);
-      o.w = leaky((v.w - mean) * rstd, slope);
+      o.x = fwd_out<kAffine>((v.x - mean) * rstd, slope, w, b);
+      o.y = fwd_out<kAffine>((v.y - mean) * rstd, slope, w, b);
+      o.z = fwd_out<kAffine>((v.z - mean) * rstd, slope, w, b);
+      o.w = fwd_out<kAffine>((v.w - mean) * rstd, slope, w, b);
       y4[i] = o;
     }
   } else {
     for (int64_t i = threadIdx.x; i < hw; i += blockDim.x)
-      yp[i] = leaky((xp[i] - mean) * rstd, slope);
+      yp[i] = fwd_out<kAffine>((xp[i] - mean) * rstd, slope, w, b);
   }
   if (threadIdx.x == 0) {
     mean_out[blockIdx.x] = mean;
@@ -136,10 +172,13 @@ __global__ void in_act_fwd_kernel(const float* __restrict__ x, float* __restrict
   }
 }
 
-template <bool kVec>
+// w_in is read, and dw/db written, only when kAffine.
+template <bool kVec, bool kAffine>
 __global__ void in_act_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                                  const float* __restrict__ w_in,
                                   const float* __restrict__ mean_in,
                                   const float* __restrict__ rstd_in, float* __restrict__ dx,
+                                  float* __restrict__ dw, float* __restrict__ db,
                                   int64_t hw, float slope) {
   __shared__ float red[2 * kMaxWarps];
   const int64_t base = static_cast<int64_t>(blockIdx.x) * hw;
@@ -159,15 +198,15 @@ __global__ void in_act_bwd_kernel(const float* __restrict__ g, const float* __re
       const float4 gv = g4[i], xv = x4[i];
       const float ha = (xv.x - mean) * rstd, hb = (xv.y - mean) * rstd;
       const float hc = (xv.z - mean) * rstd, hd = (xv.w - mean) * rstd;
-      const float ga = gv.x * leaky_grad(ha, slope), gb = gv.y * leaky_grad(hb, slope);
-      const float gc = gv.z * leaky_grad(hc, slope), gd = gv.w * leaky_grad(hd, slope);
+      const float ga = grad_in<kAffine>(gv.x, ha, slope), gb = grad_in<kAffine>(gv.y, hb, slope);
+      const float gc = grad_in<kAffine>(gv.z, hc, slope), gd = grad_in<kAffine>(gv.w, hd, slope);
       s += (ga + gb) + (gc + gd);
       t += (ga * ha + gb * hb) + (gc * hc + gd * hd);
     }
   } else {
     for (int64_t i = threadIdx.x; i < hw; i += blockDim.x) {
       const float h = (xp[i] - mean) * rstd;
-      const float gh = gp[i] * leaky_grad(h, slope);
+      const float gh = grad_in<kAffine>(gp[i], h, slope);
       s += gh;
       t += gh * h;
     }
@@ -176,6 +215,11 @@ __global__ void in_act_bwd_kernel(const float* __restrict__ g, const float* __re
   const float inv_hw = 1.f / static_cast<float>(hw);
   const float m1 = s * inv_hw;
   const float m2 = t * inv_hw;
+  const float scale = kAffine ? w_in[blockIdx.x] * rstd : rstd;
+  if (kAffine && threadIdx.x == 0) {
+    db[blockIdx.x] = s;
+    dw[blockIdx.x] = t;
+  }
 
   // Pass 2: dx.
   if (kVec) {
@@ -185,19 +229,19 @@ __global__ void in_act_bwd_kernel(const float* __restrict__ g, const float* __re
       float4 o;
       float h;
       h = (xv.x - mean) * rstd;
-      o.x = (gv.x * leaky_grad(h, slope) - m1 - h * m2) * rstd;
+      o.x = (grad_in<kAffine>(gv.x, h, slope) - m1 - h * m2) * scale;
       h = (xv.y - mean) * rstd;
-      o.y = (gv.y * leaky_grad(h, slope) - m1 - h * m2) * rstd;
+      o.y = (grad_in<kAffine>(gv.y, h, slope) - m1 - h * m2) * scale;
       h = (xv.z - mean) * rstd;
-      o.z = (gv.z * leaky_grad(h, slope) - m1 - h * m2) * rstd;
+      o.z = (grad_in<kAffine>(gv.z, h, slope) - m1 - h * m2) * scale;
       h = (xv.w - mean) * rstd;
-      o.w = (gv.w * leaky_grad(h, slope) - m1 - h * m2) * rstd;
+      o.w = (grad_in<kAffine>(gv.w, h, slope) - m1 - h * m2) * scale;
       d4[i] = o;
     }
   } else {
     for (int64_t i = threadIdx.x; i < hw; i += blockDim.x) {
       const float h = (xp[i] - mean) * rstd;
-      dp[i] = (gp[i] * leaky_grad(h, slope) - m1 - h * m2) * rstd;
+      dp[i] = (grad_in<kAffine>(gp[i], h, slope) - m1 - h * m2) * scale;
     }
   }
 }
@@ -212,30 +256,58 @@ int threads_for(int64_t hw) {
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-}  // namespace
-
-extern "C" int in_act_fwd(const float* x, float* y, float* mean, float* rstd, int64_t planes,
-                          int64_t hw, float eps, float slope, void* stream) {
+template <bool kAffine>
+int launch_fwd(const float* x, const float* w, const float* b, float* y, float* mean, float* rstd,
+               int64_t planes, int64_t hw, float eps, float slope, void* stream) {
   if (planes <= 0 || hw <= 0 || planes > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(planes));
   const int threads = threads_for(hw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hw % 4 == 0 && aligned16(x) && aligned16(y))
-    in_act_fwd_kernel<true><<<grid, threads, 0, s>>>(x, y, mean, rstd, hw, eps, slope);
+    in_act_fwd_kernel<true, kAffine><<<grid, threads, 0, s>>>(x, w, b, y, mean, rstd, hw, eps, slope);
   else
-    in_act_fwd_kernel<false><<<grid, threads, 0, s>>>(x, y, mean, rstd, hw, eps, slope);
+    in_act_fwd_kernel<false, kAffine><<<grid, threads, 0, s>>>(x, w, b, y, mean, rstd, hw, eps, slope);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int in_act_bwd(const float* g, const float* x, const float* mean, const float* rstd,
-                          float* dx, int64_t planes, int64_t hw, float slope, void* stream) {
+template <bool kAffine>
+int launch_bwd(const float* g, const float* x, const float* w, const float* mean,
+               const float* rstd, float* dx, float* dw, float* db, int64_t planes, int64_t hw,
+               float slope, void* stream) {
   if (planes <= 0 || hw <= 0 || planes > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(planes));
   const int threads = threads_for(hw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hw % 4 == 0 && aligned16(g) && aligned16(x) && aligned16(dx))
-    in_act_bwd_kernel<true><<<grid, threads, 0, s>>>(g, x, mean, rstd, dx, hw, slope);
+    in_act_bwd_kernel<true, kAffine><<<grid, threads, 0, s>>>(g, x, w, mean, rstd, dx, dw, db, hw,
+                                                             slope);
   else
-    in_act_bwd_kernel<false><<<grid, threads, 0, s>>>(g, x, mean, rstd, dx, hw, slope);
+    in_act_bwd_kernel<false, kAffine><<<grid, threads, 0, s>>>(g, x, w, mean, rstd, dx, dw, db,
+                                                              hw, slope);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int in_act_fwd(const float* x, float* y, float* mean, float* rstd, int64_t planes,
+                          int64_t hw, float eps, float slope, void* stream) {
+  return launch_fwd<false>(x, nullptr, nullptr, y, mean, rstd, planes, hw, eps, slope, stream);
+}
+
+extern "C" int in_act_bwd(const float* g, const float* x, const float* mean, const float* rstd,
+                          float* dx, int64_t planes, int64_t hw, float slope, void* stream) {
+  return launch_bwd<false>(g, x, nullptr, mean, rstd, dx, nullptr, nullptr, planes, hw, slope,
+                           stream);
+}
+
+// AdaIN: w and b hold one float per plane, (B, C) contiguous.
+extern "C" int adain_fwd(const float* x, const float* w, const float* b, float* y, float* mean,
+                         float* rstd, int64_t planes, int64_t hw, float eps, void* stream) {
+  return launch_fwd<true>(x, w, b, y, mean, rstd, planes, hw, eps, 1.f, stream);
+}
+
+extern "C" int adain_bwd(const float* g, const float* x, const float* w, const float* mean,
+                         const float* rstd, float* dx, float* dw, float* db, int64_t planes,
+                         int64_t hw, void* stream) {
+  return launch_bwd<true>(g, x, w, mean, rstd, dx, dw, db, planes, hw, 1.f, stream);
 }

@@ -121,6 +121,31 @@ def synthetic_scene_pairs(
     )
 
 
+def paired_or_synthetic(
+    data_dir: str,
+    dataset_name: str,
+    height: int,
+    width: int,
+    split: str = "train",
+    synthetic: bool = False,
+    synthetic_n: int = 512,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray, bool]:
+    """Returns (A, B, is_real) for paired training."""
+    if not synthetic:
+        root = os.path.join(data_dir, dataset_name)
+        pair = load_paired_folder(root, split, height, width)
+        if pair is not None:
+            return pair[0], pair[1], True
+        # cyclegan-layout fallback only works as PAIRED data when the two
+        # folders align 1:1; otherwise fall through to synthetic pairs.
+        pair = load_unpaired_folders(root, split, height, width)
+        if pair is not None and len(pair[0]) == len(pair[1]):
+            return pair[0], pair[1], True
+    a, b = synthetic_scene_pairs(synthetic_n, height, width, seed)
+    return a, b, False
+
+
 def unpaired_or_synthetic(
     data_dir: str,
     dataset_name: str,
@@ -178,3 +203,19 @@ def resize_crop_flip_transform(
 
     return transform
 
+
+def joint_hflip_transform(seed: int, prob: float = 0.5, indices=(0, 1)):
+    """Loader host_transform: flip the SAME samples in both domains (the
+    paired datasets' joint np-slice flip, pix2pix/datasets.py:26-28)."""
+
+    def transform(batch, epoch, bidx):
+        rng = np.random.default_rng((seed, epoch, bidx, 1))
+        flips = rng.random(len(batch[0])) < prob
+        out = list(batch)
+        for i in indices:
+            arr = out[i].copy()
+            arr[flips] = arr[flips, :, ::-1]
+            out[i] = arr
+        return tuple(out)
+
+    return transform

@@ -1,17 +1,21 @@
 """Load JAX-package parameters into the port's modules.
 
 ``load_jax_params(module, params, batch_stats)`` takes nested dicts of numpy
-arrays, as ``jax.device_get(state.params["G_AB"])`` and
-``state.model_state[...]`` give, and copies them into the module. BatchNorm's
-``running_mean``/``running_var`` come from the flax ``batch_stats`` leaves
-``mean``/``var``, paired in the same order; ``num_batches_tracked`` has no
-flax counterpart and is left as it is.
+arrays in flax's insertion order, as ``state.params["G_AB"]`` and
+``state.model_state[...]`` hold them after ``init``, and copies them into the
+module. BatchNorm's ``running_mean``/``running_var`` come from the flax
+``batch_stats`` leaves ``mean``/``var``, paired in the same order;
+``num_batches_tracked`` has no flax counterpart and is left as it is.
 
 Pairing follows ``tpugan/io/torch_interop.py:export_state_dict``: each
 ``state_dict`` entry, in registration order, takes the first unused flax leaf
 of the same kind whose layout-transformed shape matches, the flax leaves
-walked in insertion order (which is call order). This module repeats that
-logic so the port does not import ``tpugan.io``, which imports JAX.
+walked in insertion order (which is call order). ``jax.device_get``,
+``jax.tree_util.tree_map`` and ``jit`` outputs sort dict keys instead
+(``Conv_10`` before ``Conv_2``), which pairs wrongly once a scope holds more
+than ten layers of one class, as MUNIT's MultiDiscriminator does: rebuild such
+a tree in the order of the ``init`` params first. This module repeats the
+pairing so the port does not import ``tpugan.io``, which imports JAX.
 """
 
 from __future__ import annotations
@@ -42,8 +46,12 @@ def _flax_groups(params: Dict) -> Dict[str, List[np.ndarray]]:
         name, nd = path[-1], np.ndim(leaf)
         if name == "kernel" and nd in (2, 4):
             kind = "conv_kernel" if nd == 4 else "linear_kernel"
-        elif name == "scale":
+        elif name in ("scale", "gamma"):
+            # gamma/beta: MUNIT's LayerNormSpatial affine, named so on both
+            # sides (torch_interop.py:85-91).
             kind = "norm_scale"
+        elif name == "beta":
+            kind = "norm_bias"
         elif name == "bias":
             continue
         else:
@@ -75,6 +83,8 @@ def _torch_kind(sd, key: str) -> str:
     nd = sd[key].dim()
     if base in ("running_mean", "running_var"):
         return "bn_" + base[len("running_"):]
+    if base in ("gamma", "beta"):
+        return {"gamma": "norm_scale", "beta": "norm_bias"}[base]
     if base == "weight":
         return {4: "conv_kernel", 2: "linear_kernel", 1: "norm_scale"}[nd]
     if base == "bias":

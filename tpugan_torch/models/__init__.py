@@ -1,6 +1,6 @@
-"""Trainer registry of the port: ``cyclegan`` and ``wgan_gp``, so far. Each
-trainer module exposes ``Config``, ``build``, ``create_state``, its step
-makers (``make_step`` or ``make_steps``), ``make_loader``, ``run`` and
+"""Trainer registry of the port: ``cyclegan``, ``munit`` and ``wgan_gp``, so
+far. Each trainer module exposes ``Config``, ``build``, ``create_state``, its
+step makers (``make_step`` or ``make_steps``), ``make_loader``, ``run`` and
 ``main``."""
 
 from __future__ import annotations
@@ -9,6 +9,7 @@ import importlib
 
 _REGISTRY = {
     "cyclegan": "tpugan_torch.models.cyclegan",
+    "munit": "tpugan_torch.models.munit",
     "wgan_gp": "tpugan_torch.models.wgan_gp",
 }
 

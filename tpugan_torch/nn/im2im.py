@@ -39,11 +39,14 @@ def _numbered(layers) -> nn.Sequential:
 
 class ResidualBlockIN(nn.Module):
     """ReflectionPad(1)-Conv3-IN-ReLU-ReflectionPad(1)-Conv3-IN with an
-    identity skip (``tpugan/nn/im2im.py:157-181``)."""
+    identity skip (``tpugan/nn/im2im.py:157-181``). IN+ReLU is fused, as the
+    JAX block's ``instance_norm_act(y, 0.0)``: its gradient at exactly 0 is
+    1."""
 
-    def __init__(self, features: int, generator: Optional[torch.Generator] = None):
+    def __init__(self, features: int, generator: Optional[torch.Generator] = None,
+                 init_mode: str = "normal02zero"):
         super().__init__()
-        conv = lambda: Conv2d(features, features, 3, generator=generator)
+        conv = lambda: Conv2d(features, features, 3, init_mode=init_mode, generator=generator)
         self.block = _numbered([
             (ReflectionPad(1), 1), (conv(), 1), (InstanceNorm(act_slope=0.0), 2),
             (ReflectionPad(1), 1), (conv(), 1), (InstanceNorm(), 1),

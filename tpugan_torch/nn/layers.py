@@ -1,7 +1,8 @@
 """Layers with the JAX package's semantics (``tpugan/nn/layers.py``), on NCHW.
 
-Only what the CycleGAN and WGAN-GP slices need is here. Options they do not
-use raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Only what the CycleGAN, WGAN-GP and MUNIT slices need is here. Options they
+do not use raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -24,12 +25,37 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
     return torch.where(x >= 0, x, negative_slope * x)
 
 
+def _check_init_mode(layer: str, init_mode: str, ported: tuple) -> None:
+    if init_mode not in ported:
+        raise NotImplementedError(f"{layer}(init_mode={init_mode!r}): {_LAYERS_ITEM}")
+
+
+@torch.no_grad()
+def _init_weight_bias(layer, init_mode: str, fan_in: int, generator) -> None:
+    """``tpugan/nn/layers.py:_weight_init``/``_bias_init``: ``torch`` is
+    kaiming_uniform_(a=sqrt(5)) and bias U(+-1/sqrt(fan_in)); ``normal02``
+    is weight N(0, 0.02) with that same bias (the reference's
+    ``weights_init_normal``, which leaves biases at torch's default);
+    ``normal02zero`` is weight N(0, 0.02) and bias zero. Draws come from
+    ``generator``, so a seed fixes them."""
+    if init_mode == "torch":
+        nn.init.kaiming_uniform_(layer.weight, a=math.sqrt(5), generator=generator)
+    else:
+        layer.weight.normal_(0.0, 0.02, generator=generator)
+    if layer.bias is None:
+        return
+    if init_mode == "normal02zero":
+        layer.bias.zero_()
+    else:
+        bound = 1.0 / math.sqrt(fan_in)
+        layer.bias.uniform_(-bound, bound, generator=generator)
+
+
 class Conv2d(nn.Conv2d):
-    """torch.nn.Conv2d with the ``normal02zero`` init of
-    ``tpugan/nn/layers.py:_weight_init``: weights N(0, 0.02), bias zero (the
-    reference cyclegan's ``weights_init_normal``, cyclegan/models.py:6-14).
-    Draws come from ``generator``, so a seed fixes the weights. The other
-    init modes come with the DCGAN spine (ROADMAP queue 1, item 1)."""
+    """torch.nn.Conv2d with an ``init_mode`` of ``tpugan/nn/layers.py:Conv``.
+    The default is ``normal02zero``, the reference cyclegan's
+    ``weights_init_normal`` (cyclegan/models.py:6-14); munit's is
+    ``normal02``."""
 
     def __init__(
         self,
@@ -40,20 +66,17 @@ class Conv2d(nn.Conv2d):
         padding: int = 0,
         bias: bool = True,
         *,
+        init_mode: str = "normal02zero",
         generator: Optional[torch.Generator] = None,
     ):
+        _check_init_mode("Conv2d", init_mode, ("normal02zero", "normal02"))
         super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=bias)
-        with torch.no_grad():
-            self.weight.normal_(0.0, 0.02, generator=generator)
-            if self.bias is not None:
-                self.bias.zero_()
+        _init_weight_bias(self, init_mode, in_channels * kernel_size * kernel_size, generator)
 
 
 class Linear(nn.Linear):
-    """torch.nn.Linear with torch's default init (``init_mode="torch"`` of
-    ``tpugan/nn/layers.py:Linear``): weight ``kaiming_uniform_(a=sqrt(5))``,
-    bias U(+-1/sqrt(fan_in)), both drawn from ``generator`` so a seed fixes
-    them. The other init modes come with the DCGAN spine."""
+    """torch.nn.Linear with an ``init_mode`` of ``tpugan/nn/layers.py:Linear``;
+    the default is torch's own init."""
 
     def __init__(
         self,
@@ -64,14 +87,9 @@ class Linear(nn.Linear):
         init_mode: str = "torch",
         generator: Optional[torch.Generator] = None,
     ):
-        if init_mode != "torch":
-            raise NotImplementedError(f"Linear(init_mode={init_mode!r}): {_LAYERS_ITEM}")
+        _check_init_mode("Linear", init_mode, ("torch", "normal02"))
         super().__init__(in_features, out_features, bias=bias)
-        with torch.no_grad():
-            nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5), generator=generator)
-            if self.bias is not None:
-                bound = 1.0 / math.sqrt(in_features)
-                self.bias.uniform_(-bound, bound, generator=generator)
+        _init_weight_bias(self, init_mode, in_features, generator)
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -115,6 +133,28 @@ class InstanceNorm(nn.Module):
 
     def extra_repr(self) -> str:
         return f"act_slope={self.act_slope}, eps={self.eps}"
+
+
+class LayerNormSpatial(nn.Module):
+    """MUNIT's LayerNorm (``tpugan/nn/layers.py:LayerNormSpatial``,
+    munit/models.py:304-324): per sample over (C, H, W), divided by the
+    unbiased std plus eps (eps on the std, not the variance), then a
+    per-channel affine ``gamma`` ~ U(0, 1), ``beta`` = 0, registered under
+    the reference's names."""
+
+    eps = 1e-5
+
+    def __init__(self, num_features: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.empty(num_features).uniform_(generator=generator))
+        self.beta = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        flat = x.reshape(x.shape[0], -1)
+        mean = flat.mean(dim=1).reshape(-1, 1, 1, 1)
+        std = flat.std(dim=1).reshape(-1, 1, 1, 1)
+        y = (x - mean) / (std + self.eps)
+        return y * self.gamma.reshape(1, -1, 1, 1) + self.beta.reshape(1, -1, 1, 1)
 
 
 class Upsample(nn.Module):

@@ -92,6 +92,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.in_act_fwd.restype = ctypes.c_int
     lib.in_act_bwd.argtypes = [p, p, p, p, p, i64, i64, f32, p]
     lib.in_act_bwd.restype = ctypes.c_int
+    lib.adain_fwd.argtypes = [p] * 6 + [i64, i64, f32, p]
+    lib.adain_fwd.restype = ctypes.c_int
+    lib.adain_bwd.argtypes = [p] * 8 + [i64, i64, p]
+    lib.adain_bwd.restype = ctypes.c_int
     lib.mlp_gp_fwd.argtypes = [p] * 12 + [i64] * 4 + [p]
     lib.mlp_gp_fwd.restype = ctypes.c_int
     lib.mlp_gp_bwd.argtypes = [p] * 11 + [i64] * 4 + [p]

@@ -21,3 +21,10 @@ def zero_pad_lt(x: torch.Tensor) -> torch.Tensor:
     """nn.ZeroPad2d((1, 0, 1, 0)): one zero column on the left, one zero row
     on top (the PatchGAN head's asymmetric pad)."""
     return F.pad(x, (1, 0, 1, 0))
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
+             count_include_pad: bool = True) -> torch.Tensor:
+    """nn.AvgPool2d(window, stride, padding, count_include_pad)
+    (``tpugan/ops/image.py:avg_pool``)."""
+    return F.avg_pool2d(x, window, stride, padding, count_include_pad=count_include_pad)

@@ -74,15 +74,18 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def in_act_fwd(x: torch.Tensor, eps: float, slope: float):
-    """Forward wrapper: (y, mean, rstd). CPU tensors take the plain version;
-    CUDA tensors launch ``in_act_fwd`` of ``instance_norm.cu``."""
-    global fwd_launches
-    if x.device.type == "cpu":
-        return in_act_fwd_ref(x, eps, slope)
-    _check_cuda("in_act_fwd", x)
+def _launch_fwd(name: str, x, eps: float, slope: float, w=None, b=None):
+    """Checks a CUDA input and launches the forward of ``instance_norm.cu``:
+    ``in_act_fwd`` at ``slope``, or ``adain_fwd`` given the per-plane w and b
+    of shape (B, C). Returns (y, mean, rstd)."""
+    affine = w is not None
+    _check_cuda(name, x, *((w, b) if affine else ()))
     if x.dim() != 4 or x.numel() == 0:
-        raise ValueError(f"in_act_fwd: expected a non-empty NCHW tensor, got {tuple(x.shape)}")
+        raise ValueError(f"{name}: expected a non-empty NCHW tensor, got {tuple(x.shape)}")
+    for t in (w, b) if affine else ():
+        if t.shape != x.shape[:2]:
+            raise ValueError(f"{name}: per-plane tensor {tuple(t.shape)}, expected "
+                             f"{tuple(x.shape[:2])}")
     from tpugan_torch.ops._build import library
 
     planes, hw = _planes(x)
@@ -90,13 +93,54 @@ def in_act_fwd(x: torch.Tensor, eps: float, slope: float):
     mean = torch.empty(planes, device=x.device, dtype=torch.float32)
     rstd = torch.empty_like(mean)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = library().in_act_fwd(
-        x.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-        planes, hw, eps, slope, stream,
-    )
-    _raise_on(rc, "in_act_fwd")
-    fwd_launches += 1
+    if affine:
+        rc = library().adain_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                                 mean.data_ptr(), rstd.data_ptr(), planes, hw, eps, stream)
+    else:
+        rc = library().in_act_fwd(x.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                                  planes, hw, eps, slope, stream)
+    _raise_on(rc, name)
     return y, mean, rstd
+
+
+def _launch_bwd(name: str, g, x, mean, rstd, slope: float, w=None):
+    """Checks CUDA inputs and launches the backward of ``instance_norm.cu``:
+    ``in_act_bwd`` at ``slope``, returning dx, or ``adain_bwd`` given w,
+    returning (dx, dw, dbias)."""
+    affine = w is not None
+    _check_cuda(name, g, x, mean, rstd, *((w,) if affine else ()))
+    planes, hw = _planes(x)
+    if g.shape != x.shape or mean.shape != (planes,) or rstd.shape != (planes,) or (
+            affine and w.shape != x.shape[:2]):
+        raise ValueError(
+            f"{name}: shapes g {tuple(g.shape)}, x {tuple(x.shape)}, mean {tuple(mean.shape)}, "
+            f"rstd {tuple(rstd.shape)}{f', w {tuple(w.shape)}' if affine else ''} do not agree"
+        )
+    from tpugan_torch.ops._build import library
+
+    dx = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if affine:
+        dw, db = torch.empty_like(w), torch.empty_like(w)
+        rc = library().adain_bwd(g.data_ptr(), x.data_ptr(), w.data_ptr(), mean.data_ptr(),
+                                 rstd.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+                                 planes, hw, stream)
+    else:
+        rc = library().in_act_bwd(g.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                                  dx.data_ptr(), planes, hw, slope, stream)
+    _raise_on(rc, name)
+    return (dx, dw, db) if affine else dx
+
+
+def in_act_fwd(x: torch.Tensor, eps: float, slope: float):
+    """Forward wrapper: (y, mean, rstd). CPU tensors take the plain version;
+    CUDA tensors launch ``in_act_fwd`` of ``instance_norm.cu``."""
+    global fwd_launches
+    if x.device.type == "cpu":
+        return in_act_fwd_ref(x, eps, slope)
+    out = _launch_fwd("in_act_fwd", x, eps, slope)
+    fwd_launches += 1
+    return out
 
 
 def in_act_bwd(g, x, mean, rstd, slope: float):
@@ -105,22 +149,7 @@ def in_act_bwd(g, x, mean, rstd, slope: float):
     global bwd_launches
     if x.device.type == "cpu":
         return in_act_bwd_ref(g, x, mean, rstd, slope)
-    _check_cuda("in_act_bwd", g, x, mean, rstd)
-    planes, hw = _planes(x)
-    if g.shape != x.shape or mean.shape != (planes,) or rstd.shape != (planes,):
-        raise ValueError(
-            f"in_act_bwd: shapes g {tuple(g.shape)}, x {tuple(x.shape)}, "
-            f"mean {tuple(mean.shape)}, rstd {tuple(rstd.shape)} do not agree"
-        )
-    from tpugan_torch.ops._build import library
-
-    dx = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = library().in_act_bwd(
-        g.data_ptr(), x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
-        planes, hw, slope, stream,
-    )
-    _raise_on(rc, "in_act_bwd")
+    dx = _launch_bwd("in_act_bwd", g, x, mean, rstd, slope)
     bwd_launches += 1
     return dx
 
