@@ -9,11 +9,16 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    native host pipeline is built;
 2. build: every CUDA kernel of the port from ``tpugan_torch/csrc`` (one nvcc
    per source, started together), with ptxas's registers and spills;
+   launch cost: the host time of one IN or AdaIN launch and of its parts,
+   beside the library calls, at the MUNIT step shape (``host_us``);
 3. IN parity and time: the instance-norm pair against its plain PyTorch
    version on the card, forward and backward, at every shape the CycleGAN
-   slice gives it and at slopes 0.0, 0.2 and 1.0, plus a ragged H*W and a
-   large-offset case; at each step shape the kernels' times (CUDA events)
-   beside the plain version's, the bound, and ``F.instance_norm``'s time;
+   slice gives it and at slopes 0.0, 0.2 and 1.0, plus ragged planes and a
+   large-offset case, each repeating bit for bit; at each step shape the
+   kernels' times (CUDA events) beside the plain version's, the bound, and
+   the library call on the (1, B*C, H, W) view (``F.instance_norm`` forward,
+   ``native_batch_norm_backward`` backward), then the device time per call
+   of the kernels and the library calls (torch.profiler);
 4. CycleGAN slice: ``tpugan_torch.models.cyclegan.main`` at 256px, batch 1,
    9 residual blocks, fp32, for 6 steps with samples and checkpoints; checks
    finite losses, the output files, and that every instance-norm site went
@@ -31,7 +36,8 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    bias as strided slices through ``adain()``; both directions must repeat
    bit for bit. Then the kernels' times at the slice's two shapes beside the
    plain version, the bound and ``F.instance_norm`` (forward) or
-   ``native_batch_norm_backward`` (backward) on the (1, B*C, H, W) view.
+   ``native_batch_norm_backward`` (backward) on the (1, B*C, H, W) view,
+   CUDA events and device time.
 8. MUNIT IN parity and time: the instance-norm pair against its plain
    version at every (shape, slope) site of the MUNIT path, the step's and the
    sample grid's, down to the discriminator's 2x2 planes; then the times at
@@ -49,7 +55,8 @@ The bounds use the published peaks of the card ``nvidia-smi`` names
 
 Any failure raises, and the script exits non-zero without the final line.
 The last three lines are the kernels' JSON record (every kernel with its
-launches on the main path, error, times, bound and library-call time; the IN
+launches on the main path, error, times, device time, bound and library-call
+time; the IN
 pair, which runs on the CycleGAN and the MUNIT paths, also by path),
 ``nvidia-smi``'s name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no JAX.
@@ -60,6 +67,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -157,7 +165,10 @@ ADAIN_CASES = [
     ((2, 4, 1, 1), 0.0, "normal"),  # 1x1 planes: xh = 0
     ((2, 64, 64, 64), 100.0, "normal"),  # mean = 100 * std
     (ADAIN_STEP_SHAPE, 0.0, "zeros"),
+    ((1, 64, 128, 128), 0.0, "zeros"),  # clusters of 4 CTAs a plane, both ways
 ]
+# Calls a host time of the [launch cost] phase is taken over.
+LAUNCH_CALLS = 2000
 
 
 def log(msg: str = "") -> None:
@@ -206,6 +217,61 @@ def device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
+def device_ms(fn, reps: int):
+    """Device time per call in ms from torch.profiler over ``reps`` calls.
+    ``cuda_ms`` of the same calls also holds the host's time wherever the
+    host is the slower side. Every call launches the same kernels, so the
+    time per call is, for each kernel name, its mean duration times its
+    launches per call (its count over reps, rounded): the sum over reps
+    divided by reps when the trace is whole, and still the time per call
+    when the profiler drops events, as it does in some sessions on the H100
+    machine (4-5 in 100 in a fresh process, most of them late in one run).
+    None (not measured) where no event came back in 3 tries."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in device_kernels(prof):
+            tot, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+        if by_name:
+            return sum(tot / n * max(1, round(n / reps)) for tot, n in by_name.values()) / 1e3
+    return None
+
+
+def add_ms(total, n, t):
+    """total + n * t, where a time that was not measured (None) makes the
+    sum not measured too."""
+    return None if total is None or t is None else total + n * t
+
+
+def fmt_ms(t, width: int = 7) -> str:
+    return f"{t:{width}.4f}" if t is not None else "n/m".rjust(width)
+
+
+def host_us(fn, calls: int = LAUNCH_CALLS) -> float:
+    """Host time per call in µs: ``time.perf_counter_ns`` around ``calls``
+    calls after 50 of warm-up, then one synchronize outside the clock."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls / 1e3
+
+
 def phase_device():
     import torch
 
@@ -242,6 +308,92 @@ def phase_build():
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log("[build] " + line.strip())
+    spills = [m for m in re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                    info.log) if m != ("0", "0")]
+    log(f"[build] kernels with spills: {len(spills)}")
+
+
+def phase_launch_cost(smi):
+    """Host time of one launch and of its parts, µs a call (``host_us``), at
+    the MUNIT step shape: the whole ``adain_bwd`` and ``in_act_fwd``
+    wrappers, ``AdaIN.apply`` forward and backward, the bare ctypes call, the
+    allocations, the stream lookup, the checks and the plan; the parts the
+    wrappers did before their redesign; and the library calls beside them."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    from tpugan_torch.ops import _build
+    from tpugan_torch.ops import adain as ta
+    from tpugan_torch.ops import instance_norm as tin
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shape = ADAIN_STEP_SHAPE
+    x, w, bias, g = _adain_inputs(shape, 0.0, "normal", gen)
+    b, c, h, wd = shape
+    planes, hw = b * c, h * wd
+    dev = x.get_device()
+    _, mean, rstd = ta.adain_fwd_ref(x, w, bias, EPS)
+    _, plan_arg = tin._plan_arg(planes, hw, "bwd")
+    lib = _build.library()
+    dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(w)
+    stats = x.new_empty((2, planes))
+    ptrs = (g.data_ptr(), x.data_ptr(), w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            dx.data_ptr(), dw.data_ptr(), db.data_ptr())
+    args = (*ptrs, 1.0, plan_arg, tin.raw_stream(dev))
+    # A plan of no planes: the C entry returns before any CUDA call.
+    no_launch = (*ptrs, 1.0, ctypes.byref(_build.LaunchPlan(0, hw, 1, 0, 0, 32)), args[-1])
+    xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, bias))
+    x1, g1 = x.view(1, planes, h, wd), g.view(1, planes, h, wd)
+    w1, b1 = w.flatten(), bias.flatten()
+
+    def lookup_before():  # a function-level import and library() at every launch
+        from tpugan_torch.ops._build import library
+
+        return library()
+
+    def checks_before():  # device, dtype and contiguity, one test at a time
+        for t in (g, x, mean, rstd, w):
+            if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+                raise AssertionError("unexpected input")
+
+    rows = [
+        ("adain_bwd wrapper", lambda: ta.adain_bwd(g, x, w, mean, rstd)),
+        ("in_act_fwd wrapper", lambda: tin.in_act_fwd(x, EPS, 0.0)),
+        ("AdaIN.apply forward + backward", lambda: ta.adain(xg, wg, bg, EPS).backward(g)),
+        ("bare ctypes call (in_act_bwd, prepared arguments)", lambda: lib.in_act_bwd(*args)),
+        ("  the same, refused in C before any CUDA call", lambda: lib.in_act_bwd(*no_launch)),
+        ("torch.empty_like(x)", lambda: torch.empty_like(x)),
+        ("x.new_empty(B*C), torch.empty_like: mean, rstd",
+         lambda: torch.empty_like(x.new_empty(planes))),
+        ("torch.empty_like(w) twice: dw, dbias", lambda: (torch.empty_like(w),
+                                                          torch.empty_like(w))),
+        ("one allocation instead: x.new_empty((2, B*C))", lambda: x.new_empty((2, planes))),
+        ("  and the unbind of its two rows", stats.unbind),
+        ("raw stream (torch._C)", lambda: tin.raw_stream(dev)),
+        ("checks, one pass over 5 tensors", lambda: tin._check("adain_bwd", dev, g, x, mean,
+                                                               rstd, w)),
+        ("plan and its C struct from their cache", lambda: tin._plan_arg(planes, hw, "bwd")),
+        ("before: import and library() lookup", lookup_before),
+        ("before: torch.empty(B*C) twice", lambda: (torch.empty(planes, device=x.device),
+                                                    torch.empty(planes, device=x.device))),
+        ("before: torch.cuda.current_stream(dev).cuda_stream",
+         lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        ("before: checks, device, dtype, contiguity a tensor", checks_before),
+        ("F.instance_norm (AdaIN forward's library call)",
+         lambda: F.instance_norm(x1, weight=w1, bias=b1, eps=EPS)),
+        ("native_batch_norm_backward (AdaIN backward's)",
+         lambda: torch.ops.aten.native_batch_norm_backward(
+             g1, x1, w1, None, None, mean, rstd, True, EPS, [True, True, True])),
+    ]
+    out = {}
+    for name, fn in rows:
+        out[name] = host_us(fn)
+        log(f"[launch cost] {name:52s} {out[name]:8.3f} us/call")
+    log(f"[launch cost] host clock, {LAUNCH_CALLS} calls after warm-up, at {shape}; on "
+        f"{torch.cuda.get_device_name(0)} ({smi})")
+    return out
 
 
 def _parity_case(shape, slope, offset, gen):
@@ -255,7 +407,10 @@ def _parity_case(shape, slope, offset, gen):
     y_r, mean_r, rstd_r = tin.in_act_fwd_ref(x, EPS, slope)
     dx_k = tin.in_act_bwd(g, x, mean_r, rstd_r, slope)
     dx_r = tin.in_act_bwd_ref(g, x, mean_r, rstd_r, slope)
+    again = (*tin.in_act_fwd(x, EPS, slope), tin.in_act_bwd(g, x, mean_r, rstd_r, slope))
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(again, (y_k, mean_k, rstd_k, dx_k))):
+        raise AssertionError(f"IN at {shape} slope {slope} does not repeat bit for bit")
     y_err = float((y_k - y_r).abs().max())
     stat_err = float(torch.maximum((mean_k - mean_r).abs().max(), (rstd_k - rstd_r).abs().max()))
     dx_err = float((dx_k - dx_r).abs().max())
@@ -280,14 +435,15 @@ def phase_parity():
     worst = {"fwd": 0.0, "bwd": 0.0}
     cases = [(s, sl, 0.0) for s in {**STEP_SHAPES, **SAMPLE_SHAPES} for sl in SLOPES]
     cases += [((2, 8, 31, 31), sl, 0.0) for sl in SLOPES]  # ragged H*W: scalar path
+    cases += [((3, 5, 1, 7), sl, 0.0) for sl in SLOPES]  # a warp a ragged plane
     cases += [((2, 64, 64, 64), sl, 100.0) for sl in SLOPES]  # mean = 100 * std
     for shape, slope, offset in cases:
         y_err, dx_err = _parity_case(shape, slope, offset, gen)
         worst["fwd"] = max(worst["fwd"], y_err)
         worst["bwd"] = max(worst["bwd"], dx_err)
-    log(f"[in parity] {len(cases)} cases pass: max |dy| {worst['fwd']:.3g}, "
-        f"max |ddx| {worst['bwd']:.3g} (y tol {Y_ATOL:g}*(1+|offset|), dx tol "
-        f"{DX_RTOL:g} of max|dx|)")
+    log(f"[in parity] {len(cases)} cases pass, each repeating bit for bit: max |dy| "
+        f"{worst['fwd']:.3g}, max |ddx| {worst['bwd']:.3g} (y tol {Y_ATOL:g}*(1+|offset|), dx "
+        f"tol {DX_RTOL:g} of max|dx|)")
 
     # Times at every shape of the step (slope 0), then their sums over one
     # step's launches.
@@ -299,45 +455,62 @@ def phase_parity():
 def _in_times(tag, step_sites, sample_sites, gen):
     """At each (shape, slope, launches) site: the IN pair's times beside the
     plain version's, the bound (8 bytes an element forward, 12 backward) and
-    ``F.instance_norm``, the one PyTorch call that computes the slope-1
-    forward (CUDA events). Returns their sums over one step's sites."""
+    the PyTorch call that computes the slope-1 function on the (1, B*C, H, W)
+    view, ``F.instance_norm`` forward and ``native_batch_norm_backward``
+    backward (CUDA events); then the device time per call of the kernels and
+    of the library calls (``device_ms``). The library calls are first held to
+    the plain slope-1 version. Returns the sums over one step's sites."""
     import torch
     import torch.nn.functional as F
 
     from tpugan_torch.ops import instance_norm as tin
 
-    per_step = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for k in ("fwd", "bwd")}
-    per_step["fwd"]["library_ms"] = 0.0
-    log(f"{tag} shape          slope launches/step  fwd ms  plain   bound  F.inst  "
-        "bwd ms  plain   bound")
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms", "library_device_ms")
+    per_step = {k: dict.fromkeys(keys, 0.0) for k in ("fwd", "bwd")}
+    log(f"{tag} shape          slope launches/step | fwd ms  plain   bound   library  device "
+        "lib dev | bwd ms  plain   bound   library  device lib dev")
     for i, (shape, slope, n) in enumerate(step_sites + sample_sites):
         x = torch.randn(shape, device="cuda", generator=gen)
         g = torch.randn(shape, device="cuda", generator=gen)
         _, mean, rstd = tin.in_act_fwd_ref(x, EPS, slope)
+        b, c, h, wd = shape
+        x1, g1 = x.view(1, b * c, h, wd), g.view(1, b * c, h, wd)
+
+        def lib_fwd():
+            return F.instance_norm(x, eps=EPS)
+
+        def lib_bwd():
+            return torch.ops.aten.native_batch_norm_backward(
+                g1, x1, None, None, None, mean, rstd, True, EPS, [True, False, False])[0]
+
+        plain = (tin.in_act_fwd_ref(x, EPS, 1.0)[0], tin.in_act_bwd_ref(g, x, mean, rstd, 1.0))
+        lib_err = max(_rel_err(a.reshape(r.shape), r) for a, r in zip((lib_fwd(), lib_bwd()), plain))
+        if lib_err > DX_RTOL:
+            raise AssertionError(f"the library calls differ from slope-1 IN at {shape}: "
+                                 f"{lib_err:.3g}")
         reps = max(5, min(200, int(2e8 / x.numel())))
-        t = {
-            "fwd": (cuda_ms(lambda: tin.in_act_fwd(x, EPS, slope), reps),
-                    cuda_ms(lambda: tin.in_act_fwd_ref(x, EPS, slope), reps),
-                    bound_ms(0.0, 8 * x.numel())[0]),
-            "bwd": (cuda_ms(lambda: tin.in_act_bwd(g, x, mean, rstd, slope), reps),
-                    cuda_ms(lambda: tin.in_act_bwd_ref(g, x, mean, rstd, slope), reps),
-                    bound_ms(0.0, 12 * x.numel())[0]),
-        }
-        lib = cuda_ms(lambda: F.instance_norm(x, eps=EPS), reps)
+        fns = {"fwd": (lambda: tin.in_act_fwd(x, EPS, slope),
+                       lambda: tin.in_act_fwd_ref(x, EPS, slope), lib_fwd),
+               "bwd": (lambda: tin.in_act_bwd(g, x, mean, rstd, slope),
+                       lambda: tin.in_act_bwd_ref(g, x, mean, rstd, slope), lib_bwd)}
+        t = {}
+        for k, nbytes in (("fwd", 8 * x.numel()), ("bwd", 12 * x.numel())):
+            kern, ref, lib = fns[k]
+            t[k] = {"ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(ref, reps),
+                    "bound_ms": bound_ms(0.0, nbytes)[0], "library_ms": cuda_ms(lib, reps),
+                    "device_ms": device_ms(kern, reps), "library_device_ms": device_ms(lib, reps)}
         in_step = i < len(step_sites)
         if in_step:
             for k in ("fwd", "bwd"):
-                for key, v in zip(("ms", "plain_ms", "bound_ms"), t[k]):
-                    per_step[k][key] += n * v
-            per_step["fwd"]["library_ms"] += n * lib
-        log(f"{tag} {str(shape):18s} {slope:3g} {n:3d}{'         ' if in_step else ' (sample)'}"
-            f" {t['fwd'][0]:7.4f} {t['fwd'][1]:7.4f} {t['fwd'][2]:7.4f} {lib:7.4f}"
-            f" {t['bwd'][0]:7.4f} {t['bwd'][1]:7.4f} {t['bwd'][2]:7.4f}")
-    f, b = per_step["fwd"], per_step["bwd"]
-    log(f"{tag} one step's {sum(n for *_, n in step_sites)} launches: fwd {f['ms']:.3f} ms "
-        f"(plain {f['plain_ms']:.3f}, bound {f['bound_ms']:.3f}, F.instance_norm "
-        f"{f['library_ms']:.3f}), bwd {b['ms']:.3f} ms (plain {b['plain_ms']:.3f}, bound "
-        f"{b['bound_ms']:.3f}, library none)")
+                for key in keys:
+                    per_step[k][key] = add_ms(per_step[k][key], n, t[k][key])
+        log(f"{tag} {str(shape):18s} {slope:3g} {n:3d}{'         ' if in_step else ' (sample)'} | "
+            + " | ".join(" ".join(fmt_ms(t[k][key]) for key in keys) for k in ("fwd", "bwd")))
+    for k, lib in (("fwd", "F.instance_norm"), ("bwd", "native_batch_norm_backward")):
+        o = per_step[k]
+        log(f"{tag} one step's {sum(n for *_, n in step_sites)} {k} launches: {o['ms']:.3f} ms "
+            f"(plain {o['plain_ms']:.3f}, bound {o['bound_ms']:.3f}, {lib} {o['library_ms']:.3f}); "
+            f"device time {fmt_ms(o['device_ms'], 0)} ms, {lib} {fmt_ms(o['library_device_ms'], 0)}")
     return per_step
 
 
@@ -871,6 +1044,10 @@ def phase_adain_time(smi):
                     "plain_ms": cuda_ms(lambda: ta.adain_bwd_ref(g, x, w, mean, rstd), reps),
                     "library_ms": cuda_ms(lib_bwd, reps)},
         }
+        for k, kern, lib in (("fwd", lambda: ta.adain_fwd(x, w, bias, EPS), lib_fwd),
+                             ("bwd", lambda: ta.adain_bwd(g, x, w, mean, rstd), lib_bwd)):
+            t[k]["device_ms"] = device_ms(kern, reps)
+            t[k]["library_device_ms"] = device_ms(lib, reps)
         # Bytes: x in and y out, w and bias in and mean and rstd out per plane;
         # g and x in and dx out, w, mean and rstd in and dw and dbias out.
         # Operations: 8 a forward element (sum; centred square; normalise and
@@ -891,16 +1068,19 @@ def phase_adain_time(smi):
             o = t[k]
             log(f"[adain time] {k} {str(shape):18s} kernel {o['ms']:.4f} ms, plain "
                 f"{o['plain_ms']:.4f}, bound {o['bound_ms']:.4f} ({o['bound_by']}), library "
-                f"{o['library_ms']:.4f} ({o['bound_ms'] / o['ms']:.1%} of bound)")
+                f"{o['library_ms']:.4f} ({o['bound_ms'] / o['ms']:.1%} of bound); device time "
+                f"kernel {fmt_ms(o['device_ms'], 0)}, library {fmt_ms(o['library_device_ms'], 0)}")
         log(f"[adain time] fwd+bwd {str(shape):14s} through autograd: adain() {both:.4f} ms, "
             f"F.instance_norm {both_lib:.4f} ms")
-    step = {k: {key: ADAIN_PER_STEP * v for key, v in out[ADAIN_STEP_SHAPE][k].items()
+    step = {k: {key: add_ms(0.0, ADAIN_PER_STEP, v) for key, v in out[ADAIN_STEP_SHAPE][k].items()
                 if key != "bound_by"} for k in ("fwd", "bwd")}
     for k in ("fwd", "bwd"):
         step[k]["bound_by"] = out[ADAIN_STEP_SHAPE][k]["bound_by"]
         o = step[k]
         log(f"[adain time] one step's {ADAIN_PER_STEP} {k} launches: kernel {o['ms']:.3f} ms, "
-            f"plain {o['plain_ms']:.3f}, bound {o['bound_ms']:.3f}, library {o['library_ms']:.3f}")
+            f"plain {o['plain_ms']:.3f}, bound {o['bound_ms']:.3f}, library {o['library_ms']:.3f}"
+            f"; device time kernel {fmt_ms(o['device_ms'], 0)}, library "
+            f"{fmt_ms(o['library_device_ms'], 0)}")
     log(f"[adain time] on {torch.cuda.get_device_name(0)} ({smi})")
     return step
 
@@ -1049,11 +1229,12 @@ def phase_munit_slice(smi):
         f"time (profiler on): device busy {busy_ms / prof_ms:.1%}")
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"[munit slice]   {tot / n_prof:9.3f} ms/step  x{cnt / n_prof:5.0f}  {name[:110]}")
-    # The port's own kernels: in_act_{fwd,bwd}_kernel<kVec, kAffine>.
+    # The port's own kernels: in_act_{fwd,bwd}_warp<kAffine> (regime A) and
+    # in_act_{fwd,bwd}_slice<kVec, kAffine> (regime B).
     ours = {}
     for name, (tot, cnt) in by_name.items():
         for k in ("fwd", "bwd"):
-            if f"in_act_{k}_kernel<" in name:
+            if f"in_act_{k}_warp<" in name or f"in_act_{k}_slice<" in name:
                 key = ("adain_" if name.split("<")[1].split(">")[0].endswith("true") else "in_") + k
                 t, c = ours.get(key, (0.0, 0))
                 ours[key] = (t + tot / n_prof, c + cnt // n_prof)
@@ -1070,6 +1251,7 @@ def main() -> int:
 
     smi = phase_device()
     phase_build()
+    phase_launch_cost(smi)
     in_worst, in_time = phase_parity()
     in_launches = phase_slice(smi)
     gp_worst = phase_gp_parity()
@@ -1094,9 +1276,7 @@ def main() -> int:
         # its times are one CycleGAN step's, and by_path keeps each path's
         # own launches, error and times over one step of that path.
         by_path = {
-            path: {"launches": n, "max_abs_err": worst[k], "ms": t[k]["ms"],
-                   "plain_ms": t[k]["plain_ms"], "bound_ms": t[k]["bound_ms"],
-                   "library_ms": t[k].get("library_ms"), "times_of": times_of}
+            path: {"launches": n, "max_abs_err": worst[k], **t[k], "times_of": times_of}
             for path, n, worst, t, times_of in (
                 ("cyclegan", in_launches[k], in_worst, in_time,
                  f"one cyclegan step, {FWD_PER_STEP} launches"),
@@ -1110,7 +1290,8 @@ def main() -> int:
             "launches": in_launches[k] + munit_launches[f"in_{k}"],
             "max_abs_err": max(in_worst[k], munit_in_worst[k]), "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": "bytes",
-            "library_ms": c["library_ms"], "times_of": c["times_of"], "by_path": by_path,
+            "library_ms": c["library_ms"], "device_ms": c["device_ms"],
+            "times_of": c["times_of"], "by_path": by_path,
         })
     for k in ("fwd", "bwd"):
         t = gp_time[k]
@@ -1119,6 +1300,7 @@ def main() -> int:
             "replaces": replaces[f"mlp_gp_{k}"], "launches": gp_launches[k],
             "max_abs_err": gp_worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "device_ms": t["device_ms"],
         })
     for k in ("fwd", "bwd"):
         t = adain_time[k]
@@ -1127,6 +1309,7 @@ def main() -> int:
             "replaces": replaces[f"adain_{k}"], "launches": munit_launches[f"adain_{k}"],
             "max_abs_err": adain_worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"], "times_of": f"one munit step, {ADAIN_PER_STEP} launches",
         })
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -32,9 +32,19 @@ def cuda():
     return torch.device("cuda")
 
 
+# Both regimes of ``instance_norm.plan`` and their boundaries: a warp a
+# plane at 16x16, 8x8, 2x2 and 1x7 (regime A); slices in shared memory at
+# 32x32 and 31x31 (scalar fill), on clusters of 2 (128x128 backward), 4
+# (128x128 at 64 planes, 256x256 forward) and 8 (256x256 backward, and 257x257
+# with a scalar fill); at 512x512 the slices exceed 64 KB and keep a tail in
+# device memory.
+IN_SHAPES = [(2, 64, 32, 32), (1, 256, 16, 16), (2, 8, 31, 31), (3, 5, 1, 7), (1, 128, 8, 8),
+             (1, 512, 2, 2), (1, 64, 256, 256), (1, 128, 128, 128), (1, 64, 128, 128),
+             (1, 4, 257, 257), (1, 2, 512, 512)]
+
+
 @pytest.mark.parametrize("slope", [0.0, 0.2, 1.0])
-@pytest.mark.parametrize("shape", [(2, 64, 32, 32), (1, 256, 16, 16), (2, 8, 31, 31), (3, 5, 1, 7),
-                                   (1, 128, 8, 8), (1, 512, 2, 2)])
+@pytest.mark.parametrize("shape", IN_SHAPES)
 def test_kernels_match_plain_version(cuda, shape, slope):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, device=cuda, generator=gen)
@@ -49,6 +59,54 @@ def test_kernels_match_plain_version(cuda, shape, slope):
     torch.testing.assert_close(mean, mean_r, rtol=0, atol=1e-5)
     torch.testing.assert_close(rstd, rstd_r, rtol=1e-5, atol=0)
     torch.testing.assert_close(dx, dx_r, rtol=0, atol=1e-4 * float(dx_r.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 256, 256), (1, 4, 257, 257)])
+def test_both_directions_repeat_bit_for_bit_on_a_cluster(cuda, shape):
+    assert tin.plan(shape[0] * shape[1], shape[2] * shape[3], "fwd").group > 1
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape, device=cuda, generator=gen) + 3.0
+    g = torch.randn(shape, device=cuda, generator=gen)
+    first = tin.in_act_fwd(x, 1e-5, 0.2)
+    assert all(torch.equal(a, b) for a, b in zip(first, tin.in_act_fwd(x, 1e-5, 0.2)))
+    dx = tin.in_act_bwd(g, x, first[1], first[2], 0.2)
+    assert torch.equal(dx, tin.in_act_bwd(g, x, first[1], first[2], 0.2))
+    w, bias = torch.randn(shape[:2], device=cuda), torch.randn(shape[:2], device=cuda)
+    fa = ta.adain_fwd(x, w, bias, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(fa, ta.adain_fwd(x, w, bias, 1e-5)))
+    ba = ta.adain_bwd(g, x, w, fa[1], fa[2])
+    assert all(torch.equal(a, b) for a, b in zip(ba, ta.adain_bwd(g, x, w, fa[1], fa[2])))
+
+
+def test_a_refused_launch_raises_with_its_plan(cuda, monkeypatch):
+    x = torch.randn(1, 2, 256, 256, device=cuda)
+    # One CTA holding a whole 256 KB plane: over the 64 KB of shared memory
+    # the kernels are allowed, so the card refuses the launch.
+    big = tin.Plan("B", 1, 65536, 65536, 512, 2, 4 * 65536)
+    monkeypatch.setattr(tin, "_plan_arg",
+                        lambda planes, hw, direction: (big, tin._c_plan(big, planes, hw)))
+    before = tin.fwd_launches
+    with pytest.raises(RuntimeError, match="CUDA error .* Plan"):
+        tin.in_act_fwd(x, 1e-5, 0.0)
+    assert tin.fwd_launches == before
+    monkeypatch.undo()
+    y, _, _ = tin.in_act_fwd(x, 1e-5, 0.0)  # the error did not stick
+    torch.testing.assert_close(y, tin.in_act_fwd_ref(x, 1e-5, 0.0)[0], rtol=0, atol=1e-5)
+
+
+def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for mod, names in ((tin, ("in_act_fwd_ref", "in_act_bwd_ref")),
+                       (ta, ("adain_fwd_ref", "adain_bwd_ref"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    x = torch.randn(2, 3, 20, 20, device=cuda, requires_grad=True)
+    w = torch.randn(2, 3, device=cuda, requires_grad=True)
+    (tin.instance_norm_act(x, 0.2).sum() + ta.adain(x, w, w, 1e-5).sum()).backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -149,7 +207,7 @@ def _adain_inputs(shape, device, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(1, 256, 32, 32), (40, 256, 32, 32), (2, 8, 31, 31),
-                                   (2, 4, 1, 1)])
+                                   (2, 4, 1, 1), (1, 64, 128, 128), (1, 16, 256, 256)])
 def test_adain_kernels_match_plain_version(cuda, shape):
     x, w, bias, g = _adain_inputs(shape, cuda)
     before = (ta.adain_fwd_launches, ta.adain_bwd_launches)

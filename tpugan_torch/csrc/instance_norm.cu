@@ -7,9 +7,7 @@
 // instance_norm_act_pallas, and the HW-tiled two-pass instance_norm_act_tiled
 // for maps above the TPU's VMEM envelope. The fourth is adain_pallas
 // (_adain_fwd_kernel, _adain_bwd_kernel), whose weight and bias come per
-// (sample, channel) from a style code. Here one thread block owns one plane
-// and loops over all of H*W, which takes the place of the TPU's sequential
-// tile axis; there is no size envelope. The affine variant is the same
+// (sample, channel) from a style code. The affine variant is the same
 // kernels with kAffine set.
 //
 //   forward:  mean, var = mean((x - mean)^2)  (centred, two passes: no
@@ -22,25 +20,59 @@
 //             dx = (gh - s/HW - xh * t/HW) * rstd * a,  a = 1 or w[p];
 //             affine also db[p] = s, dw[p] = t.
 //   The affine dx is (w g - mean(w g) - xh mean(w g xh)) * rstd with w taken
-//   out of the bracket: no division by w, so w = 0 is safe. One block owns a
-//   plane and its sums, so there are no atomics and both directions repeat
-//   bit for bit.
+//   out of the bracket: no division by w, so w = 0 is safe.
 //
-// Bound by memory bandwidth: the forward reads x three times (the later
-// reads mostly hit L2, a plane is at most 256 KB) and writes y once; the
-// backward reads g and x twice and writes dx once. The affine variant adds
-// two floats a plane each way (w, b in; dw, db out). Loads are 16 bytes wide
-// where H*W % 4 == 0 and the pointers are aligned.
+// Bound by memory bandwidth: the least traffic is 8 bytes an element forward
+// (x in, y out) and 12 backward (g and x in, dx out), plus a few floats a
+// plane. Tensor cores have no part here: both directions are reductions at
+// about one operation a byte, far below the card's ridge point. So the design
+// reads each input from device memory once, in one of two regimes that the
+// caller's launch plan (tpugan_torch/ops/instance_norm.py:plan) picks:
 //
-// C interface for ctypes: every entry takes the CUDA stream as void*, launches
-// on it without synchronising, and returns cudaGetLastError().
+//   A, H*W <= 256 (16x16 down to 2x2, and odd planes such as 1x7): one warp
+//     owns a plane and several planes share a CTA. The values stay in
+//     registers, at most 8 a lane; the sums are warp shuffles, with no
+//     __syncthreads.
+//   B, every larger plane: each CTA owns a slice of the plane and holds it in
+//     dynamic shared memory (x forward; g and x backward). The slice arrives
+//     by 1D bulk asynchronous copy (cp.async.bulk) in up to kChunks chunks,
+//     each completing on its own mbarrier, so the first sum starts on the
+//     first chunk while the rest arrive. Where H*W % 4 != 0 or a base is not
+//     16-byte aligned, the same kernel fills shared memory with a scalar loop
+//     instead. Every later pass reads shared memory. A plane larger than one
+//     CTA's share runs on a thread block cluster of 2, 4 or 8 CTAs: each adds
+//     its slice's partial sums, and after a cluster barrier every CTA reads
+//     all partials through distributed shared memory in rank order 0..c-1,
+//     so all get the same statistics and both directions repeat bit for bit.
+//     A last cluster barrier before exit keeps each CTA's shared memory alive
+//     while a peer may still read it. Where a slice exceeds kSmemMax (planes
+//     over 8 x 64 KB, beyond every map of the ported trainers), the part of it
+//     past kSmemMax stays in device memory and the later passes read it again.
+//
+// C interface for ctypes: every entry takes the launch plan and the CUDA
+// stream (void*), launches on the stream without synchronising, and returns
+// the launch's CUDA error code (0 on success). A plan the kernels cannot run
+// returns cudaErrorInvalidValue and launches nothing.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxWarps = 32;
+constexpr int kMaxThreads = 512;           // regime B, threads a CTA
+constexpr int kMaxWarps = kMaxThreads / 32;
+constexpr int kWarpVals = 8;               // regime A, values a lane holds
+constexpr int kWarpCtaMax = 256;           // regime A, threads a CTA (8 planes)
+constexpr int kChunks = 4;                 // regime B, bulk copies a slice arrives in, at most
+constexpr int kChunkBytes = 8192;          // ... and the least bytes a chunk is split down to
+constexpr int kSmemMax = 64 * 1024;        // regime B, dynamic shared memory a CTA takes
+constexpr int kClusterMax = 8;             // the portable cluster size
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -76,12 +108,133 @@ __device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
   __syncthreads();
 }
 
-__device__ __forceinline__ float leaky(float v, float slope) {
-  return v >= 0.f ? v : slope * v;
+// Sums the block totals (a, b) over a cluster of c CTAs: each CTA puts its
+// pair in `part`, and after the cluster barrier thread 0 of every CTA adds
+// all c pairs in rank order, so every CTA gets the same bits. Each call site
+// takes its own `part` pair, since a peer may still read the previous one.
+__device__ __forceinline__ void cluster_sum2(float& a, float& b, float* part, float* bc, int c) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) {
+    part[0] = a;
+    part[1] = b;
+  }
+  cluster.sync();
+  if (threadIdx.x == 0) {
+    float sa = 0.f, sb = 0.f;
+    for (int r = 0; r < c; ++r) {
+      const float* q = cluster.map_shared_rank(part, r);
+      sa += q[0];
+      sb += q[1];
+    }
+    bc[0] = sa;
+    bc[1] = sb;
+  }
+  __syncthreads();
+  a = bc[0];
+  b = bc[1];
 }
 
-__device__ __forceinline__ float leaky_grad(float xh, float slope) {
-  return xh >= 0.f ? 1.f : slope;
+// The two halves of the last cluster barrier: arrive once this CTA has read
+// its peers' partials, wait before exit until every peer has read its own.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 1D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into this CTA's shared memory, completing on
+// `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// First float4 of chunk k when nv float4s are cut into nch chunks.
+__device__ __forceinline__ int chunk_edge(int k, int nv, int nch) {
+  return static_cast<int>(static_cast<int64_t>(k) * nv / nch);
+}
+
+// Thread 0 starts the copy of the first nv float4s of src0 (and of src1,
+// where it is not null) into dst0 (dst1): up to kChunks bulk copies, chunk k
+// of both tensors completing on bar[k]. Every thread calls it; it returns the
+// number of chunks, each of which a thread waits for before reading it.
+__device__ __forceinline__ int stage_async(const float4* src0, float4* dst0, const float4* src1,
+                                           float4* dst1, int nv, uint64_t* bar) {
+  const int tensors = src1 ? 2 : 1;
+  const int nch = min(nv, max(1, min(kChunks, nv * 16 * tensors / kChunkBytes)));
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < nch; ++k) mbar_init(&bar[k], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int k = 0; k < nch; ++k) {
+      const int a = chunk_edge(k, nv, nch);
+      const uint32_t bytes = static_cast<uint32_t>(chunk_edge(k + 1, nv, nch) - a) * 16u;
+      mbar_expect_tx(&bar[k], bytes * tensors);
+      bulk_load(dst0 + a, src0 + a, bytes, &bar[k]);
+      if (src1) bulk_load(dst1 + a, src1 + a, bytes, &bar[k]);
+    }
+  }
+  __syncthreads();  // the barriers are initialised before any thread waits on them
+  return nch;
+}
+
+// Element-wise helpers over a float or the four lanes of a float4.
+__device__ __forceinline__ float hsum(float v) { return v; }
+__device__ __forceinline__ float hsum(float4 v) { return (v.x + v.y) + (v.z + v.w); }
+
+template <class F>
+__device__ __forceinline__ float apply(F f, float a) {
+  return f(a);
+}
+template <class F>
+__device__ __forceinline__ float4 apply(F f, float4 a) {
+  return make_float4(f(a.x), f(a.y), f(a.z), f(a.w));
+}
+template <class F>
+__device__ __forceinline__ float apply(F f, float a, float b) {
+  return f(a, b);
+}
+template <class F>
+__device__ __forceinline__ float4 apply(F f, float4 a, float4 b) {
+  return make_float4(f(a.x, b.x), f(a.y, b.y), f(a.z, b.z), f(a.w, b.w));
+}
+
+__device__ __forceinline__ float leaky(float v, float slope) {
+  return v >= 0.f ? v : slope * v;
 }
 
 // The forward's output from xh: leaky(slope), or the plane's affine.
@@ -100,214 +253,387 @@ __device__ __forceinline__ float grad_in(float g, float xh, float slope) {
   if constexpr (kAffine) {
     return g;
   } else {
-    return g * leaky_grad(xh, slope);
+    return xh >= 0.f ? g : g * slope;
   }
 }
 
-// w and b are read only when kAffine (one float each per plane).
-template <bool kVec, bool kAffine>
-__global__ void in_act_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_in,
-                                  const float* __restrict__ b_in, float* __restrict__ y,
-                                  float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                                  int64_t hw, float eps, float slope) {
-  __shared__ float red[2 * kMaxWarps];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * hw;
-  const float w = kAffine ? w_in[blockIdx.x] : 1.f;
-  const float b = kAffine ? b_in[blockIdx.x] : 0.f;
-  const float* xp = x + base;
-  float* yp = y + base;
-  const int64_t n4 = kVec ? hw / 4 : 0;
-  const float4* x4 = reinterpret_cast<const float4*>(xp);
-
-  // Pass 1: mean.
-  float s = 0.f, unused = 0.f;
-  if (kVec) {
-    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
-      const float4 v = x4[i];
-      s += (v.x + v.y) + (v.z + v.w);
-    }
-  } else {
-    for (int64_t i = threadIdx.x; i < hw; i += blockDim.x) s += xp[i];
+// Regime A, forward: warp w of CTA b owns plane b * per_cta + w, H*W <= 256.
+template <bool kAffine>
+__global__ void __launch_bounds__(kWarpCtaMax)
+    in_act_fwd_warp(const float* __restrict__ x, const float* __restrict__ w_in,
+                    const float* __restrict__ b_in, float* __restrict__ y,
+                    float* __restrict__ mean_out, float* __restrict__ rstd_out, int planes,
+                    int hw, int per_cta, float eps, float slope) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * per_cta + (threadIdx.x >> 5);
+  if (p >= planes) return;
+  const float* xp = x + static_cast<int64_t>(p) * hw;
+  float v[kWarpVals];
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < kWarpVals; ++k) {
+    const int i = k * 32 + lane;
+    v[k] = i < hw ? xp[i] : 0.f;
+    s += v[k];
   }
-  block_sum2(s, unused, red);
-  const float mean = s / static_cast<float>(hw);
-
-  // Pass 2: centred sum of squares.
+  const float mean = warp_sum(s) / static_cast<float>(hw);
   float q = 0.f;
-  unused = 0.f;
-  if (kVec) {
-    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
-      const float4 v = x4[i];
-      const float a = v.x - mean, b = v.y - mean, c = v.z - mean, d = v.w - mean;
-      q += (a * a + b * b) + (c * c + d * d);
-    }
-  } else {
-    for (int64_t i = threadIdx.x; i < hw; i += blockDim.x) {
-      const float a = xp[i] - mean;
-      q += a * a;
-    }
+#pragma unroll
+  for (int k = 0; k < kWarpVals; ++k) {
+    const float d = v[k] - mean;
+    if (k * 32 + lane < hw) q += d * d;
   }
-  block_sum2(q, unused, red);
-  const float rstd = 1.f / sqrtf(q / static_cast<float>(hw) + eps);
-
-  // Pass 3: normalise, then activate or apply the affine.
-  if (kVec) {
-    float4* y4 = reinterpret_cast<float4*>(yp);
-    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
-      const float4 v = x4[i];
-      float4 o;
-      o.x = fwd_out<kAffine>((v.x - mean) * rstd, slope, w, b);
-      o.y = fwd_out<kAffine>((v.y - mean) * rstd, slope, w, b);
-      o.z = fwd_out<kAffine>((v.z - mean) * rstd, slope, w, b);
-      o.w = fwd_out<kAffine>((v.w - mean) * rstd, slope, w, b);
-      y4[i] = o;
-    }
-  } else {
-    for (int64_t i = threadIdx.x; i < hw; i += blockDim.x)
-      yp[i] = fwd_out<kAffine>((xp[i] - mean) * rstd, slope, w, b);
+  const float rstd = 1.f / sqrtf(warp_sum(q) / static_cast<float>(hw) + eps);
+  const float w = kAffine ? w_in[p] : 1.f;
+  const float b = kAffine ? b_in[p] : 0.f;
+  float* yp = y + static_cast<int64_t>(p) * hw;
+#pragma unroll
+  for (int k = 0; k < kWarpVals; ++k) {
+    const int i = k * 32 + lane;
+    if (i < hw) yp[i] = fwd_out<kAffine>((v[k] - mean) * rstd, slope, w, b);
   }
-  if (threadIdx.x == 0) {
-    mean_out[blockIdx.x] = mean;
-    rstd_out[blockIdx.x] = rstd;
+  if (lane == 0) {
+    mean_out[p] = mean;
+    rstd_out[p] = rstd;
   }
 }
 
-// w_in is read, and dw/db written, only when kAffine.
-template <bool kVec, bool kAffine>
-__global__ void in_act_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x,
-                                  const float* __restrict__ w_in,
-                                  const float* __restrict__ mean_in,
-                                  const float* __restrict__ rstd_in, float* __restrict__ dx,
-                                  float* __restrict__ dw, float* __restrict__ db,
-                                  int64_t hw, float slope) {
-  __shared__ float red[2 * kMaxWarps];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * hw;
-  const float* gp = g + base;
-  const float* xp = x + base;
-  float* dp = dx + base;
-  const float mean = mean_in[blockIdx.x];
-  const float rstd = rstd_in[blockIdx.x];
-  const int64_t n4 = kVec ? hw / 4 : 0;
-  const float4* g4 = reinterpret_cast<const float4*>(gp);
-  const float4* x4 = reinterpret_cast<const float4*>(xp);
-
-  // Pass 1: sum(gh) and sum(gh * xh), xh re-derived from the saved stats.
+// Regime A, backward. w_in is read, and dw and db written, only when
+// kAffine.
+template <bool kAffine>
+__global__ void __launch_bounds__(kWarpCtaMax)
+    in_act_bwd_warp(const float* __restrict__ g, const float* __restrict__ x,
+                    const float* __restrict__ w_in, const float* __restrict__ mean_in,
+                    const float* __restrict__ rstd_in, float* __restrict__ dx,
+                    float* __restrict__ dw, float* __restrict__ db, int planes, int hw,
+                    int per_cta, float slope) {
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * per_cta + (threadIdx.x >> 5);
+  if (p >= planes) return;
+  const int64_t base = static_cast<int64_t>(p) * hw;
+  const float mean = mean_in[p];
+  const float rstd = rstd_in[p];
+  float gv[kWarpVals], h[kWarpVals];
   float s = 0.f, t = 0.f;
-  if (kVec) {
-    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
-      const float4 gv = g4[i], xv = x4[i];
-      const float ha = (xv.x - mean) * rstd, hb = (xv.y - mean) * rstd;
-      const float hc = (xv.z - mean) * rstd, hd = (xv.w - mean) * rstd;
-      const float ga = grad_in<kAffine>(gv.x, ha, slope), gb = grad_in<kAffine>(gv.y, hb, slope);
-      const float gc = grad_in<kAffine>(gv.z, hc, slope), gd = grad_in<kAffine>(gv.w, hd, slope);
-      s += (ga + gb) + (gc + gd);
-      t += (ga * ha + gb * hb) + (gc * hc + gd * hd);
-    }
-  } else {
-    for (int64_t i = threadIdx.x; i < hw; i += blockDim.x) {
-      const float h = (xp[i] - mean) * rstd;
-      const float gh = grad_in<kAffine>(gp[i], h, slope);
-      s += gh;
-      t += gh * h;
-    }
+#pragma unroll
+  for (int k = 0; k < kWarpVals; ++k) {
+    const int i = k * 32 + lane;
+    // Past the plane g = 0 and x = mean, so gh = 0 and h = 0 add nothing.
+    gv[k] = i < hw ? g[base + i] : 0.f;
+    h[k] = ((i < hw ? x[base + i] : mean) - mean) * rstd;
+    const float gh = grad_in<kAffine>(gv[k], h[k], slope);
+    s += gh;
+    t += gh * h[k];
   }
-  block_sum2(s, t, red);
+  s = warp_sum(s);
+  t = warp_sum(t);
   const float inv_hw = 1.f / static_cast<float>(hw);
   const float m1 = s * inv_hw;
   const float m2 = t * inv_hw;
-  const float scale = kAffine ? w_in[blockIdx.x] * rstd : rstd;
-  if (kAffine && threadIdx.x == 0) {
-    db[blockIdx.x] = s;
-    dw[blockIdx.x] = t;
+  const float scale = kAffine ? w_in[p] * rstd : rstd;
+#pragma unroll
+  for (int k = 0; k < kWarpVals; ++k) {
+    const int i = k * 32 + lane;
+    if (i < hw) dx[base + i] = (grad_in<kAffine>(gv[k], h[k], slope) - m1 - h[k] * m2) * scale;
+  }
+  if (kAffine && lane == 0) {
+    dw[p] = t;
+    db[p] = s;
+  }
+}
+
+template <bool kVec>
+using Vec = std::conditional_t<kVec, float4, float>;
+
+// Regime B, forward: the c CTAs blockIdx.x / c of a cluster own plane p, CTA
+// of rank r the elements [r * slice, min((r + 1) * slice, H*W)), of which the
+// first `held` sit in shared memory.
+template <bool kVec, bool kAffine>
+__global__ void __launch_bounds__(kMaxThreads)
+    in_act_fwd_slice(const float* __restrict__ x, const float* __restrict__ w_in,
+                     const float* __restrict__ b_in, float* __restrict__ y,
+                     float* __restrict__ mean_out, float* __restrict__ rstd_out, int64_t hw,
+                     int c, int slice, int held, float eps, float slope) {
+  using V = Vec<kVec>;
+  constexpr int kW = kVec ? 4 : 1;
+  extern __shared__ __align__(128) float4 dyn[];
+  __shared__ __align__(8) uint64_t bar[kChunks];
+  __shared__ float red[2 * kMaxWarps], part[4], bc[2];
+
+  const int p = blockIdx.x / c;
+  const int rank = blockIdx.x % c;  // the cluster is (c, 1, 1) over a 1D grid
+  const int64_t lo = static_cast<int64_t>(rank) * slice;
+  const int n = static_cast<int>(min(static_cast<int64_t>(slice), hw - lo));
+  const int nv = n / kW;                // vectors this CTA owns
+  const int hv = min(n, held) / kW;     // of them held in shared memory
+  const V* __restrict__ xs = reinterpret_cast<const V*>(x + static_cast<int64_t>(p) * hw + lo);
+  V* __restrict__ ys = reinterpret_cast<V*>(y + static_cast<int64_t>(p) * hw + lo);
+  V* sx = reinterpret_cast<V*>(dyn);
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  // Pass 1: the slice into shared memory, and its sum.
+  float s = 0.f, none = 0.f;
+  if constexpr (kVec) {
+    const int nch = stage_async(xs, sx, nullptr, nullptr, hv, bar);
+    for (int k = 0; k < nch; ++k) {
+      mbar_wait(&bar[k], 0);
+      const int end = chunk_edge(k + 1, hv, nch);
+      for (int i = chunk_edge(k, hv, nch) + tid; i < end; i += nt) s += hsum(sx[i]);
+    }
+    for (int i = hv + tid; i < nv; i += nt) s += hsum(xs[i]);
+  } else {
+    // Each thread reads back only what it wrote here: no barrier needed.
+    for (int i = tid; i < nv; i += nt) {
+      const float v = xs[i];
+      if (i < hv) sx[i] = v;
+      s += v;
+    }
+  }
+  block_sum2(s, none, red);
+  if (c > 1) cluster_sum2(s, none, part, bc, c);
+  const float mean = s / static_cast<float>(hw);
+
+  // Pass 2: centred sum of squares.
+  const auto sq = [mean](float e) {
+    const float d = e - mean;
+    return d * d;
+  };
+  float q = 0.f;
+  for (int i = tid; i < nv; i += nt) q += hsum(apply(sq, i < hv ? sx[i] : xs[i]));
+  none = 0.f;
+  block_sum2(q, none, red);
+  if (c > 1) cluster_sum2(q, none, part + 2, bc, c);
+  const float rstd = 1.f / sqrtf(q / static_cast<float>(hw) + eps);
+  if (c > 1) cluster_arrive();
+
+  // Pass 3: normalise, then activate or apply the affine.
+  const float w = kAffine ? w_in[p] : 1.f;
+  const float b = kAffine ? b_in[p] : 0.f;
+  const auto out = [=](float e) { return fwd_out<kAffine>((e - mean) * rstd, slope, w, b); };
+  for (int i = tid; i < nv; i += nt) ys[i] = apply(out, i < hv ? sx[i] : xs[i]);
+  if (rank == 0 && tid == 0) {
+    mean_out[p] = mean;
+    rstd_out[p] = rstd;
+  }
+  if (c > 1) cluster_wait();
+}
+
+// Regime B, backward: the slices as in the forward, g and x both held.
+template <bool kVec, bool kAffine>
+__global__ void __launch_bounds__(kMaxThreads)
+    in_act_bwd_slice(const float* __restrict__ g, const float* __restrict__ x,
+                     const float* __restrict__ w_in, const float* __restrict__ mean_in,
+                     const float* __restrict__ rstd_in, float* __restrict__ dx,
+                     float* __restrict__ dw, float* __restrict__ db, int64_t hw, int c,
+                     int slice, int held, float slope) {
+  using V = Vec<kVec>;
+  constexpr int kW = kVec ? 4 : 1;
+  extern __shared__ __align__(128) float4 dyn[];
+  __shared__ __align__(8) uint64_t bar[kChunks];
+  __shared__ float red[2 * kMaxWarps], part[2], bc[2];
+
+  const int p = blockIdx.x / c;
+  const int rank = blockIdx.x % c;
+  const int64_t lo = static_cast<int64_t>(rank) * slice;
+  const int64_t base = static_cast<int64_t>(p) * hw + lo;
+  const int n = static_cast<int>(min(static_cast<int64_t>(slice), hw - lo));
+  const int nv = n / kW;
+  const int hv = min(n, held) / kW;
+  const V* __restrict__ gs = reinterpret_cast<const V*>(g + base);
+  const V* __restrict__ xs = reinterpret_cast<const V*>(x + base);
+  V* __restrict__ ds = reinterpret_cast<V*>(dx + base);
+  V* sg = reinterpret_cast<V*>(dyn);
+  V* sx = sg + held / kW;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float mean = mean_in[p];
+  const float rstd = rstd_in[p];
+
+  // Pass 1: the slices into shared memory, and sum(gh), sum(gh * xh).
+  const auto norm = [=](float e) { return (e - mean) * rstd; };
+  const auto grad = [=](float gv, float h) { return grad_in<kAffine>(gv, h, slope); };
+  const auto mul = [](float a, float b) { return a * b; };
+  float s = 0.f, t = 0.f;
+  const auto add = [&](V gv, V xv) {
+    const V h = apply(norm, xv);
+    const V gh = apply(grad, gv, h);
+    s += hsum(gh);
+    t += hsum(apply(mul, gh, h));
+  };
+  if constexpr (kVec) {
+    const int nch = stage_async(gs, sg, xs, sx, hv, bar);
+    for (int k = 0; k < nch; ++k) {
+      mbar_wait(&bar[k], 0);
+      const int end = chunk_edge(k + 1, hv, nch);
+      for (int i = chunk_edge(k, hv, nch) + tid; i < end; i += nt) add(sg[i], sx[i]);
+    }
+    for (int i = hv + tid; i < nv; i += nt) add(gs[i], xs[i]);
+  } else {
+    for (int i = tid; i < nv; i += nt) {
+      const float gv = gs[i], xv = xs[i];
+      if (i < hv) {
+        sg[i] = gv;
+        sx[i] = xv;
+      }
+      add(gv, xv);
+    }
+  }
+  block_sum2(s, t, red);
+  if (c > 1) {
+    cluster_sum2(s, t, part, bc, c);
+    cluster_arrive();
+  }
+  const float inv_hw = 1.f / static_cast<float>(hw);
+  const float m1 = s * inv_hw;
+  const float m2 = t * inv_hw;
+  const float scale = kAffine ? w_in[p] * rstd : rstd;
+  if (kAffine && rank == 0 && tid == 0) {
+    dw[p] = t;
+    db[p] = s;
   }
 
   // Pass 2: dx.
-  if (kVec) {
-    float4* d4 = reinterpret_cast<float4*>(dp);
-    for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) {
-      const float4 gv = g4[i], xv = x4[i];
-      float4 o;
-      float h;
-      h = (xv.x - mean) * rstd;
-      o.x = (grad_in<kAffine>(gv.x, h, slope) - m1 - h * m2) * scale;
-      h = (xv.y - mean) * rstd;
-      o.y = (grad_in<kAffine>(gv.y, h, slope) - m1 - h * m2) * scale;
-      h = (xv.z - mean) * rstd;
-      o.z = (grad_in<kAffine>(gv.z, h, slope) - m1 - h * m2) * scale;
-      h = (xv.w - mean) * rstd;
-      o.w = (grad_in<kAffine>(gv.w, h, slope) - m1 - h * m2) * scale;
-      d4[i] = o;
-    }
-  } else {
-    for (int64_t i = threadIdx.x; i < hw; i += blockDim.x) {
-      const float h = (xp[i] - mean) * rstd;
-      dp[i] = (grad_in<kAffine>(gp[i], h, slope) - m1 - h * m2) * scale;
-    }
-  }
-}
-
-// Threads per block: about 4 float4 loads per thread per pass, between 2 and
-// 32 warps.
-int threads_for(int64_t hw) {
-  int t = 64;
-  while (t < 1024 && static_cast<int64_t>(t) * 16 < hw) t *= 2;
-  return t;
-}
-
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-template <bool kAffine>
-int launch_fwd(const float* x, const float* w, const float* b, float* y, float* mean, float* rstd,
-               int64_t planes, int64_t hw, float eps, float slope, void* stream) {
-  if (planes <= 0 || hw <= 0 || planes > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(planes));
-  const int threads = threads_for(hw);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hw % 4 == 0 && aligned16(x) && aligned16(y))
-    in_act_fwd_kernel<true, kAffine><<<grid, threads, 0, s>>>(x, w, b, y, mean, rstd, hw, eps, slope);
-  else
-    in_act_fwd_kernel<false, kAffine><<<grid, threads, 0, s>>>(x, w, b, y, mean, rstd, hw, eps, slope);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kAffine>
-int launch_bwd(const float* g, const float* x, const float* w, const float* mean,
-               const float* rstd, float* dx, float* dw, float* db, int64_t planes, int64_t hw,
-               float slope, void* stream) {
-  if (planes <= 0 || hw <= 0 || planes > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(planes));
-  const int threads = threads_for(hw);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hw % 4 == 0 && aligned16(g) && aligned16(x) && aligned16(dx))
-    in_act_bwd_kernel<true, kAffine><<<grid, threads, 0, s>>>(g, x, w, mean, rstd, dx, dw, db, hw,
-                                                             slope);
-  else
-    in_act_bwd_kernel<false, kAffine><<<grid, threads, 0, s>>>(g, x, w, mean, rstd, dx, dw, db,
-                                                              hw, slope);
-  return static_cast<int>(cudaGetLastError());
+  const auto d = [=](float gv, float e) {
+    const float h = (e - mean) * rstd;
+    return (grad_in<kAffine>(gv, h, slope) - m1 - h * m2) * scale;
+  };
+  for (int i = tid; i < nv; i += nt) ds[i] = i < hv ? apply(d, sg[i], sx[i]) : apply(d, gs[i], xs[i]);
+  if (c > 1) cluster_wait();
 }
 
 }  // namespace
 
-extern "C" int in_act_fwd(const float* x, float* y, float* mean, float* rstd, int64_t planes,
-                          int64_t hw, float eps, float slope, void* stream) {
-  return launch_fwd<false>(x, nullptr, nullptr, y, mean, rstd, planes, hw, eps, slope, stream);
+// How a call's planes map onto the card: instance_norm.py:plan computes it,
+// ctypes passes it by pointer. Regime A when slice == 0, `group` planes a CTA;
+// else regime B, `group` CTAs a plane (the cluster size), `slice` elements a
+// CTA, `held` of them in shared memory.
+struct LaunchPlan {
+  int64_t planes;
+  int64_t hw;
+  int32_t group;
+  int32_t slice;
+  int32_t held;
+  int32_t threads;
+};
+
+namespace {
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+
+// A regime-A plan the kernels can run: `group` warps of one plane each.
+bool warp_plan_ok(const LaunchPlan& lp) {
+  return lp.hw <= 32 * kWarpVals && lp.group >= 1 && lp.threads == 32 * lp.group &&
+         lp.threads <= kWarpCtaMax;
 }
 
-extern "C" int in_act_bwd(const float* g, const float* x, const float* mean, const float* rstd,
-                          float* dx, int64_t planes, int64_t hw, float slope, void* stream) {
-  return launch_bwd<false>(g, x, nullptr, mean, rstd, dx, nullptr, nullptr, planes, hw, slope,
-                           stream);
+// A regime-B plan the kernels can run: a cluster of c = group CTAs, a power
+// of two up to kClusterMax; slices of whole float4s that cover H*W with none
+// empty; no more held than owned. Whether the shared memory fits is the
+// launch's to refuse.
+bool slice_plan_ok(const LaunchPlan& lp) {
+  const int c = lp.group;
+  return c >= 1 && c <= kClusterMax && (c & (c - 1)) == 0 && lp.slice > 0 &&
+         lp.slice % 4 == 0 && lp.held > 0 && lp.held % 4 == 0 && lp.held <= lp.slice &&
+         static_cast<int64_t>(lp.slice) * c >= lp.hw &&
+         static_cast<int64_t>(lp.slice) * (c - 1) < lp.hw && lp.threads >= 32 &&
+         lp.threads % 32 == 0 && lp.threads <= kMaxThreads && lp.planes * c <= INT_MAX;
 }
 
-// AdaIN: w and b hold one float per plane, (B, C) contiguous.
-extern "C" int adain_fwd(const float* x, const float* w, const float* b, float* y, float* mean,
-                         float* rstd, int64_t planes, int64_t hw, float eps, void* stream) {
-  return launch_fwd<true>(x, w, b, y, mean, rstd, planes, hw, eps, 1.f, stream);
+// Launches a regime-B kernel on planes * c CTAs in clusters of c = group,
+// with smem bytes of dynamic shared memory. Its limit is raised once per
+// kernel.
+template <auto kKernel, class... Args>
+int launch_slices(const LaunchPlan& lp, size_t smem, cudaStream_t stream, Args... args) {
+  const int c = lp.group;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(lp.planes * c));
+  cfg.blockDim = dim3(static_cast<unsigned>(lp.threads));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = static_cast<unsigned>(c);
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = c > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kKernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-extern "C" int adain_bwd(const float* g, const float* x, const float* w, const float* mean,
-                         const float* rstd, float* dx, float* dw, float* db, int64_t planes,
-                         int64_t hw, void* stream) {
-  return launch_bwd<true>(g, x, w, mean, rstd, dx, dw, db, planes, hw, 1.f, stream);
+template <bool kAffine>
+int launch_fwd(const float* x, const float* w, const float* b, float* y, float* mean,
+               float* rstd, float eps, float slope, const LaunchPlan& lp, cudaStream_t s) {
+  const int64_t planes = lp.planes, hw = lp.hw;
+  if (planes <= 0 || hw <= 0 || planes > INT_MAX) return kInvalid;
+  const int np = static_cast<int>(planes);
+  if (lp.slice == 0) {
+    if (!warp_plan_ok(lp)) return kInvalid;
+    const unsigned grid = static_cast<unsigned>((planes + lp.group - 1) / lp.group);
+    in_act_fwd_warp<kAffine><<<grid, lp.threads, 0, s>>>(
+        x, w, b, y, mean, rstd, np, static_cast<int>(hw), lp.group, eps, slope);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!slice_plan_ok(lp)) return kInvalid;
+  const size_t smem = static_cast<size_t>(lp.held) * sizeof(float);
+  if (hw % 4 == 0 && aligned16(x) && aligned16(y))
+    return launch_slices<in_act_fwd_slice<true, kAffine>>(lp, smem, s, x, w, b, y, mean, rstd,
+                                                           hw, lp.group, lp.slice, lp.held, eps,
+                                                           slope);
+  return launch_slices<in_act_fwd_slice<false, kAffine>>(lp, smem, s, x, w, b, y, mean, rstd, hw,
+                                                          lp.group, lp.slice, lp.held, eps,
+                                                          slope);
+}
+
+template <bool kAffine>
+int launch_bwd(const float* g, const float* x, const float* w, const float* mean,
+               const float* rstd, float* dx, float* dw, float* db, float slope,
+               const LaunchPlan& lp, cudaStream_t s) {
+  const int64_t planes = lp.planes, hw = lp.hw;
+  if (planes <= 0 || hw <= 0 || planes > INT_MAX) return kInvalid;
+  const int np = static_cast<int>(planes);
+  if (lp.slice == 0) {
+    if (!warp_plan_ok(lp)) return kInvalid;
+    const unsigned grid = static_cast<unsigned>((planes + lp.group - 1) / lp.group);
+    in_act_bwd_warp<kAffine><<<grid, lp.threads, 0, s>>>(
+        g, x, w, mean, rstd, dx, dw, db, np, static_cast<int>(hw), lp.group, slope);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (!slice_plan_ok(lp)) return kInvalid;
+  const size_t smem = 2 * static_cast<size_t>(lp.held) * sizeof(float);
+  if (hw % 4 == 0 && aligned16(g) && aligned16(x) && aligned16(dx))
+    return launch_slices<in_act_bwd_slice<true, kAffine>>(lp, smem, s, g, x, w, mean, rstd, dx,
+                                                           dw, db, hw, lp.group, lp.slice,
+                                                           lp.held, slope);
+  return launch_slices<in_act_bwd_slice<false, kAffine>>(lp, smem, s, g, x, w, mean, rstd, dx, dw,
+                                                          db, hw, lp.group, lp.slice, lp.held,
+                                                          slope);
+}
+
+}  // namespace
+
+// Forward. w and b (one float a plane, (B, C) contiguous) select AdaIN, and
+// slope is then unused; null, IN + leaky(slope). mean and rstd get one float
+// a plane.
+extern "C" int in_act_fwd(const float* x, const float* w, const float* b, float* y, float* mean,
+                          float* rstd, float eps, float slope, const LaunchPlan* plan,
+                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w) return launch_fwd<true>(x, w, b, y, mean, rstd, eps, 1.f, *plan, s);
+  return launch_fwd<false>(x, nullptr, nullptr, y, mean, rstd, eps, slope, *plan, s);
+}
+
+// Backward. w selects AdaIN, whose dw and dbias go to dw and db (one float a
+// plane); null, IN + leaky(slope), and dw and db are unused.
+extern "C" int in_act_bwd(const float* g, const float* x, const float* w, const float* mean,
+                          const float* rstd, float* dx, float* dw, float* db, float slope,
+                          const LaunchPlan* plan, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w) return launch_bwd<true>(g, x, w, mean, rstd, dx, dw, db, 1.f, *plan, s);
+  return launch_bwd<false>(g, x, nullptr, mean, rstd, dx, nullptr, nullptr, slope, *plan, s);
 }

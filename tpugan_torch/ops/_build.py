@@ -86,16 +86,20 @@ def _compile(srcs: list, so: str) -> str:
     return log
 
 
+class LaunchPlan(ctypes.Structure):
+    """``instance_norm.cu``'s ``LaunchPlan``, passed by pointer."""
+
+    _fields_ = [("planes", ctypes.c_int64), ("hw", ctypes.c_int64), ("group", ctypes.c_int32),
+                ("slice", ctypes.c_int32), ("held", ctypes.c_int32), ("threads", ctypes.c_int32)]
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-    lib.in_act_fwd.argtypes = [p, p, p, p, i64, i64, f32, f32, p]
+    plan = ctypes.POINTER(LaunchPlan)
+    lib.in_act_fwd.argtypes = [p] * 6 + [f32, f32, plan, p]
     lib.in_act_fwd.restype = ctypes.c_int
-    lib.in_act_bwd.argtypes = [p, p, p, p, p, i64, i64, f32, p]
+    lib.in_act_bwd.argtypes = [p] * 8 + [f32, plan, p]
     lib.in_act_bwd.restype = ctypes.c_int
-    lib.adain_fwd.argtypes = [p] * 6 + [i64, i64, f32, p]
-    lib.adain_fwd.restype = ctypes.c_int
-    lib.adain_bwd.argtypes = [p] * 8 + [i64, i64, p]
-    lib.adain_bwd.restype = ctypes.c_int
     lib.mlp_gp_fwd.argtypes = [p] * 12 + [i64] * 4 + [p]
     lib.mlp_gp_fwd.restype = ctypes.c_int
     lib.mlp_gp_bwd.argtypes = [p] * 11 + [i64] * 4 + [p]

@@ -6,11 +6,14 @@ Replaces the Pallas TPU kernel ``adain_pallas`` of
 ``_adain_bwd_kernel`` :354): instance norm over each (sample, channel) plane,
 then ``y = xh * w[b, c] + bias[b, c]`` with w and bias of shape (B, C)
 predicted from a style code (munit/models.py:268-301). The kernels are the
-affine variant of the instance-norm pair in
-``tpugan_torch/csrc/instance_norm.cu`` (``adain_fwd``/``adain_bwd``): one
-thread block per plane of contiguous NCHW float32, bound by memory bandwidth.
-The backward gives dx, dw = sum(g * xh) and dbias = sum(g) per plane, with w
-outside the bracket of dx, so w = 0 needs no special case.
+affine variant (``kAffine``) of the instance-norm pair in
+``tpugan_torch/csrc/instance_norm.cu``, on contiguous NCHW float32, with the
+same launch plan (``instance_norm.plan``): a warp a plane up to 16x16 planes,
+else each CTA's slice of the plane held in shared memory, on a thread block
+cluster of 2, 4 or 8 CTAs where a plane exceeds one CTA's 64 KB. Bound by
+memory bandwidth: 8 bytes an element forward and 12 backward, each input
+read once. The backward gives dx, dw = sum(g * xh) and dbias = sum(g) per
+plane, with w outside the bracket of dx, so w = 0 needs no special case.
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises. ``adain_fwd_launches`` and
@@ -60,9 +63,9 @@ def adain_bwd_ref(g, x, w, mean, rstd):
 
 def adain_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
     """Forward wrapper: (y, mean, rstd). CPU tensors take the plain version;
-    CUDA tensors launch ``adain_fwd`` of ``instance_norm.cu``."""
+    CUDA tensors launch the affine forward of ``instance_norm.cu``."""
     global adain_fwd_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return adain_fwd_ref(x, w, b, eps)
     out = _launch_fwd("adain_fwd", x, eps, 1.0, w, b)
     adain_fwd_launches += 1
@@ -71,9 +74,9 @@ def adain_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
 
 def adain_bwd(g, x, w, mean, rstd):
     """Backward wrapper: (dx, dw, dbias). CPU tensors take the plain
-    version; CUDA tensors launch ``adain_bwd`` of ``instance_norm.cu``."""
+    version; CUDA tensors launch the affine backward of ``instance_norm.cu``."""
     global adain_bwd_launches
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return adain_bwd_ref(g, x, w, mean, rstd)
     out = _launch_bwd("adain_bwd", g, x, mean, rstd, 1.0, w)
     adain_bwd_launches += 1
