@@ -10,7 +10,8 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
 2. build: every CUDA kernel of the port from ``tpugan_torch/csrc`` (one nvcc
    per source, started together), with ptxas's registers and spills;
    launch cost: the host time of one IN or AdaIN launch and of its parts,
-   beside the library calls, at the MUNIT step shape (``host_us``);
+   beside the library calls, at the MUNIT step shape, and of the GP
+   wrappers and their parts at the WGAN-GP shape (``host_us``);
 3. IN parity and time: the instance-norm pair against its plain PyTorch
    version on the card, forward and backward, at every shape the CycleGAN
    slice gives it and at slopes 0.0, 0.2 and 1.0, plus ragged planes and a
@@ -24,8 +25,16 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    finite losses, the output files, and that every instance-norm site went
    through the kernels (launch counters); then the steady-state step time;
 5. GP parity and time: the closed-form WGAN-GP pair against its plain
-   version on the card at five cases, then both timed at the slice shape
-   beside the bound, and the generic double-backward penalty for scale;
+   version on the card at seven cases (batches 1 to 256), each repeating bit
+   for bit; then both directions at the slice shape: the launch plan, CUDA
+   events beside the plain version and the bound, device time per kernel
+   (torch.profiler; every device kernel inside a wrapper call must be one of
+   ``mlp_gp.cu``'s, four forward and two backward), the time per call of
+   calls replayed from a CUDA graph (``graph_ms``: device time with the gaps
+   between launches, without the host), programmatic dependent launch on
+   and off in turns, the same eight products as ``torch.mm`` calls (cuBLAS,
+   TF32 off) as a yardstick for the products alone, and the generic
+   double-backward penalty for scale;
 6. WGAN-GP slice: ``tpugan_torch.models.wgan_gp.main`` at the reference
    configuration (batch 64, 28x28x1, latent 100, n_critic 5) for 50 batches;
    checks finite losses, the sample PNGs and exactly one GP forward and one
@@ -118,6 +127,8 @@ GP_CASES = [
     ((7, 13, 100, 36), 1.0, False),
     (GP_SHAPE, 100.0, False),
     (GP_SHAPE, 1.0, True),  # dead zone: g = 0, P = 1, q = 0
+    ((65, 784, 512, 256), 1.0, False),  # a second row tile of one row
+    ((256, 784, 512, 256), 1.0, False),  # four row tiles, the largest batch
 ]
 # Tolerances, kernel against plain, fp32 with sums in different orders: g and
 # t to 1e-5 of their largest |.|, P to 1e-5 relative, the weight gradients to
@@ -246,6 +257,33 @@ def device_ms(fn, reps: int):
     return None
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 20) -> float:
+    """Time per call in ms of ``calls`` calls captured in one CUDA graph and
+    replayed ``replays`` times (CUDA events): the device's time including the
+    gaps between launches, without the host's launch time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def add_ms(total, n, t):
     """total + n * t, where a time that was not measured (None) makes the
     sum not measured too."""
@@ -372,8 +410,8 @@ def phase_launch_cost(smi):
         ("one allocation instead: x.new_empty((2, B*C))", lambda: x.new_empty((2, planes))),
         ("  and the unbind of its two rows", stats.unbind),
         ("raw stream (torch._C)", lambda: tin.raw_stream(dev)),
-        ("checks, one pass over 5 tensors", lambda: tin._check("adain_bwd", dev, g, x, mean,
-                                                               rstd, w)),
+        ("checks, one pass over 5 tensors", lambda: _build.check_tensors(
+            "adain_bwd", dev, g, x, mean, rstd, w)),
         ("plan and its C struct from their cache", lambda: tin._plan_arg(planes, hw, "bwd")),
         ("before: import and library() lookup", lookup_before),
         ("before: torch.empty(B*C) twice", lambda: (torch.empty(planes, device=x.device),
@@ -393,7 +431,65 @@ def phase_launch_cost(smi):
         log(f"[launch cost] {name:52s} {out[name]:8.3f} us/call")
     log(f"[launch cost] host clock, {LAUNCH_CALLS} calls after warm-up, at {shape}; on "
         f"{torch.cuda.get_device_name(0)} ({smi})")
+    for name, fn in _gp_launch_rows(gen, dev):
+        out[name] = host_us(fn)
+        log(f"[launch cost] {name:52s} {out[name]:8.3f} us/call")
+    log(f"[launch cost] the GP rows at {GP_SHAPE}, same clock")
     return out
+
+
+def _gp_launch_rows(gen, dev):
+    """[launch cost] rows of the GP pair at the slice shape: the whole
+    wrappers, the bare ctypes call, its parts, and the parts the wrapper
+    took before its redesign (six allocations, ``current_stream``, checks a
+    tensor at a time)."""
+    import ctypes
+
+    import torch
+
+    from tpugan_torch.ops import _build
+    from tpugan_torch.ops import mlp_gp as gp
+
+    ins = _gp_inputs(GP_SHAPE, 1.0, False, gen)
+    x = ins[0]
+    g, m1, m2, u, t = gp.mlp_gp_fwd_ref(*ins)
+    q = gp.q_from(g, gp.norm_penalty(g)[1], 1.0).contiguous()
+    res = (q, m1, m2, ins[1], ins[3], u, t)
+    b, n0, n1, n2 = GP_SHAPE
+    lib = _build.library()
+    _, _, cp = gp._plan_arg(b, n0, n1, n2, "fwd", gp.PDL)
+    outs = [torch.empty_like(a) for a in (g, m1, m2, u, t)]
+    ptrs = [a.data_ptr() for a in (*ins, *outs)]
+    stream = gp._bind()[2](dev)
+    # A plan of batch 0: the C entry returns before any CUDA call.
+    empty = gp._c_plan(gp.plan(*GP_SHAPE, "fwd")._replace(shape=(0, n0, n1, n2)))
+    empty_arg = ctypes.byref(empty)
+
+    def checks_before():  # device, dtype and contiguity, one test at a time
+        for a in ins:
+            if a.device.type != "cuda" or a.dtype != torch.float32 or not a.is_contiguous():
+                raise AssertionError("unexpected input")
+
+    return [
+        ("mlp_gp_fwd wrapper (4 launches)", lambda: gp.mlp_gp_fwd(*ins)),
+        ("mlp_gp_bwd wrapper (2 launches)", lambda: gp.mlp_gp_bwd(*res)),
+        ("bare ctypes call (mlp_gp_fwd, 13 arguments)", lambda: lib.mlp_gp_fwd(*ptrs, cp, stream)),
+        ("  the same, refused in C before any CUDA call",
+         lambda: lib.mlp_gp_fwd(*ptrs, empty_arg, stream)),
+        ("five x.new_empty: g, m1, t, m2, u", lambda: (
+            x.new_empty((b, n0)), x.new_empty((b, n1)), x.new_empty((b, n1)),
+            x.new_empty((b, n2)), x.new_empty((b, n2)))),
+        ("checks, one pass over 6 tensors", lambda: _build.check_tensors("mlp_gp_fwd", dev, *ins)),
+        ("plan and its C struct from their cache",
+         lambda: gp._plan_arg(b, n0, n1, n2, "fwd", gp.PDL)),
+        ("eleven data_ptr() calls", lambda: [a.data_ptr() for a in (*ins, *outs)]),
+        ("before: six torch.empty(shape, device=...)", lambda: [
+            torch.empty(shape, device=x.device, dtype=torch.float32)
+            for shape in ((b, n0), (b, n1), (b, n2), (b, n2), (b, n1), (b, n1))]),
+        ("before: torch.cuda.current_stream(dev).cuda_stream",
+         lambda: torch.cuda.current_stream(x.device).cuda_stream),
+        ("before: checks a tensor at a time, 6 tensors", checks_before),
+    ]
 
 
 def _parity_case(shape, slope, offset, gen):
@@ -740,30 +836,91 @@ def phase_gp_time(smi):
         log(f"[gp time] {k} {GP_SHAPE}: kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f} ms, "
             f"bound {o['bound_ms']:.4f} ms ({o['bound_by']}: {flops / 1e6:.1f} MFLOP, "
             f"{nbytes[k] / 1e6:.2f} MB), library none ({o['bound_ms'] / o['ms']:.1%} of bound)")
+    for k, direction in (("fwd", "fwd"), ("bwd", "bwd")):
+        p = gp.plan(*GP_SHAPE, direction, gp.PDL)
+        log(f"[gp time] {k} plan: launches bn {p.bn}, CTAs {p.grid}, smem {p.smem} B, PDL "
+            f"{p.pdl}; " + ", ".join(f"{q.name} ks {q.ks} kc {q.kc} CTAs {q.ctas}"
+                                     for q in p.products))
 
-    # Device time of the four launches of each direction (torch.profiler),
-    # beside the CUDA-event time above, which also holds the wrapper's host
-    # time where the host is the slower side.
+    # Device time of each direction's launches (torch.profiler): every
+    # device kernel inside a wrapper call must be one of mlp_gp.cu's, four
+    # forward and two backward, nothing of cuBLAS or cuDNN. Taken in plain
+    # stream order: under programmatic dependent launch a kernel starts
+    # early and waits, so the profiler's durations overlap; the shipped
+    # plan's time per call is graph_ms below.
     from torch.profiler import ProfilerActivity, profile
 
     n_prof = 20
+    want_kernels = {"fwd": 4, "bwd": 2}
+    shipped, gp.PDL = gp.PDL, False
     for k, fn in (("fwd", lambda: gp.mlp_gp_fwd(*ins)), ("bwd", lambda: gp.mlp_gp_bwd(*res))):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_prof):
-                fn()
-            torch.cuda.synchronize()
-        rows = []
-        for e in prof.key_averages():
-            if "gemm_kernel" in e.key:
-                us = (getattr(e, "self_device_time_total", 0)
-                      or getattr(e, "self_cuda_time_total", 0))
-                args = e.key[e.key.find("<"):e.key.find(">") + 1]
-                rows.append((args, e.count, us / n_prof))
-        device_ms = sum(r[2] for r in rows) / 1e3
-        out[k]["device_ms"] = device_ms if device_ms > 0 else None
-        log(f"[gp time] {k} device time per call (torch.profiler, {n_prof} calls): "
-            f"{device_ms:.4f} ms = " + ", ".join(f"gemm{r[0]} x{r[1] // n_prof} {r[2]:.1f} us"
-                                                 for r in rows))
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):  # the profiler drops every event in some sessions (device_ms)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(n_prof):
+                    fn()
+                torch.cuda.synchronize()
+            events = device_kernels(prof)
+            if events:
+                break
+        foreign = sorted({e.name for e in events if "gp_gemm<" not in e.name})
+        if foreign:
+            raise AssertionError(f"gp {k}: device kernels other than mlp_gp.cu's: {foreign}")
+        by_name = {}
+        for e in events:
+            tot, cnt = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+        if len(events) > want_kernels[k] * n_prof:
+            raise AssertionError(f"gp {k}: {len(events)} device kernels in {n_prof} calls, "
+                                 f"expected {want_kernels[k]} a call")
+        # Per kernel name: mean duration times launches a call, as device_ms.
+        rows = [(name[name.find("<"):name.find(">") + 1], max(1, round(cnt / n_prof)), tot / cnt)
+                for name, (tot, cnt) in by_name.items()]
+        dev = sum(n * us for _, n, us in rows) / 1e3
+        out[k]["device_ms"] = dev if rows else None
+        log(f"[gp time] {k} device time per call (torch.profiler, {n_prof} calls in stream "
+            f"order, {len(events)} kernels): {dev:.4f} ms = "
+            + ", ".join(f"gp_gemm{r[0]} x{r[1]} {r[2]:.2f} us" for r in rows))
+
+    gp.PDL = shipped
+
+    # Calls replayed from a CUDA graph: the device's time per call with the
+    # gaps between launches, without the host's launch time.
+    for k, fn in (("fwd", lambda: gp.mlp_gp_fwd(*ins)), ("bwd", lambda: gp.mlp_gp_bwd(*res))):
+        out[k]["graph_ms"] = graph_ms(fn)
+        log(f"[gp time] {k} replayed from a CUDA graph: {out[k]['graph_ms']:.4f} ms per call")
+
+    # Yardstick for the products only: the same eight products as torch.mm
+    # calls (cuBLAS, TF32 off), device time, never called by the port.
+    x, w1, _, w2, _, _ = ins
+    q, m1, m2, _, _, u, t = res
+    a1 = (x @ w1.T + ins[2]).relu_()  # any (B, N1) operand: only the time is kept
+    s_ = q @ w1.T
+    mm = {"fwd": (lambda: x @ w1.T, lambda: a1 @ w2.T, lambda: u @ w2, lambda: t @ w1),
+          "bwd": (lambda: q @ w1.T, lambda: t.T @ q, lambda: u.T @ s_, lambda: s_ @ w2.T)}
+    for k in ("fwd", "bwd"):
+        times = [device_ms(f, 50) for f in mm[k]]
+        out[k]["cublas_products_device_ms"] = (None if None in times else sum(times))
+        log(f"[gp time] {k} yardstick: the four products as torch.mm (cuBLAS, TF32 off), device "
+            f"time {fmt_ms(out[k]['cublas_products_device_ms'], 0)} ms = "
+            + " + ".join(fmt_ms(t_, 0) for t_ in times) + " (products only, no epilogues)")
+
+    # Programmatic dependent launch against plain stream order, in turns
+    # (on, off, off, on): replayed from a CUDA graph, CUDA events, and
+    # torch.profiler's kernel durations, which overlap when it is on.
+    pdl_rows = {}
+    for pdl in (True, False, False, True):
+        gp.PDL = pdl
+        for k, fn in (("fwd", lambda: gp.mlp_gp_fwd(*ins)), ("bwd", lambda: gp.mlp_gp_bwd(*res))):
+            pdl_rows.setdefault((pdl, k), []).append(
+                (graph_ms(fn), cuda_ms(fn, reps), device_ms(fn, reps)))
+    gp.PDL = shipped
+    for (pdl, k), vals in sorted(pdl_rows.items(), key=lambda kv: (kv[0][1], not kv[0][0])):
+        log(f"[gp time] {k} PDL {'on ' if pdl else 'off'}: graph "
+            + ", ".join(f"{v[0]:.4f}" for v in vals) + " ms; CUDA events "
+            + ", ".join(f"{v[1]:.4f}" for v in vals) + " ms; device "
+            + ", ".join(fmt_ms(v[2], 0) for v in vals) + " ms")
 
     # The whole penalty, both ways, on a template-A critic at this shape.
     D = MLPDiscriminator(n0, sigmoid=False).cuda()
@@ -1301,6 +1458,8 @@ def main() -> int:
             "max_abs_err": gp_worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "device_ms": t["device_ms"],
+            "graph_ms": t["graph_ms"],
+            "cublas_products_device_ms": t["cublas_products_device_ms"],
         })
     for k in ("fwd", "bwd"):
         t = adain_time[k]

@@ -146,7 +146,8 @@ def _gp_inputs(shape, device, seed=0):
             u(n2, fan_in=n1), u(1, n2, fan_in=n2))
 
 
-@pytest.mark.parametrize("shape", [(64, 784, 512, 256), (1, 784, 512, 256), (7, 13, 100, 36)])
+@pytest.mark.parametrize("shape", [(64, 784, 512, 256), (1, 784, 512, 256), (7, 13, 100, 36),
+                                   (65, 784, 512, 256), (256, 784, 512, 256)])
 def test_gp_kernels_match_plain_version(cuda, shape):
     ins = _gp_inputs(shape, cuda)
     before = (gp.gp_fwd_launches, gp.gp_bwd_launches)
@@ -174,6 +175,41 @@ def test_gp_kernels_reject_what_they_do_not_take(cuda):
         gp.mlp_gp_bwd(g.double(), m1, m2, w1, w2, u, t)
     with pytest.raises(ValueError):
         gp.mlp_gp_bwd(g, m1.t(), m2, w1, w2, u, t)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_a_refused_gp_launch_raises_with_its_plan(cuda, monkeypatch, direction):
+    shape = (64, 784, 512, 256)
+    ins = _gp_inputs(shape, cuda)
+    g, m1, m2, u, t = gp.mlp_gp_fwd_ref(*ins)
+    res = (g, m1, m2, ins[1], ins[3], u, t)
+    # A cluster of 16 CTAs: past the portable 8 that the kernels take, so
+    # the C entry refuses the plan and launches nothing.
+    good = gp.plan(*shape, direction)
+    bad = good._replace(products=(good.products[0]._replace(ks=16),) + good.products[1:])
+    monkeypatch.setattr(gp, "_plan_arg", lambda *key: (bad, None, gp.ctypes.byref(gp._c_plan(bad))))
+    before = (gp.gp_fwd_launches, gp.gp_bwd_launches)
+    with pytest.raises(RuntimeError, match="CUDA error .* Plan"):
+        gp.mlp_gp_fwd(*ins) if direction == "fwd" else gp.mlp_gp_bwd(*res)
+    assert (gp.gp_fwd_launches, gp.gp_bwd_launches) == before
+    monkeypatch.undo()
+    got = gp.mlp_gp_fwd(*ins) if direction == "fwd" else gp.mlp_gp_bwd(*res)  # no error stuck
+    want = gp.mlp_gp_fwd_ref(*ins) if direction == "fwd" else gp.mlp_gp_bwd_ref(*res)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4 * float(want[0].abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(64, 784, 512, 256), (65, 784, 512, 256), (7, 13, 100, 36)])
+def test_gp_kernels_repeat_bit_for_bit(cuda, shape):
+    """Split-K over clusters adds the partial tiles in rank order: no
+    atomics, so both directions give the same bits every run."""
+    ins = _gp_inputs(shape, cuda, seed=2)
+    first = gp.mlp_gp_fwd(*ins)
+    assert all(torch.equal(a, b) for a, b in zip(first, gp.mlp_gp_fwd(*ins)))
+    g, m1, m2, u, t = first
+    q = gp.q_from(g, gp.norm_penalty(g)[1], 1.0).contiguous()
+    res = (q, m1, m2, ins[1], ins[3], u, t)
+    d = gp.mlp_gp_bwd(*res)
+    assert all(torch.equal(a, b) for a, b in zip(d, gp.mlp_gp_bwd(*res)))
 
 
 def test_one_wgan_gp_d_step_launches_the_gp_pair_once(cuda):

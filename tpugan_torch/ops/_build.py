@@ -20,6 +20,8 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tpugan_torch")
@@ -93,16 +95,49 @@ class LaunchPlan(ctypes.Structure):
                 ("slice", ctypes.c_int32), ("held", ctypes.c_int32), ("threads", ctypes.c_int32)]
 
 
+class GpProduct(ctypes.Structure):
+    """``mlp_gp.cu``'s ``GpProduct``: one product's share of a launch."""
+
+    _fields_ = [(name, ctypes.c_int32) for name in ("ks", "kc", "rows", "tiles_m", "tiles_n",
+                                                     "ctas")]
+
+
+class GpPlan(ctypes.Structure):
+    """``mlp_gp.cu``'s ``GpPlan``, passed by pointer."""
+
+    _fields_ = [("b", ctypes.c_int64), ("n0", ctypes.c_int64), ("n1", ctypes.c_int64),
+                ("n2", ctypes.c_int64), ("pdl", ctypes.c_int32), ("bn", ctypes.c_int32 * 4),
+                ("grid", ctypes.c_int32 * 4), ("smem", ctypes.c_int32 * 4),
+                ("prod", GpProduct * 4)]
+
+
+def check_tensors(name: str, dev: int, *ts) -> None:
+    """One pass over the tensors: float32, contiguous, on CUDA device dev."""
+    for t in ts:
+        if not (t.is_cuda and t.dtype is torch.float32 and t.is_contiguous()
+                and t.get_device() == dev):
+            _refuse(name, dev, t)
+
+
+def _refuse(name: str, dev: int, t) -> None:
+    if not t.is_cuda or t.get_device() != dev:
+        raise ValueError(f"{name}: a tensor on {t.device}, expected all on cuda:{dev}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32 only")
+    raise ValueError(f"{name}: non-contiguous input of shape {tuple(t.shape)}")
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    p, f32 = ctypes.c_void_p, ctypes.c_float
     plan = ctypes.POINTER(LaunchPlan)
     lib.in_act_fwd.argtypes = [p] * 6 + [f32, f32, plan, p]
     lib.in_act_fwd.restype = ctypes.c_int
     lib.in_act_bwd.argtypes = [p] * 8 + [f32, plan, p]
     lib.in_act_bwd.restype = ctypes.c_int
-    lib.mlp_gp_fwd.argtypes = [p] * 12 + [i64] * 4 + [p]
+    gp_plan = ctypes.POINTER(GpPlan)
+    lib.mlp_gp_fwd.argtypes = [p] * 11 + [gp_plan, p]
     lib.mlp_gp_fwd.restype = ctypes.c_int
-    lib.mlp_gp_bwd.argtypes = [p] * 11 + [i64] * 4 + [p]
+    lib.mlp_gp_bwd.argtypes = [p] * 11 + [gp_plan, p]
     lib.mlp_gp_bwd.restype = ctypes.c_int
     return lib
 

@@ -28,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from tpugan_torch.ops._build import LaunchPlan, library
+from tpugan_torch.ops._build import LaunchPlan, check_tensors, library
 
 fwd_launches = 0
 bwd_launches = 0
@@ -161,22 +161,6 @@ def raw_stream(index: int) -> int:
     return (_bound or _bind())[2](index)
 
 
-def _check(name: str, dev: int, *ts: torch.Tensor) -> None:
-    """One pass over the tensors: float32, contiguous, on CUDA device dev."""
-    for t in ts:
-        if not (t.is_cuda and t.dtype is torch.float32 and t.is_contiguous()
-                and t.get_device() == dev):
-            _refuse(name, dev, t)
-
-
-def _refuse(name: str, dev: int, t: torch.Tensor):
-    if not t.is_cuda or t.get_device() != dev:
-        raise ValueError(f"{name}: a tensor on {t.device}, expected all on cuda:{dev}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32 only")
-    raise ValueError(f"{name}: non-contiguous input of shape {tuple(t.shape)}")
-
-
 def _raise_on(rc: int, name: str, p: Plan, planes: int, hw: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch; {planes} planes of {hw}, {p}")
@@ -188,9 +172,9 @@ def _launch_fwd(name: str, x, eps: float, slope: float, w=None, b=None):
     Returns (y, mean, rstd)."""
     dev = x.get_device()
     if w is None:
-        _check(name, dev, x)
+        check_tensors(name, dev, x)
     else:
-        _check(name, dev, x, w, b)
+        check_tensors(name, dev, x, w, b)
     shape = x.shape
     if len(shape) != 4 or 0 in shape:
         raise ValueError(f"{name}: expected a non-empty NCHW tensor, got {tuple(shape)}")
@@ -217,9 +201,9 @@ def _launch_bwd(name: str, g, x, mean, rstd, slope: float, w=None):
     dbias)."""
     dev = x.get_device()
     if w is None:
-        _check(name, dev, g, x, mean, rstd)
+        check_tensors(name, dev, g, x, mean, rstd)
     else:
-        _check(name, dev, g, x, mean, rstd, w)
+        check_tensors(name, dev, g, x, mean, rstd, w)
     shape = x.shape
     if len(shape) != 4 or 0 in shape:
         raise ValueError(f"{name}: expected a non-empty NCHW tensor, got {tuple(shape)}")
