@@ -58,6 +58,16 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    steady-state step time, the step's FLOPs and operations bound, the
    device's busy share and the step's largest device kernels
    (torch.profiler).
+10. DCGAN slice: ``tpugan_torch.models.dcgan.main`` at 64px, batch 64, with
+   synthetic data for 40 batches with samples, and ``lsgan.main`` at its
+   defaults (32px, batch 64) for 20; checks finite losses, the sample PNGs
+   and that neither launched any of the port's kernels (the JAX path
+   reaches no Pallas kernel). Then, for the DCGAN step at 64px and at 32px:
+   steady-state ms a step and images/s, the step's FLOPs and FP32 bound, the
+   device's busy share, the largest device kernels, and the kernels each
+   cuDNN convolution ran (its algorithm; an FFT is flagged).
+11. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, eager), its
+   JSON line printed before the last three lines.
 
 The bounds use the published peaks of the card ``nvidia-smi`` names
 (``PEAKS``): FP32 outside the tensor cores and HBM bandwidth.
@@ -164,6 +174,10 @@ MUNIT_IN_SAMPLE = {
 MUNIT_IN_PER_STEP = sum(MUNIT_IN_STEP.values())  # 90
 MUNIT_IN_PER_SAMPLE = sum(MUNIT_IN_SAMPLE.values())  # 9
 MUNIT_STEPS, MUNIT_SAMPLE_INTERVAL = 6, 5
+# The template-B slice: DCGAN at the headline's 64px, batch 64, and LSGAN at
+# its defaults (32px, batch 64).
+DCGAN_BATCHES, DCGAN_SAMPLE_INTERVAL = 40, 20
+LSGAN_BATCHES, LSGAN_SAMPLE_INTERVAL = 20, 10
 # (shape, offset, w kind): "normal" w ~ 1 +- 0.3, "zeros" with zeros and
 # negatives. Tolerances, kernel against plain: y within 1e-5 * (1 + |offset|)
 # * max(1, max|w|), mean within 1e-5 * (1 + |offset|), rstd within 1e-5
@@ -1403,6 +1417,179 @@ def phase_munit_slice(smi):
     return launches
 
 
+def _port_launches():
+    """Every launch counter of the port's kernels."""
+    from tpugan_torch.ops import adain as ta
+    from tpugan_torch.ops import instance_norm as tin
+    from tpugan_torch.ops import mlp_gp as gp
+
+    return {"in_fwd": tin.fwd_launches, "in_bwd": tin.bwd_launches,
+            "adain_fwd": ta.adain_fwd_launches, "adain_bwd": ta.adain_bwd_launches,
+            "gp_fwd": gp.gp_fwd_launches, "gp_bwd": gp.gp_bwd_launches}
+
+
+def _reset_port_launches():
+    from tpugan_torch.ops import adain as ta
+    from tpugan_torch.ops import instance_norm as tin
+    from tpugan_torch.ops import mlp_gp as gp
+
+    for mod in (ta, tin, gp):
+        mod.reset_launch_counts()
+
+
+def _check_mnist_run(tag, out_dir, metrics, n_batches, interval, img_size, batch):
+    """Finite losses at every step and a 5-a-row grid of the first 25 images
+    at every sample step."""
+    with open(metrics) as f:
+        rows = [json.loads(line) for line in f]
+    if [r["step"] for r in rows] != list(range(n_batches)):
+        raise AssertionError(f"{tag}: metric rows for steps {[r['step'] for r in rows]}")
+    for row in rows:
+        if not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"{tag}: non-finite losses at step {row['step']}: {row}")
+    n = min(25, batch)
+    grid_wh = (5 * (img_size + 2) + 2, -(-n // 5) * (img_size + 2) + 2)
+    pngs = [os.path.join(out_dir, "images", f"{i}.png") for i in range(0, n_batches, interval)]
+    for path in pngs:
+        with open(path, "rb") as f:
+            head = f.read(24)
+        wh = (int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big"))
+        if head[:8] != b"\x89PNG\r\n\x1a\n" or wh != grid_wh:
+            raise AssertionError(f"{tag}: {path} is not a {grid_wh} PNG grid (size {wh})")
+    log(f"{tag} losses finite at all {n_batches} steps (last {rows[-1]}); wrote "
+        f"{[os.path.basename(p) for p in pngs]}, {grid_wh[0]}x{grid_wh[1]} grids")
+
+
+def _dcgan_step_report(smi, img_size):
+    """Steady state of the DCGAN step at ``img_size``, batch 64, through the
+    trainer's entry points: host-clock time a step, FLOPs and FP32 bound,
+    the device's busy share, the largest device kernels and the kernels each
+    cuDNN convolution ran."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tpugan_torch.models import dcgan
+
+    tag = f"[dcgan slice {img_size}px]"
+    cfg = dcgan.Config(img_size=img_size, synthetic_data=True)
+    dev = torch.device("cuda")
+    modules = dcgan.build(cfg, dev)
+    state = dcgan.create_state(cfg, modules, dev)
+    step = dcgan.make_step(cfg, state)
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.integers(0, 256, (cfg.batch_size, img_size, img_size, 1),
+                                         dtype=np.uint8)).to(dev)
+    for _ in range(5):
+        state, out = step(state, imgs)
+    torch.cuda.synchronize()
+    n_timed = 50
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        state, out = step(state, imgs)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n_timed * 1e3
+    losses = {k: float(out[k]) for k in ("d_loss", "g_loss")}
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{tag} non-finite losses in the timed steps: {losses}")
+
+    with FlopCounterMode(display=False) as counter:
+        state, out = step(state, imgs)
+    flops = counter.get_total_flops()
+    bound = bound_ms(flops, 0)[0]
+    log(f"{tag} one step's convolutions and matmuls: {flops / 1e9:.3f} GFLOP forward and "
+        f"backward (torch.utils.flop_counter), {bound:.3f} ms at the FP32 peak: at most "
+        f"{cfg.batch_size * 1e3 / bound:.0f} images/s")
+
+    n_prof = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_prof):
+            state, out = step(state, imgs)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    kernels = device_kernels(prof)
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    by_name = {}
+    for e in kernels:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
+    log(f"{tag} profiled {n_prof} steps: {len(kernels) / n_prof:.0f} device kernels and "
+        f"{busy_ms / n_prof:.3f} ms of device time per step, in {prof_ms / n_prof:.3f} ms of host "
+        f"time (profiler on): device busy {busy_ms / prof_ms:.1%}")
+    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"{tag}   {tot / n_prof:8.4f} ms/step  x{cnt / n_prof:4.0f}  {name[:110]}")
+    # The kernels each convolution ran, forward and backward, by its input
+    # and weight shapes: their names give cuDNN's algorithm.
+    convs = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.kernels and (
+                "cudnn_convolution" in e.name or "convolution_backward" in e.name):
+            shapes = "x".join(str(tuple(s)) for s in e.input_shapes[:2])
+            per = convs.setdefault((e.name, shapes), {})
+            for k in e.kernels:
+                per[k.name] = per.get(k.name, 0.0) + k.duration / 1e3
+    fft = []
+    for (op, shapes), per in sorted(convs.items(), key=lambda kv: -sum(kv[1].values())):
+        log(f"{tag}   conv {op} {shapes}: {sum(per.values()) / n_prof:.4f} ms/step")
+        for name, t in sorted(per.items(), key=lambda kv: -kv[1]):
+            is_fft = "fft" in name.lower() or "cf32" in name
+            fft += [name] if is_fft else []
+            log(f"{tag}     {t / n_prof:8.4f} ms/step  {'FFT ' if is_fft else ''}{name[:100]}")
+    if not convs:
+        log(f"{tag}   no convolution op carried its kernels in this trace: algorithms not "
+            f"measured")
+    log(f"{tag} FFT convolution kernels: {sorted(set(fft)) or 'none'}")
+    log(f"{tag} steady state on {torch.cuda.get_device_name(0)} ({smi}): {step_ms:.3f} ms/step, "
+        f"{cfg.batch_size * 1e3 / step_ms:.1f} images/s ({img_size}px, batch {cfg.batch_size}, "
+        f"fp32, TF32 off; mean of {n_timed} steps after 5 warm-up; host clock, synchronized)")
+
+
+def phase_dcgan_slice(smi):
+    import torch
+
+    from tpugan_torch.models import dcgan, lsgan
+
+    for tag, mod, size, n_batches, interval in (
+            ("[dcgan slice]", dcgan, 64, DCGAN_BATCHES, DCGAN_SAMPLE_INTERVAL),
+            ("[lsgan slice]", lsgan, 32, LSGAN_BATCHES, LSGAN_SAMPLE_INTERVAL)):
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{mod.NAME}_")
+        metrics = os.path.join(out_dir, "metrics.jsonl")
+        argv = ["--synthetic_data", "--n_epochs", "1", "--max_batches", str(n_batches),
+                "--sample_interval", str(interval), "--log_interval", "10",
+                "--output_dir", out_dir, "--metrics_jsonl", metrics]
+        if size != mod.Config.img_size:
+            argv += ["--img_size", str(size)]
+        _reset_port_launches()
+        t0 = time.perf_counter()
+        mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _port_launches()
+        log(f"{tag} main() took {wall:.1f} s ({size}px, batch 64: data, modules, {n_batches} "
+            f"steps, samples); the port's kernel launches {launches}, expected none")
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("fp32 run with TF32 left on")
+        if any(launches.values()):
+            raise AssertionError(f"{tag} launched the port's kernels: {launches}")
+        _check_mnist_run(tag, out_dir, metrics, n_batches, interval, size, 64)
+    for size in (64, 32):
+        _dcgan_step_report(smi, size)
+
+
+def phase_dcgan_bench():
+    """The headline bench; its JSON line stays above the last three lines."""
+    from tpugan_torch import bench
+
+    log("[dcgan bench] python -m tpugan_torch.bench (DCGAN 64px, batch 64, fp32, eager):")
+    rec = bench.main()
+    if not (rec["metric"] == bench.METRIC and rec["value"] > 0
+            and rec["unit"] == "images/sec/gpu" and rec["card"]):
+        raise AssertionError(f"[dcgan bench] unexpected record {rec}")
+
+
 def main() -> int:
     import torch
 
@@ -1418,6 +1605,8 @@ def main() -> int:
     adain_time = phase_adain_time(smi)
     munit_in_worst, munit_in_time = phase_munit_in()
     munit_launches = phase_munit_slice(smi)
+    phase_dcgan_slice(smi)
+    phase_dcgan_bench()
     in_src, gp_src = "tpugan_torch/csrc/instance_norm.cu", "tpugan_torch/csrc/mlp_gp.cu"
     replaces = {
         "in_act_fwd": "tpugan/ops/pallas_kernels.py:226",

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, and the launch counts of one CycleGAN step, one WGAN-GP critic step
-and one MUNIT step.
+and one MUNIT step; and one DCGAN step at 64px on the card against the same
+step on the CPU.
 
 These need a CUDA device and skip without one. The file imports no JAX, so
 it also runs where JAX is not installed; there, skip the JAX-importing
@@ -12,7 +13,17 @@ Tolerances as in ``chip_smoke.py``: fp32 with sums in different orders,
 1e-5 absolute on y and 1e-4 of the largest |dx| on dx for instance norm; for
 the GP pair 1e-5 of the largest |g| on g and t, and 1e-4 of the largest
 entry on each weight gradient; for AdaIN 1e-5 * max(1, max|w|) absolute on y
-and 1e-4 of the largest |.| on each of dx, dw and dbias.
+and 1e-4 of the largest |.| on each of dx, dw and dbias. The DCGAN step,
+fp32 with TF32 off on the card (cuDNN and cuBLAS against the CPU's kernels,
+sums in different orders): losses 1e-4 relative, images 1e-4 absolute,
+gradients 1e-3 relative plus 1e-3 of the module's largest (the generator's
+gradients come back through the discriminator's N(0, 0.02) weights, at
+about 1e-4 of the discriminator's, and cuDNN's FFT and Winograd gradients
+round relative to a whole map: measured up to 6e-4 of the generator's
+largest), parameters after Adam 1e-5 absolute where the gradient is above
+that floor and above 100x Adam's eps of 1e-8 (below that, the first update
+lr*g/(|g|+eps) turns the gradient's rounding into a share of lr), and 2*lr
+elsewhere, running statistics 1e-4 relative and 1e-5 absolute.
 """
 
 import pytest
@@ -292,3 +303,79 @@ def test_one_munit_step_launches_every_site_through_the_kernels(cuda):
     assert (ta.adain_fwd_launches, ta.adain_bwd_launches) == (24, 24)
     assert (tin.fwd_launches, tin.bwd_launches) == (90, 90)
     assert all(torch.isfinite(v) for v in out.values())
+
+
+def test_dcgan_step_on_the_card_matches_the_cpu(cuda):
+    """The headline step (64px, batch 64, latent 100) from the same weights,
+    batch, z and Dropout2d masks on both devices; it launches none of the
+    port's kernels. Gradient floors per module, from the measured card-CPU
+    differences on an H100: cuDNN's FFT and Winograd convolutions put G's
+    up to 6e-4 of its largest gradient apart, D's stay below 3e-6 of its
+    largest. Every card parameter is Adam's first step of its own card
+    gradient, and agrees with the CPU's where the gradient is above the
+    floor."""
+    import numpy as np
+
+    from tpugan_torch.models import dcgan
+
+    cfg = dcgan.Config(img_size=64, synthetic_data=True)
+    b = cfg.batch_size
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.integers(0, 256, (b, 64, 64, 1), dtype=np.uint8))
+    draws = torch.Generator().manual_seed(1)
+    z = torch.randn(b, cfg.latent_dim, generator=draws)
+    masks = [dcgan.build(cfg, "cpu")["discriminator"].draw_masks(b, draws) for _ in range(3)]
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    counts = (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches, gp.gp_fwd_launches)
+    runs = {}
+    try:
+        for dev in (torch.device("cpu"), cuda):
+            modules = dcgan.build(cfg, dev)
+            p0 = {r: {k: p.detach().cpu().clone() for k, p in m.named_parameters()}
+                  for r, m in modules.items()}
+            state = dcgan.create_state(cfg, modules, dev)
+            state, out = dcgan.make_step(cfg, state)(
+                state, imgs.to(dev), None, z=z.to(dev),
+                masks=[[m.to(dev) for m in ms] for ms in masks])
+            runs[dev.type] = (modules, p0, {k: v.cpu() for k, v in out.items()})
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert counts == (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches,
+                      gp.gp_fwd_launches)
+    (mods_c, p0_c, out_c), (mods_g, p0_g, out_g) = runs["cpu"], runs["cuda"]
+    for k in ("d_loss", "g_loss"):
+        torch.testing.assert_close(out_g[k], out_c[k], rtol=1e-4, atol=0)
+    torch.testing.assert_close(out_g["gen_imgs"], out_c["gen_imgs"], rtol=0, atol=1e-4)
+    for role, rel_floor in (("generator", 1e-3), ("discriminator", 1e-5)):
+        params_c = dict(mods_c[role].named_parameters())
+        largest = max(float(p.grad.abs().max()) for p in params_c.values())
+        floor = rel_floor * largest
+        worst = max(float((p.grad.cpu() - params_c[k].grad).abs().max())
+                    for k, p in mods_g[role].named_parameters())
+        print(f"{role}: card-CPU gradients differ by at most {worst / largest:.3e} of the "
+              f"largest gradient ({largest:.3e}); floor {rel_floor:.0e} of it")
+        for k, p in mods_g[role].named_parameters():
+            want, grad = params_c[k], p.grad.cpu()
+            torch.testing.assert_close(p0_g[role][k], p0_c[role][k], rtol=0, atol=0)
+            torch.testing.assert_close(grad, want.grad, rtol=1e-3, atol=floor, msg=lambda m: (
+                f"{role} {k}: |g| max {float(want.grad.abs().max()):.3e}, card-CPU "
+                f"{float((grad - want.grad).abs().max()):.3e}, floor {floor:.3e}\n{m}"))
+            torch.testing.assert_close(p.detach().cpu(), _adam_first_step(p0_g[role][k], grad, cfg),
+                                       rtol=1e-6, atol=1e-7, msg=lambda m: f"{role} {k}: {m}")
+            diff = (p.detach().cpu() - want.detach()).abs()
+            settled = want.grad.abs() > max(floor, 1e-6)
+            if settled.any():
+                assert float(diff[settled].max()) <= 1e-5, (role, k, float(diff[settled].max()))
+        stats_c = mods_c[role].state_dict()
+        for k, v in mods_g[role].state_dict().items():
+            if "running" in k:
+                torch.testing.assert_close(v.cpu(), stats_c[k], rtol=1e-4, atol=1e-5)
+
+
+def _adam_first_step(p0, g, cfg, eps=1e-8):
+    """torch.optim.Adam's first update from ``p0`` with gradient ``g``: the
+    bias-corrected moments are g and g**2, so the step is lr * g / (|g| + eps)."""
+    g = g.double()
+    return (p0.double() - cfg.lr * g / (g.abs() + eps)).float()

@@ -275,6 +275,49 @@ def test_step_draws_styles_from_the_state_generator():
     assert not torch.equal(want_1, want_2)
 
 
+def test_sampling_leaves_the_training_draws_alone(tmp_path):
+    """The sampler draws its style codes from a generator of its own, seeded
+    from (seed, batches_done), as the JAX sampler folds batches_done into a
+    key it does not keep (``tpugan/models/munit.py:295``): a sample leaves
+    ``state.generator`` as it was, the next step's style draws equal those
+    of a run that did not sample, and the same batches_done gives the same
+    sheet."""
+    cfg = mu_t.Config(**SMALL, output_dir=str(tmp_path))
+    modules = mu_t.build(cfg, CPU)
+    sampled, plain = (mu_t.create_state(cfg, modules, CPU) for _ in range(2))
+    before = sampled.generator.get_state()
+    sample = mu_t.make_sampler(cfg, modules, CPU)
+    sheet = tmp_path / "images" / "edges2shoes" / "0.png"
+    sample(sampled, {}, 0)
+    first = sheet.read_bytes()
+    assert torch.equal(sampled.generator.get_state(), before)
+    sample(sampled, {}, 0)
+    assert sheet.read_bytes() == first
+    seen = []
+    dec2_forward = modules["Dec2"].forward
+    modules["Dec2"].forward = lambda c, s: seen.append(s.clone()) or dec2_forward(c, s)
+    step = mu_t.make_step(cfg, modules, CPU)
+    batch = [torch.from_numpy(a) for a in _batch()]
+    for state in (sampled, plain):
+        step(state, *batch)
+    assert torch.equal(seen[1], seen[3])  # Dec2(c1, style_2) of each step
+    assert torch.equal(sampled.generator.get_state(), plain.generator.get_state())
+
+
+def test_sampler_seeds_do_not_collide_across_seeds(tmp_path):
+    """Seed s at batches_done 1000003 + b and seed s + 1 at b draw different
+    style codes, as JAX's fold_in of batches_done into each seed's key does."""
+    seen = []
+    for seed, batches_done in ((0, 1000003), (1, 0)):
+        cfg = mu_t.Config(**SMALL, output_dir=str(tmp_path), seed=seed)
+        modules = mu_t.build(cfg, CPU)
+        dec2_forward = modules["Dec2"].forward
+        modules["Dec2"].forward = lambda c, s: seen.append(s.clone()) or dec2_forward(c, s)
+        mu_t.make_sampler(cfg, modules, CPU)(mu_t.create_state(cfg, modules, CPU), {},
+                                             batches_done)
+    assert len(seen) == 2 and not torch.equal(seen[0], seen[1])
+
+
 @pytest.mark.parametrize("split", ["train", "val"])
 def test_paired_or_synthetic_identical(tmp_path, split):
     got = paired_or_synthetic(str(tmp_path), "none", 16, 16, split=split, synthetic_n=6, seed=3)

@@ -37,7 +37,7 @@ from tpugan_torch.io.interop import load_jax_params
 from tpugan_torch.models import _critic_family as cf_t
 from tpugan_torch.models import wgan_gp as wg_t
 from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
-from tpugan_torch.nn.layers import BatchNorm1d, Linear
+from tpugan_torch.nn.layers import BatchNorm1d, Conv2d, Linear
 
 CPU = torch.device("cpu")
 B, LATENT = 8, 16
@@ -203,10 +203,13 @@ def test_critic_family_loader_batches_identical():
 
 
 def test_resize_dataset_is_not_ported_beyond_identity():
+    """At the dataset's own size the dataset comes back as it is; other
+    sizes are resized (held to the JAX package in
+    tests/test_torch_port_dcgan.py)."""
     ds = ArrayDataset(np.zeros((2, 28, 28, 1), np.uint8), np.zeros(2, np.int32))
     assert resize_dataset(ds, 28) is ds
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resize_dataset(ds, 32)
+    out = resize_dataset(ds, 32)
+    assert out.images.shape == (2, 32, 32, 1) and not out.images.any()
 
 
 def test_config_flags_match_jax():
@@ -226,7 +229,7 @@ def test_layer_init_is_seeded_and_other_modes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Linear(4, 4, init_mode="he")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchNorm1d(4, init_mode="normal02")
+        Conv2d(4, 4, 3, init_mode="torch")
 
 
 def test_ten_batch_runs_write_the_same_samples(tmp_path):

@@ -1,0 +1,102 @@
+"""Headline benchmark of the port: DCGAN training images/s at 64x64, batch 64.
+
+    python -m tpugan_torch.bench
+
+The full G+D step of ``tpugan_torch.models.dcgan`` (the entry points a
+trainer calls), fp32 with TF32 off, on uint8 batches already on the card,
+one eager step at a time (the fused dispatch of the JAX bench waits for
+CUDA graphs, ROADMAP queue 1, item 2; bf16 for item 8). Timed by the
+difference method of ``tpugan_torch.utils.benchtime`` over dispatches of
+``STEPS`` steps, each ending in ``torch.cuda.synchronize()``. It takes no
+flags: the shape is the headline's. Prints one
+JSON line: ``metric``, ``value``, ``unit``, ``dtype`` and the card's name and
+power limit as ``nvidia-smi`` gives them. It runs on CUDA unless ``main`` is
+given another device (the tests pass the CPU, where the line names the CPU
+and no card); it raises without CUDA. Nothing is compared with the JAX
+package's numbers.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from tpugan_torch.models import dcgan
+from tpugan_torch.train.loop import train_device
+
+METRIC = "dcgan_train_images_per_sec_64px"
+IMG_SIZE, BATCH_SIZE, STEPS = 64, 64, 20
+
+
+def _card(device: torch.device):
+    """nvidia-smi's ``name, power.limit`` of the card, None off CUDA."""
+    if device.type != "cuda":
+        return None
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return subprocess.run(
+        ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure(img_size: int, batch_size: int, steps: int, device=None, seed: int = 0) -> dict:
+    """Train DCGAN at ``img_size`` and ``batch_size`` on ``steps`` distinct
+    device-resident batches a dispatch; return what was measured."""
+    from tpugan_torch.utils.benchtime import measure_images_per_sec
+
+    cfg = dcgan.Config(img_size=img_size, batch_size=batch_size, synthetic_data=True, seed=seed)
+    device = train_device(cfg, device)
+    modules = dcgan.build(cfg, device)
+    state = dcgan.create_state(cfg, modules, device)
+    step = dcgan.make_step(cfg, state)
+    rng = np.random.default_rng(seed)
+    batches = torch.from_numpy(
+        rng.integers(0, 255, (steps, batch_size, img_size, img_size, cfg.channels), dtype=np.uint8)
+    ).to(device)
+    out = {}
+
+    def dispatch(n: int) -> float:
+        nonlocal state, out
+        t0 = time.perf_counter()
+        for _ in range(n):
+            for k in range(steps):
+                state, out = step(state, batches[k])
+        _sync(device)
+        return time.perf_counter() - t0
+
+    ips = measure_images_per_sec(dispatch, steps * batch_size, 1, 4)
+    losses = {k: float(out[k]) for k in ("d_loss", "g_loss")}
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise RuntimeError(f"non-finite losses after the timed steps: {losses}")
+    return {
+        "value": ips,
+        "unit": "images/sec/gpu" if device.type == "cuda" else f"images/sec/{device.type}",
+        "dtype": "float32",
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else device.type,
+        "card": _card(device),
+        "img_size": img_size,
+        "batch_size": batch_size,
+        "steps_per_dispatch": steps,
+        "mode": "eager",
+        "losses": losses,
+    }
+
+
+def main(device=None) -> dict:
+    rec = {"metric": METRIC, **measure(IMG_SIZE, BATCH_SIZE, STEPS, device)}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+if __name__ == "__main__":
+    main()

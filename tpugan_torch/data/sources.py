@@ -93,15 +93,38 @@ def synthetic_image_dataset(
     return ArrayDataset((images * 255).astype(np.uint8), labels)
 
 
+def _bilinear_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(in_size, out_size) float32 weights of ``jax.image.resize(...,
+    "bilinear")`` along one axis (jax/_src/image/scale.py:
+    ``compute_weight_mat``, antialias on): the triangle kernel at half-pixel
+    centres, widened by in/out when shrinking, each column normalised to sum
+    1, and zero where the sample falls outside the input."""
+    inv_scale = np.float32(1.0 / (out_size / in_size))  # in float64 first, as in JAX
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    sample = (np.arange(out_size, dtype=np.float32) + np.float32(0.5)) * inv_scale - np.float32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
+    w = np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, np.float32(1.0)), np.float32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, np.float32(0.0)).astype(np.float32)
+
+
 def resize_dataset(ds: ArrayDataset, img_size: int) -> ArrayDataset:
-    """The whole-dataset bilinear resize of ``tpugan/data/sources.py:103``
-    runs through ``jax.image.resize``. Not ported yet: at the dataset's own
-    size it returns ``ds`` unchanged, and otherwise raises."""
-    if ds.images.shape[1] == img_size and ds.images.shape[2] == img_size:
+    """One whole-dataset bilinear resize to ``img_size`` square
+    (``tpugan/data/sources.py:resize_dataset``, in place of the reference's
+    per-sample transforms.Resize): what ``jax.image.resize(..., "bilinear")``
+    gives, half-pixel centres when enlarging and the antialiased triangle
+    kernel when shrinking, in float32, then clipped to [0, 255] and truncated
+    to uint8. At the dataset's own size it returns ``ds``."""
+    n, h, w, c = ds.images.shape
+    if h == img_size and w == img_size:
         return ds
-    raise NotImplementedError(
-        "resize_dataset to %d px: ROADMAP queue 1, item 1 (DCGAN spine)" % img_size
-    )
+    x = ds.images.astype(np.float32)
+    x = np.einsum("nhwc,hH->nHwc", x, _bilinear_weights(h, img_size), optimize=True)
+    x = np.einsum("nHwc,wW->nHWc", x, _bilinear_weights(w, img_size), optimize=True)
+    return ArrayDataset(np.clip(x, 0, 255).astype(np.uint8), ds.labels)
 
 
 def mnist_or_synthetic(

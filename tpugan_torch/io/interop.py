@@ -114,7 +114,7 @@ def load_jax_params(
     used = {k: [False] * len(v) for k, v in groups.items()}
     sd = module.state_dict()
     for key, tensor in sd.items():
-        if key.endswith(".num_batches_tracked"):
+        if key.rpartition(".")[2] == "num_batches_tracked":
             continue
         kind = _torch_kind(sd, key)
         pool = groups[kind]

@@ -1,3 +1,3 @@
-from tpugan_torch.losses.adversarial import l1, mse
+from tpugan_torch.losses.adversarial import bce, l1, mse
 
-__all__ = ["l1", "mse"]
+__all__ = ["bce", "l1", "mse"]

@@ -1,5 +1,5 @@
-"""Trainer registry of the port: ``cyclegan``, ``munit`` and ``wgan_gp``, so
-far. Each trainer module exposes ``Config``, ``build``, ``create_state``, its
+"""Trainer registry of the port: ``cyclegan``, ``dcgan``, ``lsgan``, ``munit``
+and ``wgan_gp``, so far. Each trainer module exposes ``Config``, ``build``, ``create_state``, its
 step makers (``make_step`` or ``make_steps``), ``make_loader``, ``run`` and
 ``main``."""
 
@@ -9,6 +9,8 @@ import importlib
 
 _REGISTRY = {
     "cyclegan": "tpugan_torch.models.cyclegan",
+    "dcgan": "tpugan_torch.models.dcgan",
+    "lsgan": "tpugan_torch.models.lsgan",
     "munit": "tpugan_torch.models.munit",
     "wgan_gp": "tpugan_torch.models.wgan_gp",
 }

@@ -1,0 +1,74 @@
+"""Shared plumbing of the MNIST-class trainers (``tpugan/models/_common.py``):
+the MNIST-or-synthetic loader, the reference's log line, the 5x5 sample grid
+and ``run_mnist_recipe``, which runs the template-B trainers.
+
+One device. The JAX package's data-parallel branch becomes DDP in ROADMAP
+queue 1, item 9.
+"""
+
+from __future__ import annotations
+
+import os
+
+from tpugan_torch.data.loader import DeviceLoader
+from tpugan_torch.data.sources import mnist_or_synthetic
+from tpugan_torch.io.images import save_image
+from tpugan_torch.train.loop import Callbacks, run_training, train_device
+
+
+def mnist_loader(cfg, device) -> DeviceLoader:
+    """MNIST at ``--img_size`` from ``--data_dir`` (bilinearly resized), or
+    the synthetic glyphs when it is absent or ``--synthetic_data`` is set;
+    batches as the JAX loader draws them."""
+    ds, is_real = mnist_or_synthetic(
+        cfg.data_dir,
+        img_size=cfg.img_size,
+        channels=cfg.channels,
+        synthetic=cfg.synthetic_data,
+        seed=cfg.seed,
+    )
+    if not is_real:
+        print("[tpugan] MNIST not found on disk — using synthetic dataset")
+    return DeviceLoader(
+        [ds.images, ds.labels], cfg.batch_size, device, shuffle=True, seed=cfg.seed
+    )
+
+
+def std_log_line(cfg):
+    """The reference's ``[Epoch e/n] [Batch i/b] [D loss: f] [G loss: f]``;
+    reading the losses waits for the step."""
+
+    def log(epoch, i, bpe, out):
+        print(
+            "[Epoch %d/%d] [Batch %d/%d] [D loss: %f] [G loss: %f]"
+            % (epoch, cfg.n_epochs, i, bpe, float(out["d_loss"]), float(out["g_loss"]))
+        )
+
+    return log
+
+
+def grid_sampler(cfg):
+    """``sample(state, out, batches_done)``: the first 25 images of
+    ``out["gen_imgs"]`` (NCHW) as a grid of 5 a row, normalized, to
+    ``images/<batches_done>.png``."""
+    imgdir = os.path.join(cfg.output_dir, "images")
+    os.makedirs(imgdir, exist_ok=True)
+
+    def sample(state, out, batches_done):
+        imgs = out["gen_imgs"][:25].permute(0, 2, 3, 1).cpu().numpy()
+        save_image(imgs, os.path.join(imgdir, "%d.png" % batches_done), nrow=5, normalize=True)
+
+    return sample
+
+
+def run_mnist_recipe(cfg, recipe_mod, device=None):
+    """build -> create_state -> loader -> ``run_training``, with the
+    reference's log line and sample grid. ``device`` as ``train_device``."""
+    device = train_device(cfg, device)
+    modules = recipe_mod.build(cfg, device)
+    state = recipe_mod.create_state(cfg, modules, device)
+    loader = recipe_mod.make_loader(cfg, device)
+    step = recipe_mod.make_step(cfg, state)
+    cb = Callbacks(log=std_log_line(cfg), sample=grid_sampler(cfg))
+    return run_training(cfg, loader, state, step, cb, n_epochs=cfg.n_epochs,
+                        sample_interval=cfg.sample_interval)

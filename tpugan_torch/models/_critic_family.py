@@ -15,31 +15,17 @@ device; the trainers' ``run`` asks for CUDA unless the caller names another.
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import math
 import os
 from typing import Callable
 
 import torch
 
-from tpugan_torch.data.loader import DeviceLoader
-from tpugan_torch.data.sources import mnist_or_synthetic
 from tpugan_torch.io.images import save_image
+from tpugan_torch.models._common import mnist_loader as make_loader_a
 from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
 from tpugan_torch.train.loop import StepObserver
-from tpugan_torch.train.state import normalize_uint8
-
-
-@dataclasses.dataclass
-class TrainState:
-    """What the steps update: the modules' parameters and BatchNorm running
-    statistics (through the modules), the optimizers' moments, and the
-    generator of z and penalty draws. ``step`` counts critic steps."""
-
-    modules: dict
-    optimizers: dict
-    draws: torch.Generator
-    step: int = 0
+from tpugan_torch.train.state import TrainState, normalize_uint8
 
 
 def build_a(cfg, device) -> dict:
@@ -116,21 +102,6 @@ def make_g_step(cfg, modules: dict, opt_g):
         return state, {"g_loss": g_loss.detach(), "gen_imgs": gen.detach()}
 
     return g_step
-
-
-def make_loader_a(cfg, device) -> DeviceLoader:
-    ds, is_real = mnist_or_synthetic(
-        cfg.data_dir,
-        img_size=cfg.img_size,
-        channels=cfg.channels,
-        synthetic=cfg.synthetic_data,
-        seed=cfg.seed,
-    )
-    if not is_real:
-        print("[tpugan] MNIST not found on disk — using synthetic dataset")
-    return DeviceLoader(
-        [ds.images, ds.labels], cfg.batch_size, device, shuffle=True, seed=cfg.seed
-    )
 
 
 def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gstep: bool,

@@ -1,0 +1,75 @@
+"""Template-B (DCGAN-style) 1:1 alternating step (``tpugan/models/_template_b.py``),
+shared by dcgan (BCE, dcgan/dcgan.py:143-183) and lsgan (MSE,
+lsgan/lsgan.py:140-188).
+
+G update first on a fresh fake batch, then D update on the real batch and
+the same fakes detached, both Adam. The discriminator's BatchNorm running
+statistics advance through its three forwards in the reference's order (G
+phase on the fakes, D phase on the real batch, then on the fakes), and each
+forward gets its own Dropout2d masks.
+
+Random draws (z, then the three forwards' Dropout2d masks) come from the
+state's device generator or are passed in, so a test can hand both
+frameworks the same numbers. The step makes no host sync.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from tpugan_torch.train.state import TrainState, normalize_uint8
+
+
+def create_state_b(cfg, modules: dict, device) -> TrainState:
+    """Adam(lr, (b1, b2)) for G and for D, and a device generator of the
+    draws seeded by ``--seed``."""
+    adam = lambda m: torch.optim.Adam(m.parameters(), lr=cfg.lr, betas=(cfg.b1, cfg.b2))
+    optimizers = {k: adam(modules[k]) for k in ("generator", "discriminator")}
+    draws = torch.Generator(device=torch.device(device)).manual_seed(cfg.seed)
+    return TrainState(modules, optimizers, draws)
+
+
+def make_step_b(cfg, state: TrainState, adv_loss: Callable):
+    """``step(state, imgs_u8, labels=None, z=None, masks=None) -> (state,
+    out)``: one G update, then one D update (``_template_b.py:make_step_b``).
+
+    ``adv_loss(d_out, target)`` is the adversarial loss (bce for dcgan, mse
+    for lsgan). ``imgs_u8`` is an NHWC uint8 batch. ``z`` is (B, latent_dim);
+    ``masks`` holds the Dropout2d keep masks of D's three forwards, each a
+    list from ``D.draw_masks``. Both are drawn from ``state.draws``, z first,
+    unless passed in. ``out`` holds ``d_loss`` and ``g_loss`` (0-d tensors)
+    and ``gen_imgs``, the G phase's fakes (NCHW)."""
+    G, D = state.modules["generator"], state.modules["discriminator"]
+    opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
+    g_params = list(G.parameters())
+
+    def step(state: TrainState, imgs_u8, labels=None, z=None, masks=None):
+        del labels
+        device = state.draws.device
+        real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
+        b = real.shape[0]
+        if z is None:
+            z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
+        if masks is None:
+            masks = [D.draw_masks(b, state.draws) for _ in range(3)]
+
+        # G phase: only G's parameters take gradients.
+        opt_g.zero_grad(set_to_none=True)
+        gen = G(z)
+        g_loss = adv_loss(D(gen, masks[0]), 1.0)
+        g_loss.backward(inputs=g_params)
+        opt_g.step()
+
+        # D phase on the real batch and the pre-update fakes, detached.
+        fake = gen.detach()
+        opt_d.zero_grad(set_to_none=True)
+        d_loss = 0.5 * (adv_loss(D(real, masks[1]), 1.0) + adv_loss(D(fake, masks[2]), 0.0))
+        d_loss.backward()
+        opt_d.step()
+
+        state.step += 1
+        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+
+    return step

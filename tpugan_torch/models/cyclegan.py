@@ -30,7 +30,7 @@ from tpugan_torch.io.images import make_grid, save_image
 from tpugan_torch.losses import l1, mse
 from tpugan_torch.models._im2im_common import EtaLogger, checkpoint_epoch, maybe_resume, out_dirs
 from tpugan_torch.nn.im2im import GeneratorResNet, PatchGAN
-from tpugan_torch.train.loop import StepObserver, reject_unported_flags
+from tpugan_torch.train.loop import StepObserver, train_device
 from tpugan_torch.train.optim import linear_decay_lambda
 from tpugan_torch.train.replay import ReplayBuffer
 from tpugan_torch.train.state import normalize_uint8
@@ -214,12 +214,7 @@ def make_sampler(cfg: Config, modules: dict, device):
 
 def run(cfg: Config) -> TrainState:
     """Train on CUDA. float32 means TF32 off for convolutions and matmuls."""
-    if not torch.cuda.is_available():
-        raise RuntimeError("tpugan_torch trains on CUDA and found no CUDA device")
-    reject_unported_flags(cfg)
-    device = torch.device("cuda")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    device = train_device(cfg)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
     loader = make_loader(cfg, device)

@@ -27,6 +27,7 @@ import contextlib
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -42,7 +43,7 @@ from tpugan_torch.nn.style import (
     StyleEncoder,
     multi_d_loss,
 )
-from tpugan_torch.train.loop import StepObserver, reject_unported_flags
+from tpugan_torch.train.loop import StepObserver, train_device
 from tpugan_torch.train.optim import linear_decay_lambda
 from tpugan_torch.train.state import normalize_uint8
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -208,9 +209,12 @@ def make_loader(cfg: Config, device, split: str = "train", batch_size=None, pref
 def make_sampler(cfg: Config, modules: dict, device):
     """munit.py:139-158: for each of five validation A images, a row of the
     image and its ``style_dim`` translations by Dec2 with U(-1, 1) style
-    codes from ``state.generator``; rows stacked, to
-    images/<dataset>/<N>.png. One batched encoder/decoder call over all
-    translations, as the JAX sampler makes."""
+    codes; rows stacked, to images/<dataset>/<N>.png. One batched
+    encoder/decoder call over all translations, as the JAX sampler makes.
+    The codes come from a generator of the sampler's own, seeded from
+    (``--seed``, batches_done) as the JAX sampler folds batches_done into its
+    key (``tpugan/models/munit.py:295``): sampling leaves ``state.generator``,
+    and so the training draws, as they were."""
     Enc1, Dec2 = modules["Enc1"], modules["Dec2"]
     val_loader = make_loader(cfg, device, split="val", batch_size=5, prefetch=0)
     imgdir, _ = out_dirs(cfg)
@@ -223,7 +227,9 @@ def make_sampler(cfg: Config, modules: dict, device):
         batches.close()
         x = normalize_uint8(a_u8)
         n, c, h, w = x.shape
-        codes = (torch.rand((n * s, s), generator=state.generator) * 2 - 1).to(x.device)
+        seed = np.random.SeedSequence([cfg.seed, int(batches_done)]).generate_state(1, np.uint64)
+        draws = torch.Generator().manual_seed(int(seed[0]))
+        codes = (torch.rand((n * s, s), generator=draws) * 2 - 1).to(x.device)
         x12 = Dec2(Enc1.content_encoder(x.repeat_interleave(s, dim=0)), codes)
         rows = torch.cat([x[:, None], x12.reshape(n, s, c, h, w)], dim=1)
         sheet = rows.permute(0, 3, 1, 4, 2).reshape(n * h, (s + 1) * w, c)
@@ -237,15 +243,7 @@ def run(cfg: Config, device=None) -> TrainState:
     """Train. ``device`` None means CUDA, and raises when there is none; the
     tests pass the CPU. On CUDA, float32 means TF32 off for convolutions and
     matmuls."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("tpugan_torch trains on CUDA and found no CUDA device")
-        device = torch.device("cuda")
-    device = torch.device(device)
-    reject_unported_flags(cfg)
-    if device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
     loader = make_loader(cfg, device)

@@ -29,7 +29,7 @@ from tpugan_torch.models._critic_family import (
 )
 from tpugan_torch.ops.mlp_gp import extract_mlp_critic, mlp_grad_penalty
 from tpugan_torch.ops.penalty import wgan_gp_penalty
-from tpugan_torch.train.loop import reject_unported_flags
+from tpugan_torch.train.loop import train_device
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
 
 NAME = "wgan_gp"
@@ -88,15 +88,7 @@ def run(cfg: Config, device=None):
     """Train. ``device`` None means CUDA, and raises when there is none; the
     tests pass the CPU. On CUDA, float32 means TF32 off for convolutions and
     matmuls."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("tpugan_torch trains on CUDA and found no CUDA device")
-        device = torch.device("cuda")
-    device = torch.device(device)
-    reject_unported_flags(cfg)
-    if device.type == "cuda":
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+    device = train_device(cfg, device)
     modules = build(cfg, device)
     state = create_state(cfg, modules, device)
     d_step, g_step = make_steps(cfg, state)

@@ -1,11 +1,13 @@
-"""Template-A networks of ``tpugan/nn/blocks.py``: the MLP generator and the
-MLP discriminator / critic, on NCHW images.
+"""Templates A and B of ``tpugan/nn/blocks.py``, on NCHW images: the MLP
+generator and discriminator / critic, and the DCGAN generator, trunk and
+discriminator.
 
-Both keep the reference's ``nn.Sequential`` numbering (gan/gan.py:38-81), so
-their ``state_dict`` keys are the reference's. ``img.view(B, -1)`` and
-``flat.view(B, C, H, W)`` are torch's own orders; ``flatten_nchw`` and
-``unflatten_nchw`` reproduce them on the JAX side, so the first Linear's
-weight lines up with a plain transpose of the flax kernel.
+All keep the reference's module names and ``nn.Sequential`` numbering
+(gan/gan.py:38-81, dcgan/dcgan.py:45-99), so their ``state_dict`` keys are the
+reference's. ``img.view(B, -1)`` and ``flat.view(B, C, H, W)`` are torch's
+own orders; ``flatten_nchw`` and ``unflatten_nchw`` reproduce them on the JAX
+side, so every Linear's weight lines up with a plain transpose of the flax
+kernel.
 """
 
 from __future__ import annotations
@@ -16,7 +18,15 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from tpugan_torch.nn.layers import BatchNorm1d, LeakyReLU, Linear
+from tpugan_torch.nn.layers import (
+    BatchNorm1d,
+    BatchNorm2d,
+    Conv2d,
+    Dropout2d,
+    LeakyReLU,
+    Linear,
+    Upsample,
+)
 
 
 class MLPGenerator(nn.Module):
@@ -77,3 +87,94 @@ class MLPDiscriminator(nn.Module):
 
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         return self.model(img.reshape(img.shape[0], -1))
+
+
+class DCGANGenerator(nn.Module):
+    """Template B generator (``tpugan/nn/blocks.py:DCGANGenerator``,
+    dcgan/dcgan.py:45-71): ``l1`` = Linear(latent -> 128 * (s/4)^2), viewed
+    as (B, 128, s/4, s/4), then ``conv_blocks`` = [BatchNorm2d(128), Up,
+    Conv3x3(128), BN(128, 0.8), LReLU, Up, Conv3x3(64), BN(64, 0.8), LReLU,
+    Conv3x3(channels), Tanh]. ``first_bn=False`` drops the first BatchNorm
+    (lsgan/lsgan.py:52-70). The convs and BatchNorms take the reference's
+    ``weights_init_normal`` (init mode ``normal02``); the Linear keeps
+    torch's init."""
+
+    def __init__(self, img_size: int, channels: int, latent_dim: int, first_bn: bool = True,
+                 *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.init_size = img_size // 4
+        self.l1 = nn.Sequential(Linear(latent_dim, 128 * self.init_size ** 2, generator=generator))
+        conv = lambda i, o: Conv2d(i, o, 3, 1, 1, init_mode="normal02", generator=generator)
+        bn = lambda c, eps: BatchNorm2d(c, eps, init_mode="normal02", generator=generator)
+        head = [bn(128, 1e-5)] if first_bn else []
+        self.conv_blocks = nn.Sequential(
+            *head,
+            Upsample(2), conv(128, 128), bn(128, 0.8), LeakyReLU(0.2),
+            Upsample(2), conv(128, 64), bn(64, 0.8), LeakyReLU(0.2),
+            conv(64, channels), nn.Tanh(),
+        )
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        out = self.l1(z).view(z.shape[0], 128, self.init_size, self.init_size)
+        return self.conv_blocks(out)
+
+
+class DCGANTrunk(nn.Sequential):
+    """Template B discriminator trunk (``tpugan/nn/blocks.py:DCGANTrunk``,
+    dcgan/dcgan.py:74-92): four [Conv3x3 s2 p1, LReLU(0.2), Dropout2d(0.25),
+    BatchNorm2d(0.8) but in the first] blocks of 16, 32, 64 and 128 filters,
+    numbered as the reference's ``nn.Sequential``, with ``weights_init_normal``
+    (``normal02``); the output is flattened in torch's ``view(B, -1)`` order.
+    In training ``forward`` takes one Dropout2d keep mask a block, in call
+    order (``draw_masks``)."""
+
+    def __init__(self, channels: int, *, generator: Optional[torch.Generator] = None):
+        layers = []
+        fan_in = channels
+        for i, f in enumerate((16, 32, 64, 128)):
+            layers += [Conv2d(fan_in, f, 3, 2, 1, init_mode="normal02", generator=generator),
+                       LeakyReLU(0.2), Dropout2d(0.25)]
+            if i > 0:
+                layers.append(BatchNorm2d(f, 0.8, init_mode="normal02", generator=generator))
+            fan_in = f
+        super().__init__(*layers)
+
+    def draw_masks(self, batch: int, generator: torch.Generator) -> list:
+        """One (batch, C, 1, 1) keep mask for each Dropout2d, in call order."""
+        convs = [layer for layer in self if isinstance(layer, Conv2d)]
+        drops = [layer for layer in self if isinstance(layer, Dropout2d)]
+        return [d.draw_mask((batch, c.out_channels, 1, 1), generator)
+                for c, d in zip(convs, drops)]
+
+    def forward(self, img: torch.Tensor,
+                masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        masks = iter(masks) if masks is not None else None
+        x = img
+        for layer in self:
+            if isinstance(layer, Dropout2d) and masks is not None:
+                x = layer(x, next(masks))
+            else:
+                x = layer(x)
+        return x.reshape(x.shape[0], -1)
+
+
+class DCGANDiscriminator(nn.Module):
+    """Template B discriminator (``tpugan/nn/blocks.py:DCGANDiscriminator``,
+    dcgan/dcgan.py:74-99): ``model`` = the trunk, ``adv_layer`` =
+    Linear(128 * (s/16)^2 -> 1) [+ Sigmoid; lsgan has none]."""
+
+    def __init__(self, img_size: int, channels: int, sigmoid: bool = True,
+                 *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.model = DCGANTrunk(channels, generator=generator)
+        head = [Linear(128 * (img_size // 2 ** 4) ** 2, 1, generator=generator)]
+        if sigmoid:
+            head.append(nn.Sigmoid())
+        self.adv_layer = nn.Sequential(*head)
+
+    def draw_masks(self, batch: int, generator: torch.Generator) -> list:
+        return self.model.draw_masks(batch, generator)
+
+    def forward(self, img: torch.Tensor,
+                masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        return self.adv_layer(self.model(img, masks))

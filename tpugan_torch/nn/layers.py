@@ -1,8 +1,9 @@
 """Layers with the JAX package's semantics (``tpugan/nn/layers.py``), on NCHW.
 
-Only what the CycleGAN, WGAN-GP and MUNIT slices need is here. Options they
-do not use raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+Only what the CycleGAN, WGAN-GP, MUNIT, DCGAN and LSGAN slices need is here.
+Options they do not use raise ``NotImplementedError`` naming the ROADMAP item
+that ports them; ``_LAYERS_ITEM`` also names the items of the layers not
+here yet.
 """
 
 from __future__ import annotations
@@ -16,7 +17,16 @@ from torch import nn
 from tpugan_torch.ops.image import reflection_pad, upsample_nearest, zero_pad_lt
 from tpugan_torch.ops.instance_norm import instance_norm_act
 
-_LAYERS_ITEM = "ROADMAP queue 1, item 1 (DCGAN spine: layers)"
+# The ROADMAP queue 1 item that ports each layer option not here yet.
+_LAYERS_ITEM = {
+    "ConvTranspose2d": "ROADMAP queue 1, item 5 (rest of im2im)",
+    "InstanceNorm": "ROADMAP queue 1, item 5 (rest of im2im: affine and tracked IN)",
+    "Embedding": "ROADMAP queue 1, item 4 (rest of templates A/B)",
+    "PixelShuffle": "ROADMAP queue 1, item 7 (SR)",
+    "PReLU": "ROADMAP queue 1, item 7 (SR)",
+    "he": "ROADMAP queue 1, item 7 (SR: the VGG features)",
+    "init_mode": "ROADMAP queue 1, item 4 (rest of templates A/B)",
+}
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
@@ -27,7 +37,8 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
 
 def _check_init_mode(layer: str, init_mode: str, ported: tuple) -> None:
     if init_mode not in ported:
-        raise NotImplementedError(f"{layer}(init_mode={init_mode!r}): {_LAYERS_ITEM}")
+        item = _LAYERS_ITEM.get(init_mode, _LAYERS_ITEM["init_mode"])
+        raise NotImplementedError(f"{layer}(init_mode={init_mode!r}): {item}")
 
 
 @torch.no_grad()
@@ -92,18 +103,67 @@ class Linear(nn.Linear):
         _init_weight_bias(self, init_mode, in_features, generator)
 
 
+def _init_batch_norm(bn, init_mode: str, generator) -> None:
+    """``tpugan/nn/layers.py:BatchNorm``'s init modes: ``torch`` is scale 1,
+    bias 0; ``normal02`` (the reference's ``weights_init_normal`` on
+    BatchNorm2d, dcgan/dcgan.py:36-42) is scale ~ N(1, 0.02) from
+    ``generator``, bias 0."""
+    if init_mode not in ("torch", "normal02"):
+        raise ValueError(f"{type(bn).__name__}(init_mode={init_mode!r}): torch or normal02")
+    if init_mode == "normal02":
+        with torch.no_grad():
+            bn.weight.normal_(1.0, 0.02, generator=generator)
+
+
 class BatchNorm1d(nn.BatchNorm1d):
     """torch.nn.BatchNorm1d, the semantics ``tpugan/nn/layers.py:BatchNorm``
     reproduces in flax: ``eps`` passed verbatim (the reference's 0.8),
     momentum 0.1, the biased batch variance to normalize and the unbiased
-    one folded into ``running_var``. Scale 1, bias 0 (``init_mode="torch"``);
-    the other init modes come with the DCGAN spine."""
+    one folded into ``running_var``. ``init_mode`` as ``_init_batch_norm``."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
-                 *, init_mode: str = "torch"):
-        if init_mode != "torch":
-            raise NotImplementedError(f"BatchNorm1d(init_mode={init_mode!r}): {_LAYERS_ITEM}")
+                 *, init_mode: str = "torch", generator: Optional[torch.Generator] = None):
         super().__init__(num_features, eps=eps, momentum=momentum)
+        _init_batch_norm(self, init_mode, generator)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """torch.nn.BatchNorm2d with the semantics and init modes of
+    ``BatchNorm1d``: statistics per channel over (N, H, W). DCGAN's generator
+    passes eps 1e-5 to its first BatchNorm and 0.8 to the others."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 *, init_mode: str = "torch", generator: Optional[torch.Generator] = None):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        _init_batch_norm(self, init_mode, generator)
+
+
+class Dropout2d(nn.Module):
+    """torch.nn.Dropout2d (``tpugan/nn/layers.py:Dropout2d``): in training,
+    whole channels are zeroed, through a (B, C, 1, 1) keep mask, and the
+    kept ones scaled by 1/(1-p). The caller passes the mask, drawn by
+    ``draw_mask`` from an explicit generator; never from the global RNG, as
+    ``F.dropout2d`` would. In eval mode the input passes unchanged."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def draw_mask(self, shape, generator: torch.Generator) -> torch.Tensor:
+        """A float 0/1 keep mask of ``shape`` (B, C, 1, 1), on the
+        generator's device."""
+        keep = torch.full(shape, 1.0 - self.p, device=generator.device)
+        return torch.bernoulli(keep, generator=generator)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training:
+            return x
+        if mask is None:
+            raise ValueError("Dropout2d in training needs its keep mask (draw_mask)")
+        return x / (1.0 - self.p) * mask
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 class InstanceNorm(nn.Module):
@@ -123,7 +183,7 @@ class InstanceNorm(nn.Module):
         if affine or track_running_stats:
             raise NotImplementedError(
                 f"InstanceNorm(affine={affine}, track_running_stats="
-                f"{track_running_stats}): {_LAYERS_ITEM}"
+                f"{track_running_stats}): {_LAYERS_ITEM['InstanceNorm']}"
             )
         self.act_slope = act_slope
         self.eps = eps

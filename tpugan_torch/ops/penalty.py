@@ -5,7 +5,7 @@ any critic; the template-A MLP critic takes the closed form of
 ``tpugan_torch.ops.mlp_gp`` instead.
 
 ``dragan_penalty`` and ``wdiv_penalty`` come with their trainers (ROADMAP
-queue 1, item 2).
+queue 1, item 3).
 """
 
 from __future__ import annotations

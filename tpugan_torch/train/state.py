@@ -1,8 +1,24 @@
-"""Input normalisation (``tpugan/train/state.py:normalize_uint8``)."""
+"""Train state and input normalisation (``tpugan/train/state.py``)."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What the steps of the MNIST-class trainers update: the modules'
+    parameters and BatchNorm running statistics (through the modules), the
+    optimizers' moments, and ``draws``, the device generator of the steps'
+    random draws. ``step`` counts the steps taken (critic steps in the critic
+    family)."""
+
+    modules: dict
+    optimizers: dict
+    draws: torch.Generator
+    step: int = 0
 
 
 def normalize_uint8(x: torch.Tensor, mean: float = 0.5, std: float = 0.5) -> torch.Tensor:
