@@ -66,8 +66,23 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    steady-state ms a step and images/s, the step's FLOPs and FP32 bound, the
    device's busy share, the largest device kernels, and the kernels each
    cuDNN convolution ran (its algorithm; an FFT is flagged).
-11. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, eager), its
-   JSON line printed before the last three lines.
+11. Fused dispatch (``--steps_per_dispatch``, one CUDA graph of K steps,
+   replayed): ``dcgan.main`` at 64px with K = 60 over 3 epochs of 64
+   batches, ``wgan_gp.main`` with K = 10 schedule units over 2 epochs of 50
+   batches (the GP pair inside the graph) and ``wgan.main`` at its reference
+   configuration (batch 64, 28x28, n_critic 5) over 3, each also unfused for
+   one epoch of 50; each checks finite losses, the metric rows and PNGs, and the graph's
+   replays. WGAN-GP's GP launches on the device (wrapper calls not captured,
+   plus captured calls times replays) must be one each way per critic step,
+   and a profiled replay must hold the kernels of that many. Then for each,
+   replay against eager from the same seed (bit for bit where two eager runs
+   are, else within twice their difference; DCGAN also with cuDNN held
+   deterministic, bit for bit), and the eager and the graphed ms a step (or
+   unit), images/s, the capture's and instantiation's host time, the memory
+   around the capture and the busy share of a replay.
+12. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
+   of 60 steps replayed), its JSON line printed before a ``[fused summary]``
+   line and the last three lines.
 
 The bounds use the published peaks of the card ``nvidia-smi`` names
 (``PEAKS``): FP32 outside the tensor cores and HBM bandwidth.
@@ -75,8 +90,8 @@ The bounds use the published peaks of the card ``nvidia-smi`` names
 Any failure raises, and the script exits non-zero without the final line.
 The last three lines are the kernels' JSON record (every kernel with its
 launches on the main path, error, times, device time, bound and library-call
-time; the IN
-pair, which runs on the CycleGAN and the MUNIT paths, also by path),
+time; the IN pair, which runs on the CycleGAN and the MUNIT paths, and the GP
+pair, which runs eager and inside the replayed WGAN-GP unit, also by path),
 ``nvidia-smi``'s name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -178,6 +193,13 @@ MUNIT_STEPS, MUNIT_SAMPLE_INTERVAL = 6, 5
 # its defaults (32px, batch 64).
 DCGAN_BATCHES, DCGAN_SAMPLE_INTERVAL = 40, 20
 LSGAN_BATCHES, LSGAN_SAMPLE_INTERVAL = 20, 10
+# The fused dispatch: DCGAN at 64px with the headline's 60 steps a CUDA
+# graph, over three epochs of the synthetic set's 64 batches (a dispatch and
+# a tail of 4 eager steps each); the critic family with 10 schedule units (50
+# batches) a graph, one dispatch an epoch: WGAN-GP over 2 epochs (100
+# batches), wgan over 3 (150).
+DCGAN_K, DCGAN_FUSED_EPOCHS, DCGAN_EPOCH_BATCHES = 60, 3, 64
+WGAN_K, WGAN_FUSED_EPOCHS, WGAN_PLAIN_FUSED_EPOCHS = 10, 2, 3
 # (shape, offset, w kind): "normal" w ~ 1 +- 0.3, "zeros" with zeros and
 # negatives. Tolerances, kernel against plain: y within 1e-5 * (1 + |offset|)
 # * max(1, max|w|), mean within 1e-5 * (1 + |offset|), rstd within 1e-5
@@ -870,7 +892,7 @@ def phase_gp_time(smi):
     for k, fn in (("fwd", lambda: gp.mlp_gp_fwd(*ins)), ("bwd", lambda: gp.mlp_gp_bwd(*res))):
         fn()
         torch.cuda.synchronize()
-        for _ in range(3):  # the profiler drops every event in some sessions (device_ms)
+        for _ in range(3):  # the profiler drops every event in some runs (device_ms)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(n_prof):
                     fn()
@@ -1425,7 +1447,8 @@ def _port_launches():
 
     return {"in_fwd": tin.fwd_launches, "in_bwd": tin.bwd_launches,
             "adain_fwd": ta.adain_fwd_launches, "adain_bwd": ta.adain_bwd_launches,
-            "gp_fwd": gp.gp_fwd_launches, "gp_bwd": gp.gp_bwd_launches}
+            "gp_fwd": gp.gp_fwd_launches, "gp_bwd": gp.gp_bwd_launches,
+            "gp_fwd_captured": gp.gp_fwd_captured, "gp_bwd_captured": gp.gp_bwd_captured}
 
 
 def _reset_port_launches():
@@ -1583,11 +1606,385 @@ def phase_dcgan_bench():
     """The headline bench; its JSON line stays above the last three lines."""
     from tpugan_torch import bench
 
-    log("[dcgan bench] python -m tpugan_torch.bench (DCGAN 64px, batch 64, fp32, eager):")
+    log(f"[dcgan bench] python -m tpugan_torch.bench (DCGAN 64px, batch 64, fp32, cuda_graph, "
+        f"K={bench.STEPS}):")
     rec = bench.main()
     if not (rec["metric"] == bench.METRIC and rec["value"] > 0
-            and rec["unit"] == "images/sec/gpu" and rec["card"]):
+            and rec["unit"] == "images/sec/gpu" and rec["card"]
+            and rec["mode"] == "cuda_graph" and rec["steps_per_dispatch"] == 60):
         raise AssertionError(f"[dcgan bench] unexpected record {rec}")
+    return rec
+
+
+def _snapshot(state) -> dict:
+    """Every tensor of a train state on the host: parameters, buffers,
+    optimizer state, the generator's state and the step count."""
+    import torch
+
+    snap = {"draws": state.draws.get_state(), "step": torch.tensor(state.step)}
+    for role, m in state.modules.items():
+        for k, v in m.state_dict().items():
+            snap[f"{role}.{k}"] = v.detach().cpu().clone()
+        for i, st in enumerate(state.optimizers[role].state.values()):
+            for k, v in st.items():
+                snap[f"{role}.opt{i}.{k}"] = torch.as_tensor(v).detach().cpu().clone()
+    return snap
+
+
+def _replay_vs_eager(tag, make, chunks, k, deterministic=False, n_eager=4):
+    """The same state from the same seed run as eager steps ``n_eager`` times
+    and through ``graph_steps`` (the warm-up call, the capture and its
+    replay, a replay with new batches), each followed by one eager step.
+    Where the eager runs agree bit for bit on a tensor the replay must too.
+    Elsewhere the replay is one more run of the same nondeterministic
+    arithmetic (cuDNN's weight gradients use atomics, and Adam turns their
+    rounding into steps of up to lr, which 3K steps amplify): by module, its
+    difference from the nearest eager run must stay within the largest
+    difference between two eager runs. ``deterministic`` holds cuDNN to its
+    deterministic algorithms for all the runs, where every tensor must then
+    agree bit for bit. Returns the largest differences by module,
+    (replay-nearest eager, eager-eager)."""
+    import itertools
+
+    import torch
+
+    from tpugan_torch.train.loop import graph_steps
+
+    shipped = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        snaps = []
+        for _ in range(n_eager):
+            state, step = make()
+            for chunk in chunks:
+                for b in chunk:
+                    state, _ = step(state, b)
+            state, _ = step(state, chunks[0][0])
+            torch.cuda.synchronize()
+            snaps.append(_snapshot(state))
+        state, step = make()
+        fused = graph_steps(step, k)
+        for chunk in chunks:
+            state, out = fused(state, chunk)
+        state, _ = step(state, chunks[0][0])
+        torch.cuda.synchronize()
+        replay = _snapshot(state)
+    finally:
+        torch.backends.cudnn.deterministic = shipped
+    if (fused.calls, fused.replays) != (len(chunks), len(chunks) - 1):
+        raise AssertionError(f"{tag} {fused.calls} calls, {fused.replays} replays")
+    if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        raise AssertionError(f"{tag} non-finite outputs of the last replay")
+    a = snaps[0]
+    if not (torch.equal(replay["draws"], a["draws"]) and int(replay["step"]) == int(a["step"])):
+        raise AssertionError(f"{tag} the generator's state or the step count after the replays "
+                             f"differ from the eager runs'")
+    pairs = list(itertools.combinations(range(n_eager), 2))
+    rep, eag, exact, total = {}, {}, 0, 0
+    for name, want in a.items():
+        if name in ("draws", "step"):
+            continue
+        total += 1
+        if not want.dtype.is_floating_point:
+            if not all(torch.equal(s[name], want) for s in [replay, *snaps]):
+                raise AssertionError(f"{tag} {name}: the replay or an eager run differs")
+            exact += 1
+            continue
+        to_eager = [float((replay[name] - s[name]).abs().max()) for s in snaps]
+        spread = max(float((snaps[i][name] - snaps[j][name]).abs().max()) for i, j in pairs)
+        if spread == 0.0 and max(to_eager) != 0.0:
+            raise AssertionError(f"{tag} {name}: the eager runs agree bit for bit, the replay "
+                                 f"differs by {max(to_eager):.3e}")
+        exact += max(to_eager) == 0.0
+        role = name.split(".")[0]
+        rep[role] = [max(r, t) for r, t in zip(rep.get(role, [0.0] * n_eager), to_eager)]
+        eag[role] = max(eag.get(role, 0.0), spread)
+    worst = {role: (min(rep[role]), eag[role]) for role in rep}
+    for role, (near, spread) in worst.items():
+        if near > spread:
+            raise AssertionError(f"{tag} {role}: the replay differs from the nearest of "
+                                 f"{n_eager} eager runs by {near:.3e}, two eager runs by at "
+                                 f"most {spread:.3e}")
+    mode = "deterministic cuDNN" if deterministic else "shipped settings"
+    log(f"{tag} replay against {n_eager} eager runs ({mode}, K={k}, {len(chunks)} dispatches and "
+        f"one eager step after): generator state and step count equal; {exact} of {total} "
+        "tensors bit for bit; largest differences by module, replay-nearest eager vs "
+        "eager-eager: " + ", ".join(f"{r} {x:.3e} vs {y:.3e}" for r, (x, y) in worst.items()))
+    return worst
+
+
+def _fused_times(tag, smi, make, chunk, k, images_per_step, unit="step", n_replays=4):
+    """Eager steps against replays of the same K steps from a CUDA graph, on
+    one state: host-clock ms a step (synchronized), images/s, the capture's
+    and instantiation's host seconds, max_memory_allocated around the
+    capture (its peak reset just before), and one replay under
+    torch.profiler: its device kernels, device time and busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpugan_torch.train.loop import graph_steps
+
+    state, step = make()
+    for b in chunk[:3]:
+        state, out = step(state, b)
+    torch.cuda.synchronize()
+    n_eager = 2 * k
+    t0 = time.perf_counter()
+    for j in range(n_eager):
+        state, out = step(state, chunk[j % k])
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / n_eager * 1e3
+    fused = graph_steps(step, k)
+    state, out = fused(state, chunk)  # the eager warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, out = fused(state, chunk)  # the capture, then a replay
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(n_replays):
+        state, out = fused(state, chunk)
+    torch.cuda.synchronize()
+    graph_ms = (time.perf_counter() - t0) / (n_replays * k) * 1e3
+    if not all(bool(torch.isfinite(out[n]).all()) for n in out):
+        raise AssertionError(f"{tag} non-finite outputs of a replay")
+    # The profiler drops events in some runs (device_ms): keep the most
+    # complete of three traces.
+    kernels, prof_ms = [], None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, out = fused(state, chunk)
+            torch.cuda.synchronize()
+            t = (time.perf_counter() - t0) * 1e3
+        got = device_kernels(prof)
+        if len(got) > len(kernels):
+            kernels, prof_ms = got, t
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    r = {"eager_ms": eager_ms, "graph_ms": graph_ms, "capture_s": fused.capture_s,
+         "instantiate_s": fused.instantiate_s, "first_s": first_s,
+         "memory_before": fused.memory_before, "memory_after": fused.memory_after,
+         "replay_kernels": [e.name for e in kernels],
+         "device_ms": busy_ms / k if kernels else None,
+         "busy": busy_ms / prof_ms if kernels else None}
+    log(f"{tag} capture of {k} {unit}s: {fused.capture_s:.3f} s of host time, instantiation "
+        f"{fused.instantiate_s:.3f} s (capture, instantiation and the first replay {first_s:.3f} "
+        f"s); max_memory_allocated {fused.memory_before / 2**20:.1f} -> "
+        f"{fused.memory_after / 2**20:.1f} MiB around the capture")
+    log(f"{tag} one replay under torch.profiler: {len(kernels)} device kernels "
+        f"({len(kernels) / k:.0f} a {unit}), {fmt_ms(r['device_ms'], 0)} ms of device time a "
+        f"{unit}, in {fmt_ms(prof_ms, 0)} ms of host time: device busy "
+        + (f"{r['busy']:.1%}" if kernels else "not measured"))
+    log(f"{tag} on {torch.cuda.get_device_name(0)} ({smi}): eager {eager_ms:.3f} ms a {unit}, "
+        f"{images_per_step * 1e3 / eager_ms:.1f} images/s (mean of {n_eager} after 3 warm-up); "
+        f"graph {graph_ms:.3f} ms a {unit}, {images_per_step * 1e3 / graph_ms:.1f} images/s "
+        f"(mean of {n_replays} replays of {k} {unit}s; host clock, synchronized)")
+    return r
+
+
+def _run_main(mod, argv, out_dir):
+    """``mod.main(argv)`` with its output under ``out_dir``; the wall time
+    and the port's kernel launches and graph replays it made."""
+    import torch
+
+    from tpugan_torch.train import loop
+
+    _reset_port_launches()
+    loop.reset_graph_counts()
+    t0 = time.perf_counter()
+    mod.main(argv + ["--output_dir", out_dir, "--metrics_jsonl",
+                     os.path.join(out_dir, "metrics.jsonl")])
+    torch.cuda.synchronize()
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("fp32 run with TF32 left on")
+    return time.perf_counter() - t0, _port_launches(), loop.graph_replays
+
+
+def _u8_chunks(shape, seed=0):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, 256, shape,
+                                                                 dtype=np.uint8)).cuda()
+
+
+def phase_dcgan_fused(smi):
+    """``dcgan.main`` at 64px with 60 steps a dispatch, replay against eager
+    at K = 60, and the graphed step beside the eager one."""
+    import torch
+
+    from tpugan_torch.models import dcgan
+
+    tag = "[dcgan fused]"
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dcgan_fused_")
+    k, epochs = DCGAN_K, DCGAN_FUSED_EPOCHS
+    n = epochs * DCGAN_EPOCH_BATCHES
+    wall, launches, replays = _run_main(dcgan, [
+        "--synthetic_data", "--n_epochs", str(epochs), "--max_batches",
+        str(DCGAN_EPOCH_BATCHES), "--img_size", "64", "--sample_interval", str(k),
+        "--log_interval", "30", "--steps_per_dispatch", str(k)], out_dir)
+    log(f"{tag} main() with --steps_per_dispatch {k} took {wall:.1f} s (64px, batch 64: data, "
+        f"modules, {epochs} epochs of {DCGAN_EPOCH_BATCHES} steps: a dispatch each, the first "
+        f"eager, then the capture, and a tail of {DCGAN_EPOCH_BATCHES - k} eager steps; "
+        f"samples); graph replays {replays}, the port's kernel launches {launches}, expected "
+        f"none")
+    if replays != epochs - 1:
+        raise AssertionError(f"{tag} {replays} graph replays, expected {epochs - 1}")
+    if any(launches.values()):
+        raise AssertionError(f"{tag} launched the port's kernels: {launches}")
+    _check_mnist_run(tag, out_dir, os.path.join(out_dir, "metrics.jsonl"), n, k, 64, 64)
+
+    cfg = dcgan.Config(img_size=64, synthetic_data=True)
+    dev = torch.device("cuda")
+
+    def make():
+        state = dcgan.create_state(cfg, dcgan.build(cfg, dev), dev)
+        return state, dcgan.make_step(cfg, state)
+
+    chunks = _u8_chunks((3, k, cfg.batch_size, 64, 64, 1))
+    worst = {mode: _replay_vs_eager(tag, make, chunks, k, mode == "deterministic",
+                                    2 if mode == "deterministic" else 4)
+             for mode in ("deterministic", "shipped")}
+    times = _fused_times(tag, smi, make, chunks[0], k, cfg.batch_size)
+    return {"replay_vs_eager": worst, **times}
+
+
+def _critic_fused(tag, smi, mod, epochs, k, interval):
+    """``mod.main`` of the critic family at its reference configuration
+    unfused (one epoch of ``k`` units' batches) and with ``k`` schedule
+    units a dispatch (``epochs`` epochs of ``k`` units, a dispatch each);
+    the same rows' steps and keys, finite, and the PNGs both ways; then
+    replay against eager and the graphed unit beside the eager one. Returns
+    the fused run's launches, its replays and the times."""
+    import json
+
+    import torch
+
+    from tpugan_torch.models._critic_family import make_schedule_unit
+
+    runs = {}
+    per_epoch = k * mod.Config.n_critic
+    for fused_k, n_epochs in ((1, 1), (k, epochs)):
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{mod.NAME}_{fused_k}_")
+        batches = n_epochs * per_epoch
+        wall, launches, replays = _run_main(mod, [
+            "--synthetic_data", "--n_epochs", str(n_epochs), "--max_batches", str(per_epoch),
+            "--sample_interval", str(interval), "--log_interval", "50",
+            "--steps_per_dispatch", str(fused_k)], out_dir)
+        with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        if [r["step"] for r in rows] != list(range(batches)):
+            raise AssertionError(f"{tag} metric rows for steps {[r['step'] for r in rows]}")
+        for row in rows:
+            if not all(math.isfinite(v) for v in row.values()):
+                raise AssertionError(f"{tag} non-finite losses at batch {row['step']}: {row}")
+        imgdir = os.path.join(out_dir, "images")
+        pngs = sorted(os.listdir(imgdir), key=lambda p: int(p.split(".")[0]))
+        for name in pngs:
+            with open(os.path.join(imgdir, name), "rb") as f:
+                if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                    raise AssertionError(f"{tag} {name} is not a PNG")
+        runs[fused_k] = (rows, pngs, launches, replays)
+        log(f"{tag} main() --steps_per_dispatch {fused_k}, {n_epochs} epochs of {per_epoch} "
+            f"batches: {wall:.1f} s; "
+            f"graph replays {replays}; the port's kernel launches {launches}; losses finite in "
+            f"{len(rows)} rows (last G row {[r for r in rows if 'g_loss' in r][-1]}); wrote "
+            f"{pngs}")
+    rows1, png1 = runs[1][:2]
+    rows_k, png_k = runs[k][:2]
+    keys = lambda rows: [(r["step"], sorted(r)) for r in rows]
+    if keys(rows_k)[:len(rows1)] != keys(rows1) or not set(png1) <= set(png_k):
+        raise AssertionError(f"{tag} the fused run's rows or PNGs differ from the unfused run's")
+    if runs[k][3] != epochs - 1:
+        raise AssertionError(f"{tag} {runs[k][3]} graph replays, expected {epochs - 1}")
+
+    cfg = mod.Config(synthetic_data=True)
+    dev = torch.device("cuda")
+
+    def make():
+        state = mod.create_state(cfg, mod.build(cfg, dev), dev)
+        return state, make_schedule_unit(cfg, *mod.make_steps(cfg, state))
+
+    chunks = _u8_chunks((3, k, cfg.n_critic, cfg.batch_size, 28, 28, 1))
+    worst = _replay_vs_eager(tag, make, chunks, k)
+    times = _fused_times(tag, smi, make, chunks[0], k, cfg.n_critic * cfg.batch_size,
+                         unit="unit")
+    return {"launches": runs[k][2], "launches_unfused": runs[1][2], "replays": runs[k][3],
+            "replay_vs_eager": worst, **times}
+
+
+def phase_wgan_gp_fused(smi):
+    """WGAN-GP with 10 schedule units a dispatch over 100 batches: the GP
+    pair inside the captured unit, its replayed launches counted as captured
+    calls times replays and held against the kernels torch.profiler sees in
+    a replay."""
+    from tpugan_torch.models import wgan_gp
+
+    tag = "[wgan_gp fused]"
+    r = _critic_fused(tag, smi, wgan_gp, WGAN_FUSED_EPOCHS, WGAN_K, WGAN_SAMPLE_INTERVAL)
+    n_batches = WGAN_FUSED_EPOCHS * WGAN_K * wgan_gp.Config.n_critic
+    device = {}
+    for d in ("fwd", "bwd"):
+        calls, captured = r["launches"][f"gp_{d}"], r["launches"][f"gp_{d}_captured"]
+        device[d] = calls - captured + captured * r["replays"]
+    log(f"{tag} GP wrapper calls {r['launches']['gp_fwd']}/{r['launches']['gp_bwd']} (fwd/bwd), "
+        f"{r['launches']['gp_fwd_captured']}/{r['launches']['gp_bwd_captured']} of them captured, "
+        f"{r['replays']} replay: {device['fwd']}/{device['bwd']} launches on the device, "
+        f"expected {n_batches} each way (one per critic step)")
+    if device != {"fwd": n_batches, "bwd": n_batches}:
+        raise AssertionError(f"{tag} GP launches on the device {device}")
+    # The device kernels a replay holds: four forward and two backward
+    # gp_gemm launches per critic step. A replay of 10 units launches about
+    # 11,000 kernels in 3 ms, and the profiler drops some of them in some
+    # runs, so the count is held on a graph of one unit, profiled up to five
+    # times until a trace holds them all (none may hold more).
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpugan_torch.models._critic_family import make_schedule_unit
+    from tpugan_torch.train.loop import graph_steps
+
+    got10 = sum("gp_gemm<" in name for name in r["replay_kernels"])
+    log(f"{tag} gp_gemm kernels in the profiled replay of {WGAN_K} units: {got10} of "
+        f"{6 * WGAN_K * 5} (a short count is the profiler's dropped events)")
+    cfg = wgan_gp.Config(synthetic_data=True)
+    dev = torch.device("cuda")
+    state = wgan_gp.create_state(cfg, wgan_gp.build(cfg, dev), dev)
+    one = graph_steps(make_schedule_unit(cfg, *wgan_gp.make_steps(cfg, state)), 1)
+    imgs = _u8_chunks((1, cfg.n_critic, cfg.batch_size, 28, 28, 1))
+    for _ in range(2):
+        state, _ = one(state, imgs)
+    torch.cuda.synchronize()
+    want, counts = 6 * cfg.n_critic, []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = one(state, imgs)
+            torch.cuda.synchronize()
+        counts.append(sum("gp_gemm<" in e.name for e in device_kernels(prof)))
+        if counts[-1] == want:
+            break
+    log(f"{tag} gp_gemm kernels in a profiled replay of one unit: {counts} (tries), expected "
+        f"{want}")
+    if want not in counts or max(counts) > want:
+        raise AssertionError(f"{tag} gp_gemm kernels in a replay of one unit: {counts}, "
+                             f"expected {want}")
+    r["device_launches"] = device
+    return r
+
+
+def phase_wgan_fused(smi):
+    """wgan at its reference configuration, unfused and with 10 schedule
+    units a dispatch (150 batches: three dispatches); it launches none of
+    the port's kernels."""
+    from tpugan_torch.models import wgan
+
+    tag = "[wgan fused]"
+    r = _critic_fused(tag, smi, wgan, WGAN_PLAIN_FUSED_EPOCHS, WGAN_K, WGAN_SAMPLE_INTERVAL)
+    for launches in (r["launches"], r["launches_unfused"]):
+        if any(launches.values()):
+            raise AssertionError(f"{tag} launched the port's kernels: {launches}")
+    return r
 
 
 def main() -> int:
@@ -1606,7 +2003,15 @@ def main() -> int:
     munit_in_worst, munit_in_time = phase_munit_in()
     munit_launches = phase_munit_slice(smi)
     phase_dcgan_slice(smi)
-    phase_dcgan_bench()
+    fused = {"dcgan 64px": phase_dcgan_fused(smi), "wgan_gp": phase_wgan_gp_fused(smi),
+             "wgan": phase_wgan_fused(smi)}
+    gp_fused = fused["wgan_gp"]
+    bench_rec = phase_dcgan_bench()
+    keep = ("eager_ms", "graph_ms", "device_ms", "busy", "capture_s", "instantiate_s",
+            "memory_before", "memory_after", "replay_vs_eager")
+    log("[fused summary] " + json.dumps({
+        **{name: {key: r[key] for key in keep} for name, r in fused.items()},
+        "bench_images_per_sec": bench_rec["value"]}))
     in_src, gp_src = "tpugan_torch/csrc/instance_norm.cu", "tpugan_torch/csrc/mlp_gp.cu"
     replaces = {
         "in_act_fwd": "tpugan/ops/pallas_kernels.py:226",
@@ -1640,10 +2045,22 @@ def main() -> int:
             "times_of": c["times_of"], "by_path": by_path,
         })
     for k in ("fwd", "bwd"):
+        # The GP pair runs on the WGAN-GP path unfused and inside the
+        # replayed schedule unit: launches on the device, the replayed ones
+        # counted as captured wrapper calls times replays.
         t = gp_time[k]
+        fused_calls = gp_fused["launches"][f"gp_{k}"]
+        captured = gp_fused["launches"][f"gp_{k}_captured"]
+        by_path = {
+            "wgan_gp": {"launches": gp_launches[k]},
+            "wgan_gp cuda_graph": {"launches": gp_fused["device_launches"][k],
+                                   "wrapper_calls": fused_calls, "captured": captured,
+                                   "replays": gp_fused["replays"]},
+        }
         kernels.append({
             "name": f"mlp_gp_{k}", "route": "cuda", "source": gp_src,
-            "replaces": replaces[f"mlp_gp_{k}"], "launches": gp_launches[k],
+            "replaces": replaces[f"mlp_gp_{k}"],
+            "launches": gp_launches[k] + gp_fused["device_launches"][k], "by_path": by_path,
             "max_abs_err": gp_worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "device_ms": t["device_ms"],

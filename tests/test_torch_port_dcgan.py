@@ -467,11 +467,19 @@ def test_a_few_batch_main_writes_the_samples(tmp_path, name, capsys):
 
 
 def test_steps_per_dispatch_prints_the_notice_and_runs_per_step(tmp_path, capsys):
+    """The notice belongs to the loops that do not fuse (the im2im loops'
+    ``StepObserver(cfg)``); DCGAN's loop fuses and prints none. With fewer
+    batches than K, its epoch is all tail: one step at a time."""
+    from tpugan_torch.train.loop import StepObserver
+
+    cfg = dc_t.Config(steps_per_dispatch=4)
+    StepObserver(cfg)
+    assert "--steps_per_dispatch is not supported" in capsys.readouterr().out
     dc_t.main(["--synthetic_data", "--n_epochs", "1", "--max_batches", "2", "--batch_size", "8",
                "--latent_dim", "16", "--img_size", "16", "--steps_per_dispatch", "4",
                "--sample_interval", "0", "--output_dir", str(tmp_path)], CPU)
     out = capsys.readouterr().out
-    assert "--steps_per_dispatch is not supported" in out
+    assert "--steps_per_dispatch is not supported" not in out
     assert sum(line.startswith("[Epoch 0/1] [Batch") for line in out.splitlines()) == 2
 
 
@@ -479,6 +487,7 @@ def test_bench_runs_at_a_tiny_size_on_the_cpu():
     rec = json.loads(json.dumps(bench.measure(16, 4, 2, CPU)))
     assert (rec["img_size"], rec["batch_size"], rec["steps_per_dispatch"]) == (16, 4, 2)
     assert rec["unit"] == "images/sec/cpu" and rec["device"] == "cpu"
+    assert rec["mode"] == "python_loop" and rec["capture_s"] is None
     assert rec["card"] is None and rec["dtype"] == "float32" and rec["value"] > 0
     assert all(np.isfinite(list(rec["losses"].values())))
 
@@ -499,4 +508,4 @@ def test_cli_lists_every_ported_trainer(capsys):
 
     assert main(["list"]) == 0
     names = capsys.readouterr().out.split()
-    assert {"cyclegan", "dcgan", "lsgan", "munit", "wgan_gp"} <= set(names)
+    assert {"cyclegan", "dcgan", "lsgan", "munit", "wgan", "wgan_gp"} <= set(names)

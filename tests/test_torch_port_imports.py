@@ -26,7 +26,7 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax_or_tpugan():
     names = _port_modules()
-    assert {"tpugan_torch.native", "tpugan_torch.models.wgan_gp",
+    assert {"tpugan_torch.native", "tpugan_torch.models.wgan_gp", "tpugan_torch.models.wgan",
             "tpugan_torch.ops.mlp_gp", "tpugan_torch.utils.config"} <= set(names)
     code = (
         "import importlib, sys\n"

@@ -3,7 +3,11 @@ version, and the launch counts of one CycleGAN step, one WGAN-GP critic step
 and one MUNIT step; and one DCGAN step at 64px on the card against the same
 step on the CPU.
 
-These need a CUDA device and skip without one. The file imports no JAX, so
+These need a CUDA device and skip without one. The fused dispatch: DCGAN
+steps (K = 3) and WGAN-GP schedule units (K = 2) replayed from a CUDA graph
+against the same eager steps, the generator's state after them, the GP
+kernels a replayed unit launches, and the trainers' fused ``main`` against
+the unfused one. The file imports no JAX, so
 it also runs where JAX is not installed; there, skip the JAX-importing
 ``tests/conftest.py``:
 
@@ -379,3 +383,219 @@ def _adam_first_step(p0, g, cfg, eps=1e-8):
     bias-corrected moments are g and g**2, so the step is lr * g / (|g| + eps)."""
     g = g.double()
     return (p0.double() - cfg.lr * g / (g.abs() + eps)).float()
+
+# --- Fused dispatch: K steps captured in one CUDA graph and replayed ---------
+#
+# Replay against eager: the same state from the same seed, the same batches
+# and draws, run (a) as eager steps twice and (b) through ``graph_steps``:
+# a first call (the eager warm-up), a second (the capture and its replay), a
+# third (batches copied in, a replay), then one eager step after the
+# replays. Where the eager runs agree bit for bit on a tensor, the replay
+# must too. Where they do not (cuDNN's weight gradients at 64px use atomics,
+# and Adam turns their rounding into steps of up to lr), the replay is one
+# more run of the same nondeterministic arithmetic: by module, its
+# difference from the nearest of four eager runs must stay within the
+# largest difference between two of them.
+
+
+def _snapshot(state) -> dict:
+    snap = {"draws": state.draws.get_state(), "step": torch.tensor(state.step)}
+    for role, m in state.modules.items():
+        for k, v in m.state_dict().items():
+            snap[f"{role}.{k}"] = v.detach().cpu().clone()
+        for i, st in enumerate(state.optimizers[role].state.values()):
+            for k, v in st.items():
+                snap[f"{role}.opt{i}.{k}"] = torch.as_tensor(v).detach().cpu().clone()
+    return snap
+
+
+def _fused_against_eager(make, k, batches, n_eager=4):
+    """``make() -> (state, step)``; ``batches`` (3, k, ...) uint8 on the
+    card. Returns the ``n_eager`` eager snapshots, the replayed one, and the
+    ``GraphSteps``."""
+    from tpugan_torch.train.loop import graph_steps
+
+    snaps = []
+    for _ in range(n_eager):
+        state, step = make()
+        for chunk in batches:
+            for b in chunk:
+                state, _ = step(state, b)
+        state, _ = step(state, batches[0][0])
+        torch.cuda.synchronize()
+        snaps.append(_snapshot(state))
+    state, step = make()
+    fused = graph_steps(step, k)
+    for chunk in batches:
+        state, out = fused(state, chunk)
+    state, _ = step(state, batches[0][0])
+    torch.cuda.synchronize()
+    assert (fused.calls, fused.replays) == (3, 2) and fused.graph is not None
+    assert all(bool(torch.isfinite(out[n]).all()) for n in out)
+    return snaps, _snapshot(state), fused
+
+
+def _assert_replay_matches_eager(eager, replay):
+    """Bit for bit on every tensor the eager runs agree on; elsewhere, by
+    module, the replay's difference from the nearest eager run within the
+    largest eager-eager difference. Returns the largest differences by
+    module: (replay-nearest eager, eager-eager)."""
+    import itertools
+
+    a = eager[0]
+    assert torch.equal(replay["draws"], a["draws"])
+    assert int(replay["step"]) == int(a["step"])
+    floats = [n for n, v in a.items() if v.dtype.is_floating_point]
+    for name in set(a) - set(floats):
+        assert all(torch.equal(s[name], a[name]) for s in [replay, *eager]), name
+    pairs = list(itertools.combinations(range(len(eager)), 2))
+    rep, eag = {}, {}
+    for name in floats:
+        role = name.split(".")[0]
+        to_eager = [float((replay[name] - s[name]).abs().max()) for s in eager]
+        spread = max(float((eager[i][name] - eager[j][name]).abs().max()) for i, j in pairs)
+        if spread == 0.0:
+            assert max(to_eager) == 0.0, (f"{name}: the eager runs agree bit for bit, the "
+                                          f"replay by {max(to_eager):.3e}")
+        rep[role] = [max(r, t) for r, t in zip(rep.get(role, [0.0] * len(eager)), to_eager)]
+        eag[role] = max(eag.get(role, 0.0), spread)
+    worst = {role: (min(rep[role]), eag[role]) for role in rep}
+    print("largest differences by module (replay-nearest eager, eager-eager):", worst)
+    for role, (near, spread) in worst.items():
+        assert near <= spread, (f"{role}: replay differs from the nearest eager run by "
+                                f"{near:.3e}, eager runs by up to {spread:.3e}")
+    return worst
+
+
+def test_replayed_dcgan_steps_match_eager_steps(cuda):
+    import numpy as np
+
+    from tpugan_torch.models import dcgan
+
+    k = 3
+    cfg = dcgan.Config(img_size=64, synthetic_data=True)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+
+    def make():
+        state = dcgan.create_state(cfg, dcgan.build(cfg, cuda), cuda)
+        return state, dcgan.make_step(cfg, state)
+
+    batches = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (3, k, cfg.batch_size, 64, 64, 1), dtype=np.uint8)).to(cuda)
+    eager, replay, fused = _fused_against_eager(make, k, batches)
+    _assert_replay_matches_eager(eager, replay)
+    print(f"capture {fused.capture_s:.3f} s, instantiate {fused.instantiate_s:.3f} s, "
+          f"max_memory_allocated {fused.memory_before} -> {fused.memory_after} B")
+
+
+def test_replayed_dcgan_steps_equal_eager_steps_with_deterministic_cudnn(cuda, monkeypatch):
+    """With cuDNN held to deterministic algorithms, the two eager runs agree
+    bit for bit, and so must the replay, on every tensor."""
+    import numpy as np
+
+    from tpugan_torch.models import dcgan
+
+    k = 3
+    cfg = dcgan.Config(img_size=64, synthetic_data=True)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    def make():
+        state = dcgan.create_state(cfg, dcgan.build(cfg, cuda), cuda)
+        return state, dcgan.make_step(cfg, state)
+
+    batches = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (3, k, cfg.batch_size, 64, 64, 1), dtype=np.uint8)).to(cuda)
+    (a, b), replay, _ = _fused_against_eager(make, k, batches, n_eager=2)
+    for name in a:
+        assert torch.equal(b[name], a[name]), f"{name}: the eager runs differ"
+        assert torch.equal(replay[name], a[name]), f"{name}: the replay differs"
+
+
+def test_replayed_wgan_gp_units_match_eager_units(cuda):
+    import numpy as np
+
+    from tpugan_torch.models import wgan_gp
+    from tpugan_torch.models._critic_family import make_schedule_unit
+
+    k = 2
+    cfg = wgan_gp.Config(synthetic_data=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def make():
+        state = wgan_gp.create_state(cfg, wgan_gp.build(cfg, cuda), cuda)
+        d_step, g_step = wgan_gp.make_steps(cfg, state)
+        unit = make_schedule_unit(cfg, d_step, g_step)
+        return state, unit
+
+    batches = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (3, k, cfg.n_critic, cfg.batch_size, 28, 28, 1), dtype=np.uint8)).to(cuda)
+    gp.reset_launch_counts()
+    eager, replay, fused = _fused_against_eager(make, k, batches)
+    _assert_replay_matches_eager(eager, replay)
+    # Eager: 4 runs of 3 chunks and one unit; fused: the warm-up chunk, the
+    # captured chunk and one unit. Each unit is n_critic critic steps.
+    per_chunk = k * cfg.n_critic
+    runs = len(eager)
+    assert gp.gp_fwd_captured == gp.gp_bwd_captured == per_chunk
+    assert (gp.gp_fwd_launches == gp.gp_bwd_launches
+            == (runs * 3 + 2) * per_chunk + (runs + 1) * cfg.n_critic)
+
+
+def test_a_replayed_unit_launches_the_gp_kernels_once_each_way_per_critic_step(cuda):
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpugan_torch.models import wgan_gp
+    from tpugan_torch.models._critic_family import make_schedule_unit
+    from tpugan_torch.train.loop import graph_steps
+
+    k = 2
+    cfg = wgan_gp.Config(synthetic_data=True)
+    state = wgan_gp.create_state(cfg, wgan_gp.build(cfg, cuda), cuda)
+    fused = graph_steps(make_schedule_unit(cfg, *wgan_gp.make_steps(cfg, state)), k)
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (k, cfg.n_critic, cfg.batch_size, 28, 28, 1), dtype=np.uint8)).to(cuda)
+    for _ in range(2):
+        state, _ = fused(state, imgs)
+    torch.cuda.synchronize()
+    gp.reset_launch_counts()
+    for _ in range(3):  # the profiler drops every event in some runs
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, out = fused(state, imgs)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    # Four forward products and two backward launches per critic step, and
+    # no wrapper call on the host: the graph launched them.
+    assert sum("gp_gemm<" in n for n in names) == 6 * k * cfg.n_critic, sorted(set(names))
+    assert (gp.gp_fwd_launches, gp.gp_bwd_launches) == (0, 0)
+    assert bool(torch.isfinite(out["d_loss"]).all())
+
+
+@pytest.mark.parametrize("name", ["dcgan", "wgan_gp", "wgan"])
+def test_fused_main_writes_the_rows_and_samples_of_the_unfused_main(cuda, tmp_path, name):
+    """The trainer's ``main`` on the card with ``--steps_per_dispatch 3``
+    (the loader's thread copying while the graph is captured) against the
+    same ``main`` unfused: the same metric rows and PNG names, finite."""
+    import importlib
+    import json
+    import os
+
+    mod = importlib.import_module(f"tpugan_torch.models.{name}")
+    argv = ["--synthetic_data", "--n_epochs", "2", "--max_batches", "20", "--sample_interval",
+            "4", "--log_interval", "0"]
+    if name != "dcgan":
+        argv += ["--n_critic", "2"]
+    rows, pngs = {}, {}
+    for k in (1, 3):
+        out = tmp_path / str(k)
+        mod.main(argv + ["--steps_per_dispatch", str(k), "--output_dir", str(out),
+                         "--metrics_jsonl", str(out / "m.jsonl")])
+        torch.cuda.synchronize()
+        rows[k] = [json.loads(line) for line in (out / "m.jsonl").read_text().splitlines()]
+        pngs[k] = sorted(os.listdir(out / "images"))
+    assert [(r["step"], sorted(r)) for r in rows[3]] == [(r["step"], sorted(r)) for r in rows[1]]
+    assert pngs[3] == pngs[1] and pngs[1]
+    assert all(all(torch.isfinite(torch.tensor(v)) for v in r.values()) for r in rows[3])

@@ -4,22 +4,24 @@
 
 The full G+D step of ``tpugan_torch.models.dcgan`` (the entry points a
 trainer calls), fp32 with TF32 off, on uint8 batches already on the card,
-one eager step at a time (the fused dispatch of the JAX bench waits for
-CUDA graphs, ROADMAP queue 1, item 2; bf16 for item 8). Timed by the
-difference method of ``tpugan_torch.utils.benchtime`` over dispatches of
-``STEPS`` steps, each ending in ``torch.cuda.synchronize()``. It takes no
-flags: the shape is the headline's. Prints one
-JSON line: ``metric``, ``value``, ``unit``, ``dtype`` and the card's name and
-power limit as ``nvidia-smi`` gives them. It runs on CUDA unless ``main`` is
-given another device (the tests pass the CPU, where the line names the CPU
-and no card); it raises without CUDA. Nothing is compared with the JAX
-package's numbers.
+``STEPS`` = 60 steps a dispatch as the JAX bench fuses them (``bench.py:37``):
+one CUDA graph of the 60 steps, replayed (``train.loop.graph_steps``; bf16
+waits for ROADMAP queue 1, item 8). The first dispatch is the eager warm-up,
+the second captures the graph; then the difference method of
+``tpugan_torch.utils.benchtime`` times dispatches, each ending in
+``torch.cuda.synchronize()``. It takes no flags: the shape is the
+headline's. Prints one JSON line: ``metric``, ``value``, ``unit``,
+``dtype``, ``mode`` (``cuda_graph``), ``steps_per_dispatch``, the capture's
+and the instantiation's host seconds, and the card's name and power limit
+as ``nvidia-smi`` gives them. It runs on CUDA unless ``main`` is given
+another device (the tests pass the CPU, where ``graph_steps`` loops in
+Python, the mode says so and the line names no card); it raises without
+CUDA. Nothing is compared with the JAX package's numbers.
 """
 
 from __future__ import annotations
 
 import json
-import math
 import subprocess
 import time
 
@@ -27,10 +29,10 @@ import numpy as np
 import torch
 
 from tpugan_torch.models import dcgan
-from tpugan_torch.train.loop import train_device
+from tpugan_torch.train.loop import graph_steps, train_device
 
 METRIC = "dcgan_train_images_per_sec_64px"
-IMG_SIZE, BATCH_SIZE, STEPS = 64, 64, 20
+IMG_SIZE, BATCH_SIZE, STEPS = 64, 64, 60
 
 
 def _card(device: torch.device):
@@ -51,14 +53,15 @@ def _sync(device: torch.device) -> None:
 
 def measure(img_size: int, batch_size: int, steps: int, device=None, seed: int = 0) -> dict:
     """Train DCGAN at ``img_size`` and ``batch_size`` on ``steps`` distinct
-    device-resident batches a dispatch; return what was measured."""
+    device-resident batches a ``graph_steps`` dispatch; return what was
+    measured."""
     from tpugan_torch.utils.benchtime import measure_images_per_sec
 
     cfg = dcgan.Config(img_size=img_size, batch_size=batch_size, synthetic_data=True, seed=seed)
     device = train_device(cfg, device)
     modules = dcgan.build(cfg, device)
     state = dcgan.create_state(cfg, modules, device)
-    step = dcgan.make_step(cfg, state)
+    fused = graph_steps(dcgan.make_step(cfg, state), steps)
     rng = np.random.default_rng(seed)
     batches = torch.from_numpy(
         rng.integers(0, 255, (steps, batch_size, img_size, img_size, cfg.channels), dtype=np.uint8)
@@ -69,15 +72,17 @@ def measure(img_size: int, batch_size: int, steps: int, device=None, seed: int =
         nonlocal state, out
         t0 = time.perf_counter()
         for _ in range(n):
-            for k in range(steps):
-                state, out = step(state, batches[k])
+            state, out = fused(state, batches)
         _sync(device)
         return time.perf_counter() - t0
 
+    dispatch(1)  # the eager warm-up
+    dispatch(1)  # the capture, then a replay
     ips = measure_images_per_sec(dispatch, steps * batch_size, 1, 4)
-    losses = {k: float(out[k]) for k in ("d_loss", "g_loss")}
-    if not all(math.isfinite(v) for v in losses.values()):
-        raise RuntimeError(f"non-finite losses after the timed steps: {losses}")
+    if not all(bool(torch.isfinite(out[k]).all()) for k in ("d_loss", "g_loss")):
+        raise RuntimeError(f"non-finite losses in the timed steps: {out['d_loss']}, "
+                           f"{out['g_loss']}")
+    losses = {k: float(out[k][-1]) for k in ("d_loss", "g_loss")}
     return {
         "value": ips,
         "unit": "images/sec/gpu" if device.type == "cuda" else f"images/sec/{device.type}",
@@ -87,7 +92,9 @@ def measure(img_size: int, batch_size: int, steps: int, device=None, seed: int =
         "img_size": img_size,
         "batch_size": batch_size,
         "steps_per_dispatch": steps,
-        "mode": "eager",
+        "mode": "cuda_graph" if device.type == "cuda" else "python_loop",
+        "capture_s": fused.capture_s,
+        "instantiate_s": fused.instantiate_s,
         "losses": losses,
     }
 

@@ -1,5 +1,5 @@
-"""Trainer registry of the port: ``cyclegan``, ``dcgan``, ``lsgan``, ``munit``
-and ``wgan_gp``, so far. Each trainer module exposes ``Config``, ``build``, ``create_state``, its
+"""Trainer registry of the port: ``cyclegan``, ``dcgan``, ``lsgan``, ``munit``,
+``wgan`` and ``wgan_gp``, so far. Each trainer module exposes ``Config``, ``build``, ``create_state``, its
 step makers (``make_step`` or ``make_steps``), ``make_loader``, ``run`` and
 ``main``."""
 
@@ -12,6 +12,7 @@ _REGISTRY = {
     "dcgan": "tpugan_torch.models.dcgan",
     "lsgan": "tpugan_torch.models.lsgan",
     "munit": "tpugan_torch.models.munit",
+    "wgan": "tpugan_torch.models.wgan",
     "wgan_gp": "tpugan_torch.models.wgan_gp",
 }
 

@@ -1,10 +1,12 @@
 """Shared machinery of the n_critic Wasserstein family
-(``tpugan/models/_critic_family.py``): wgan_gp now; wgan and wgan_div later.
+(``tpugan/models/_critic_family.py``): wgan and wgan_gp now; wgan_div later.
 
 Reference control flow (wgan/wgan.py:117-166, wgan_gp/wgan_gp.py:144-203):
 the critic trains on every batch with a fresh z; the generator trains every
 ``n_critic`` batches on the same z. The host loop mirrors that schedule
-around two step functions, ``d_step`` and ``g_step``.
+around two step functions, ``d_step`` and ``g_step``; with
+``--steps_per_dispatch`` K schedule units run as one ``graph_steps``
+dispatch.
 
 Random draws (z and the penalty's interpolation weights) come from the
 state's ``torch.Generator`` on the device, or are passed in, so a test can
@@ -24,7 +26,7 @@ import torch
 from tpugan_torch.io.images import save_image
 from tpugan_torch.models._common import mnist_loader as make_loader_a
 from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
-from tpugan_torch.train.loop import StepObserver
+from tpugan_torch.train.loop import StepObserver, _stack_batches, graph_steps, host_rows
 from tpugan_torch.train.state import TrainState, normalize_uint8
 
 
@@ -42,6 +44,8 @@ def build_a(cfg, device) -> dict:
 
 
 def create_state_a(cfg, modules: dict, opt_g, opt_d, device) -> TrainState:
+    """The optimizers as given (capturable on CUDA: ``train.optim.capturable``)
+    and a device generator of the draws seeded by ``--seed``."""
     draws = torch.Generator(device=torch.device(device)).manual_seed(cfg.seed)
     return TrainState(modules, {"generator": opt_g, "discriminator": opt_d}, draws)
 
@@ -104,10 +108,36 @@ def make_g_step(cfg, modules: dict, opt_g):
     return g_step
 
 
+def make_schedule_unit(cfg, d_step, g_step):
+    """One reference schedule unit as one step (``_critic_family.py:155-205``):
+    the critic on ``n_critic`` consecutive batches, the generator after the
+    first, on that batch's z: the host order of wgan_gp.py:144-203 (the G
+    branch fires when ``i % n_critic == 0``).
+
+    ``unit(state, imgs, labels=None)``: ``imgs`` (and ``labels``) carry a
+    leading n_critic axis, one loader batch a critic step. ``out`` holds the
+    first batch's ``d_loss``, ``g_loss``, the unit's ``gen_imgs`` and every
+    later critic batch's ``d_loss`` as ``_d_loss<j>``, so that the fused
+    loop keeps a row a loader batch. Same draws and update order as the
+    unfused loop."""
+
+    def unit(state, imgs, labels=None):
+        labels = [None] * cfg.n_critic if labels is None else labels
+        state, d0 = d_step(state, imgs[0], labels[0])
+        state, g_out = g_step(state, d0["z"])
+        out = {"d_loss": d0["d_loss"], "g_loss": g_out["g_loss"], "gen_imgs": g_out["gen_imgs"]}
+        for j in range(1, cfg.n_critic):
+            state, dj = d_step(state, imgs[j], labels[j])
+            out["_d_loss%d" % j] = dj["d_loss"]
+        return state, out
+
+    return unit
+
+
 def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gstep: bool,
                       device) -> TrainState:
     """Host loop with the reference's ``batches_done`` accounting
-    (``_critic_family.py:207-375``, its unfused path).
+    (``_critic_family.py:207-375``).
 
     sample_inside_gstep=False: wgan style (check every batch, save the latest
     G output, batches_done += 1 per batch; wgan.py:160-166).
@@ -115,12 +145,18 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
     batches_done += n_critic; wgan_gp.py:196-203).
 
     Samples are ``images/<batches_done>.png``: 25 images, 5 a row,
-    normalized. ``--steps_per_dispatch`` above 1 prints the JAX package's
-    notice, and the loop runs one step at a time."""
+    normalized. ``--steps_per_dispatch K`` above 1 runs K schedule units
+    (``make_schedule_unit``) in one ``graph_steps`` dispatch and replays the
+    host's work batch by batch from the stacked scalars (``replay_units``);
+    a sample takes the dispatch's last unit's images, the deviation of
+    ``run_training``'s fused path. The epoch's units short of a dispatch and
+    batches short of a unit run through the unfused path."""
     imgdir = os.path.join(cfg.output_dir, "images")
     os.makedirs(imgdir, exist_ok=True)
     loader = make_loader_a(cfg, device)
-    observer = StepObserver(cfg)
+    observer = StepObserver(cfg, supports_fused_dispatch=True)
+    k = max(1, int(getattr(cfg, "steps_per_dispatch", 1)))
+    steps = graph_steps(make_schedule_unit(cfg, d_step, g_step), k) if k > 1 else None
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
@@ -148,37 +184,94 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
             )
         )
 
+    def run_batch(epoch, i, batch):
+        """One loader batch through the unfused path (also the fused loop's
+        epoch tail)."""
+        nonlocal state, batches_done, last_gen
+        state, d_out = d_step(state, *batch)
+        if i % cfg.n_critic != 0:
+            observer.observe(epoch * bpe + i, {"d_loss": d_out["d_loss"]})
+        else:
+            state, g_out = g_step(state, d_out["z"])
+            observer.observe(
+                epoch * bpe + i, {"d_loss": d_out["d_loss"], "g_loss": g_out["g_loss"]}
+            )
+            last_gen = g_out["gen_imgs"]
+            if cfg.log_interval > 0 and i % cfg.log_interval == 0:
+                log_line(epoch, i, d_out["d_loss"], g_out["g_loss"])
+            if (
+                sample_inside_gstep
+                and cfg.sample_interval > 0
+                and batches_done % cfg.sample_interval == 0
+            ):
+                save(last_gen, batches_done)
+        if not sample_inside_gstep:
+            if (
+                cfg.sample_interval > 0
+                and batches_done % cfg.sample_interval == 0
+                and last_gen is not None
+            ):
+                save(last_gen, batches_done)
+            batches_done += 1
+        elif i % cfg.n_critic == 0:
+            batches_done += cfg.n_critic
+
+    def replay_units(epoch, first_is, out):
+        """The host's work of one fused dispatch (``_critic_family.py:308-341``):
+        a telemetry row a loader batch, as the unfused loop writes them, from
+        one device-to-host read of the stacked scalars; samples take the
+        dispatch's last unit's images, cloned, since the next replay
+        overwrites them and wgan style saves them on later batches."""
+        nonlocal batches_done, last_gen
+        rows = host_rows(out, steps.heavy_keys, k)
+        last_gen = out["gen_imgs"].clone()
+        for row, i0 in zip(rows, first_is):
+            for c in range(cfg.n_critic):
+                r = {"d_loss": row["d_loss" if c == 0 else "_d_loss%d" % c]}
+                if c == 0:
+                    r["g_loss"] = row["g_loss"]
+                observer.observe(epoch * bpe + i0 + c, r)
+            if cfg.log_interval > 0 and i0 % cfg.log_interval == 0:
+                log_line(epoch, i0, row["d_loss"], row["g_loss"])
+            if sample_inside_gstep:
+                if cfg.sample_interval > 0 and batches_done % cfg.sample_interval == 0:
+                    save(last_gen, batches_done)
+                batches_done += cfg.n_critic
+            else:
+                for _ in range(cfg.n_critic):
+                    if cfg.sample_interval > 0 and batches_done % cfg.sample_interval == 0:
+                        save(last_gen, batches_done)
+                    batches_done += 1
+
     for epoch in range(cfg.n_epochs):
+        unit_buf = []  # (i, batch) filling the current schedule unit
+        units = []  # (first i, [batches]) awaiting a full dispatch
         with contextlib.closing(loader.epoch(epoch)) as batches:
             for i, batch in enumerate(batches):
                 if cfg.max_batches >= 0 and i >= cfg.max_batches:
                     break
-                state, d_out = d_step(state, *batch)
-                if i % cfg.n_critic != 0:
-                    observer.observe(epoch * bpe + i, {"d_loss": d_out["d_loss"]})
-                else:
-                    state, g_out = g_step(state, d_out["z"])
-                    observer.observe(
-                        epoch * bpe + i, {"d_loss": d_out["d_loss"], "g_loss": g_out["g_loss"]}
-                    )
-                    last_gen = g_out["gen_imgs"]
-                    if cfg.log_interval > 0 and i % cfg.log_interval == 0:
-                        log_line(epoch, i, d_out["d_loss"], g_out["g_loss"])
-                    if (
-                        sample_inside_gstep
-                        and cfg.sample_interval > 0
-                        and batches_done % cfg.sample_interval == 0
-                    ):
-                        save(last_gen, batches_done)
-                if not sample_inside_gstep:
-                    if (
-                        cfg.sample_interval > 0
-                        and batches_done % cfg.sample_interval == 0
-                        and last_gen is not None
-                    ):
-                        save(last_gen, batches_done)
-                    batches_done += 1
-                elif i % cfg.n_critic == 0:
-                    batches_done += cfg.n_critic
+                if steps is None:
+                    run_batch(epoch, i, batch)
+                    continue
+                unit_buf.append((i, batch))
+                if len(unit_buf) < cfg.n_critic:
+                    continue
+                units.append((unit_buf[0][0], [b for _, b in unit_buf]))
+                unit_buf = []
+                if len(units) < k:
+                    continue
+                stacked = _stack_batches([_stack_batches(bs) for _, bs in units])
+                first_is = [fi for fi, _ in units]
+                units = []
+                state, out = steps(state, *stacked)
+                replay_units(epoch, first_is, out)
+        # The fused loop's epoch tail: units short of a dispatch, then
+        # batches short of a unit, unfused (every fi is a multiple of
+        # n_critic, so the schedule stays aligned).
+        for fi, bs in units:
+            for off, b in enumerate(bs):
+                run_batch(epoch, fi + off, b)
+        for i, b in unit_buf:
+            run_batch(epoch, i, b)
     observer.close()
     return state

@@ -10,7 +10,9 @@ forward gets its own Dropout2d masks.
 
 Random draws (z, then the three forwards' Dropout2d masks) come from the
 state's device generator or are passed in, so a test can hand both
-frameworks the same numbers. The step makes no host sync.
+frameworks the same numbers. The step makes no host sync, allocates no host
+memory and reads no Python value that a CUDA graph would freeze, so
+``graph_steps`` can capture it.
 """
 
 from __future__ import annotations
@@ -19,13 +21,15 @@ from typing import Callable
 
 import torch
 
+from tpugan_torch.train.optim import capturable
 from tpugan_torch.train.state import TrainState, normalize_uint8
 
 
 def create_state_b(cfg, modules: dict, device) -> TrainState:
-    """Adam(lr, (b1, b2)) for G and for D, and a device generator of the
-    draws seeded by ``--seed``."""
-    adam = lambda m: torch.optim.Adam(m.parameters(), lr=cfg.lr, betas=(cfg.b1, cfg.b2))
+    """Adam(lr, (b1, b2)) for G and for D, capturable on CUDA, and a device
+    generator of the draws seeded by ``--seed``."""
+    adam = lambda m: torch.optim.Adam(m.parameters(), lr=cfg.lr, betas=(cfg.b1, cfg.b2),
+                                      **capturable(device))
     optimizers = {k: adam(modules[k]) for k in ("generator", "discriminator")}
     draws = torch.Generator(device=torch.device(device)).manual_seed(cfg.seed)
     return TrainState(modules, optimizers, draws)

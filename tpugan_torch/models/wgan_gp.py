@@ -1,7 +1,7 @@
 """WGAN-GP (Gulrajani et al. 2017): the port of ``tpugan/models/wgan_gp.py``.
 
 Template-A MLP generator and critic, Adam(2e-4, 0.5, 0.999) for both
-(wgan_gp.py:113-114), critic loss -mean(D(x)) + mean(D(G(z))) + 10*GP
+(wgan_gp.py:113-114; capturable on CUDA), critic loss -mean(D(x)) + mean(D(G(z))) + 10*GP
 (wgan_gp.py:171) with the gradient penalty on alpha-interpolated samples
 (wgan_gp.py:119-138), generator every n_critic = 5 batches on the same z
 (wgan_gp.py:179-193); batches_done advances by n_critic (wgan_gp.py:203).
@@ -30,6 +30,7 @@ from tpugan_torch.models._critic_family import (
 from tpugan_torch.ops.mlp_gp import extract_mlp_critic, mlp_grad_penalty
 from tpugan_torch.ops.penalty import wgan_gp_penalty
 from tpugan_torch.train.loop import train_device
+from tpugan_torch.train.optim import capturable
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
 
 NAME = "wgan_gp"
@@ -58,7 +59,8 @@ make_loader = make_loader_a
 
 
 def create_state(cfg: Config, modules: dict, device):
-    adam = lambda m: torch.optim.Adam(m.parameters(), lr=cfg.lr, betas=(cfg.b1, cfg.b2))
+    adam = lambda m: torch.optim.Adam(m.parameters(), lr=cfg.lr, betas=(cfg.b1, cfg.b2),
+                                      **capturable(device))
     return create_state_a(
         cfg, modules, adam(modules["generator"]), adam(modules["discriminator"]), device
     )

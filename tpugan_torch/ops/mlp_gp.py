@@ -30,7 +30,11 @@ with torch's norm-at-0 subgradient, and q = dP/dg (``_norm_penalty`` :75,
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernels or raises. ``gp_fwd_launches`` and
-``gp_bwd_launches`` count wrapper calls that launched, and only those.
+``gp_bwd_launches`` count wrapper calls that launched, and only those;
+``gp_fwd_captured`` and ``gp_bwd_captured`` count those of them made while
+the current stream was capturing a CUDA graph. A captured call counts once
+however often its graph is replayed: the kernels that ran on the device are
+the calls not captured plus each captured call times its graph's replays.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ SLOPE = 0.2  # LeakyReLU slope of the critic (wgan/wgan.py:70)
 
 gp_fwd_launches = 0
 gp_bwd_launches = 0
+gp_fwd_captured = 0
+gp_bwd_captured = 0
 
 # The launch plan's constants (``mlp_gp.cu`` holds the same). The H100
 # measurements that set them are in PERF.md (``scripts/sweep_gp_plan.py``).
@@ -64,9 +70,8 @@ PDL = True
 
 
 def reset_launch_counts() -> None:
-    global gp_fwd_launches, gp_bwd_launches
-    gp_fwd_launches = 0
-    gp_bwd_launches = 0
+    global gp_fwd_launches, gp_bwd_launches, gp_fwd_captured, gp_bwd_captured
+    gp_fwd_launches = gp_bwd_launches = gp_fwd_captured = gp_bwd_captured = 0
 
 
 class Product(NamedTuple):
@@ -234,7 +239,9 @@ def _raise_on(rc: int, name: str, p: Plan) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch; {p}")
 
 
-# The C entry points and the raw-stream reader, bound at the first launch.
+# The C entry points, the raw-stream reader and the capture query
+# (``torch.cuda.is_current_stream_capturing`` without its checks), bound at
+# the first launch.
 _bound: Optional[tuple] = None
 
 
@@ -244,7 +251,8 @@ def _bind():
     # The value of torch.cuda.current_stream(index).cuda_stream, without
     # building a Stream object (CUDA builds of torch only); read at every
     # launch, since a CUDA-graph capture swaps it.
-    _bound = (lib.mlp_gp_fwd, lib.mlp_gp_bwd, torch._C._cuda_getCurrentRawStream)
+    _bound = (lib.mlp_gp_fwd, lib.mlp_gp_bwd, torch._C._cuda_getCurrentRawStream,
+              torch._C._cuda_isCurrentStreamCapturing)
     return _bound
 
 
@@ -258,7 +266,7 @@ def _launch_fwd(x, w1, b1, w2, b2, w3):
         raise ValueError(f"mlp_gp_fwd: b1 {tuple(b1.shape)}, b2 {tuple(b2.shape)}, "
                          f"w3 {tuple(w3.shape)} do not fit N1 {n1}, N2 {n2}")
     p, _, cp = _plan_arg(b, n0, n1, n2, "fwd", PDL)
-    fwd, _, stream = _bound or _bind()
+    fwd, _, stream, _ = _bound or _bind()
     g, m1, t = x.new_empty((b, n0)), x.new_empty((b, n1)), x.new_empty((b, n1))
     m2, u = x.new_empty((b, n2)), x.new_empty((b, n2))
     rc = fwd(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
@@ -280,7 +288,7 @@ def _launch_bwd(q, m1, m2, w1, w2, u, t):
             f"u {tuple(u.shape)} do not fit B {b}, N1 {n1}, N2 {n2}"
         )
     p, _, cp = _plan_arg(b, n0, n1, n2, "bwd", PDL)
-    _, bwd, stream = _bound or _bind()
+    _, bwd, stream, _ = _bound or _bind()
     dw1, dw2, dw3, s = q.new_empty((n1, n0)), q.new_empty((n2, n1)), q.new_empty((1, n2)), \
         q.new_empty((b, n1))
     rc = bwd(q.data_ptr(), m1.data_ptr(), m2.data_ptr(), w1.data_ptr(), w2.data_ptr(),
@@ -293,22 +301,24 @@ def _launch_bwd(q, m1, m2, w1, w2, u, t):
 def mlp_gp_fwd(x, w1, b1, w2, b2, w3):
     """Forward wrapper: (g, m1, m2, u, t). CPU tensors take the plain
     version; CUDA tensors launch ``mlp_gp_fwd`` of ``mlp_gp.cu``."""
-    global gp_fwd_launches
+    global gp_fwd_launches, gp_fwd_captured
     if x.is_cpu:
         return mlp_gp_fwd_ref(x, w1, b1, w2, b2, w3)
     out = _launch_fwd(x, w1, b1, w2, b2, w3)
     gp_fwd_launches += 1
+    gp_fwd_captured += _bound[3]()
     return out
 
 
 def mlp_gp_bwd(q, m1, m2, w1, w2, u, t):
     """Backward wrapper: (dw1, dw2, dw3). CPU tensors take the plain
     version; CUDA tensors launch ``mlp_gp_bwd`` of ``mlp_gp.cu``."""
-    global gp_bwd_launches
+    global gp_bwd_launches, gp_bwd_captured
     if q.is_cpu:
         return mlp_gp_bwd_ref(q, m1, m2, w1, w2, u, t)
     out = _launch_bwd(q, m1, m2, w1, w2, u, t)
     gp_bwd_launches += 1
+    gp_bwd_captured += _bound[3]()
     return out
 
 

@@ -1,10 +1,12 @@
-"""Training-loop plumbing (``tpugan/train/loop.py:74-286``): the per-step
-metrics sink, a minimal step observer, the trainers' device, and the generic
-loop ``run_training``.
+"""Training-loop plumbing (``tpugan/train/loop.py``): the fused multi-step
+dispatch ``graph_steps``, the per-step metrics sink, a minimal step observer,
+the trainers' device, and the generic loop ``run_training``.
 
-The port runs one optimizer step per Python iteration. Flags of the JAX
-package that the port does not carry yet are refused here, where every loop
-starts, with the ROADMAP item that ports them.
+``--steps_per_dispatch K`` above 1 runs K optimizer steps a dispatch, the
+counterpart of the JAX package's ``scan_steps``: on CUDA one CUDA graph of
+the K steps, captured once and replayed; on the CPU a Python loop over the
+same K steps. Flags of the JAX package that the port does not carry yet are
+refused here, where every loop starts, with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import time
 from typing import Any, Callable, Optional
 
 import torch
@@ -23,6 +26,19 @@ _UNPORTED = {
     "ragged_last_batch": "ROADMAP queue 1, item 10 (metrics, IO, CLI)",
 }
 _BF16_ITEM = "ROADMAP queue 1, item 8 (bf16)"
+
+# The capture's error mode: "thread_local" leaves the loader's thread free
+# to pin and copy the next batches while the main thread captures.
+CAPTURE_ERROR_MODE = "thread_local"
+
+# Graph replays of every ``graph_steps`` since the last reset (a replay runs
+# the K captured steps once).
+graph_replays = 0
+
+
+def reset_graph_counts() -> None:
+    global graph_replays
+    graph_replays = 0
 
 
 def reject_unported_flags(cfg) -> None:
@@ -52,6 +68,123 @@ def train_device(cfg, device=None) -> torch.device:
     return device
 
 
+def heavy_out_keys(out: dict) -> list:
+    """The entries of a step's ``out`` that ``graph_steps`` carries from the
+    last step instead of stacking: every one that is not a 0-d tensor."""
+    return [n for n, v in out.items() if v.ndim > 0]
+
+
+def _stack_batches(batches) -> tuple:
+    """Stack a list of per-step batch tuples along a new leading K axis."""
+    return tuple(torch.stack(xs) for xs in zip(*batches))
+
+
+class GraphSteps:
+    """``steps(state, *stacked) -> (state, out)``: K steps of ``step_fn``
+    (``(state, *args) -> (state, out)``, ``out`` a flat dict) in one
+    dispatch, the contract of ``scan_steps`` (``tpugan/train/loop.py:19``).
+    Each argument carries a leading K axis, one entry a step. Every 0-d
+    entry of ``out`` comes back stacked to shape (K,); every other entry
+    (``gen_imgs``) comes from the last step. ``heavy_keys`` names the
+    latter once a call has run.
+
+    On a CUDA state the first call runs its K steps eagerly: the warm-up
+    that creates the optimizers' state, lets cuDNN pick its algorithms and
+    fills the kernels' plan caches. The second call captures the K steps
+    into one ``torch.cuda.CUDAGraph``, reading the K batches from static
+    buffers, with the state's generator ``state.draws`` registered so that
+    the graph's draws continue its stream, then replays it; every later call
+    copies its batches in and replays. ``state.step`` advances on the host
+    by the capture's count a replay. The returned ``out`` is the graph's
+    static output: the next replay overwrites it, so clone what outlives
+    the dispatch. A failed capture or replay raises; nothing falls back to
+    eager steps.
+
+    On a CPU state (the tests' choice) every call runs the K steps in a
+    Python loop and stacks the results the same way."""
+
+    def __init__(self, step_fn: Callable, k: int):
+        if k < 1:
+            raise ValueError(f"steps per dispatch {k}, expected at least 1")
+        self.step_fn, self.k = step_fn, k
+        self.heavy_keys: Optional[list] = None
+        self.calls = 0
+        self.replays = 0
+        self.graph = None
+        # Set at capture: host seconds of the capture (the K steps' Python)
+        # and of the instantiation, and max_memory_allocated around it.
+        self.capture_s = self.instantiate_s = None
+        self.memory_before = self.memory_after = None
+        self._inputs = self._out = None
+        self._step_delta = 0
+
+    def _run(self, state, stacked):
+        outs = []
+        for j in range(self.k):
+            state, out = self.step_fn(state, *(a[j] for a in stacked))
+            outs.append(out)
+        if self.heavy_keys is None:
+            self.heavy_keys = heavy_out_keys(outs[0])
+        return state, {n: outs[-1][n] if n in self.heavy_keys else torch.stack([o[n] for o in outs])
+                       for n in outs[0]}
+
+    def __call__(self, state, *stacked):
+        bad = [tuple(a.shape) for a in stacked if a.shape[0] != self.k]
+        if bad:
+            raise ValueError(f"graph_steps: leading axes {bad}, expected {self.k} steps")
+        self.calls += 1
+        if state.draws.device.type != "cuda" or self.calls == 1:
+            return self._run(state, stacked)
+        if self.graph is None:
+            self._capture(state, stacked)
+        else:
+            for buf, a in zip(self._inputs, stacked):
+                if buf.shape != a.shape or buf.dtype != a.dtype:
+                    raise ValueError(f"graph_steps: input {tuple(a.shape)} {a.dtype}, the graph "
+                                     f"was captured for {tuple(buf.shape)} {buf.dtype}")
+                buf.copy_(a)
+        self._replay(state)
+        return state, self._out
+
+    def _capture(self, state, stacked) -> None:
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(state.draws)
+        self._inputs = [a.clone() for a in stacked]
+        step0 = state.step
+        self.memory_before = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, capture_error_mode=CAPTURE_ERROR_MODE):
+            _, self._out = self._run(state, self._inputs)
+            t1 = time.perf_counter()
+        self.instantiate_s, self.capture_s = time.perf_counter() - t1, t1 - t0
+        self.memory_after = torch.cuda.max_memory_allocated()
+        self._step_delta, state.step = state.step - step0, step0
+        self.graph = graph
+
+    def _replay(self, state) -> None:
+        global graph_replays
+        self.graph.replay()
+        state.step += self._step_delta
+        self.replays += 1
+        graph_replays += 1
+
+
+def graph_steps(step_fn: Callable, k: int) -> GraphSteps:
+    """K steps of ``step_fn`` a dispatch (``GraphSteps``): the port's
+    ``scan_steps``."""
+    return GraphSteps(step_fn, k)
+
+
+def host_rows(out: dict, heavy_keys, k: int) -> list:
+    """The K per-step rows of a fused dispatch's ``out``, with one
+    device-to-host read of all its stacked scalars; each row carries the
+    heavy entries (the dispatch's last step's) as they are."""
+    names = [n for n in out if n not in heavy_keys]
+    host = torch.stack([out[n] for n in names]).cpu() if names else None
+    return [{**{n: host[a, j] for a, n in enumerate(names)},
+             **{n: out[n] for n in heavy_keys}} for j in range(k)]
+
+
 class MetricsSink:
     """jsonl per-step scalar sink: one line ``{"step": N, name: value, ...}``
     for each observed step, from the scalars (0-d tensors or numbers) of a
@@ -73,12 +206,13 @@ class MetricsSink:
 
 
 class StepObserver:
-    """Wires ``--metrics_jsonl`` into a training loop. ``--steps_per_dispatch``
-    above 1 prints the JAX package's notice and the loop runs one step at a
-    time."""
+    """Wires ``--metrics_jsonl`` into a training loop. A loop that does not
+    fuse (``supports_fused_dispatch`` False: the bespoke im2im loops) prints
+    the JAX package's notice when ``--steps_per_dispatch`` is above 1 and
+    runs one step at a time (``tpugan/train/loop.py:108-124``)."""
 
-    def __init__(self, cfg):
-        if getattr(cfg, "steps_per_dispatch", 1) > 1:
+    def __init__(self, cfg, supports_fused_dispatch: bool = False):
+        if not supports_fused_dispatch and getattr(cfg, "steps_per_dispatch", 1) > 1:
             print(
                 "[tpugan] --steps_per_dispatch is not supported by this "
                 "recipe's training loop (per-step host logic); running "
@@ -106,28 +240,55 @@ class Callbacks:
 
 def run_training(cfg, loader, state, step_fn, callbacks: Callbacks, n_epochs: int,
                  sample_interval: int = 0):
-    """The generic loop of ``tpugan/train/loop.py:run_training``, one
-    optimizer step per iteration: ``state, out = step_fn(state, *batch)`` for
-    each batch, up to ``--max_batches`` an epoch; ``out`` goes to
-    ``--metrics_jsonl``, to ``callbacks.log`` every ``--log_interval``
-    batches and to ``callbacks.sample`` whenever ``batches_done`` (epoch *
-    batches an epoch + batch) is a multiple of ``sample_interval``."""
+    """The generic loop of ``tpugan/train/loop.py:run_training``: ``state,
+    out = step_fn(state, *batch)`` for each batch, up to ``--max_batches``
+    an epoch; ``out`` goes to ``--metrics_jsonl``, to ``callbacks.log`` every
+    ``--log_interval`` batches and to ``callbacks.sample`` whenever
+    ``batches_done`` (epoch * batches an epoch + batch) is a multiple of
+    ``sample_interval``.
+
+    ``--steps_per_dispatch K`` above 1 gathers K batches and runs them in
+    one ``graph_steps`` dispatch, then replays the host's work step by step
+    from the stacked scalars (one device-to-host read a dispatch). A sample
+    due inside a dispatch takes the dispatch's last ``gen_imgs``, up to K-1
+    steps newer than its file name says: the JAX package's documented
+    deviation (a K that divides ``sample_interval`` is exact). The epoch's
+    tail shorter than K runs one eager step at a time."""
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
-    observer = StepObserver(cfg)
+    k = max(1, int(getattr(cfg, "steps_per_dispatch", 1)))
+    steps = graph_steps(step_fn, k) if k > 1 else None
+    observer = StepObserver(cfg, supports_fused_dispatch=True)
+
+    def after_step(state, out, epoch, i):
+        batches_done = epoch * bpe + i
+        observer.observe(batches_done, out)
+        if callbacks.log and cfg.log_interval > 0 and i % cfg.log_interval == 0:
+            callbacks.log(epoch, i, bpe, out)
+        if callbacks.sample and sample_interval > 0 and batches_done % sample_interval == 0:
+            callbacks.sample(state, out, batches_done)
+
     for epoch in range(n_epochs):
+        pending = []  # (i, batch) awaiting a full dispatch
         with contextlib.closing(loader.epoch(epoch)) as batches:
             for i, batch in enumerate(batches):
                 if cfg.max_batches >= 0 and i >= cfg.max_batches:
                     break
-                state, out = step_fn(state, *batch)
-                batches_done = epoch * bpe + i
-                observer.observe(batches_done, out)
-                if callbacks.log and cfg.log_interval > 0 and i % cfg.log_interval == 0:
-                    callbacks.log(epoch, i, bpe, out)
-                if (callbacks.sample and sample_interval > 0
-                        and batches_done % sample_interval == 0):
-                    callbacks.sample(state, out, batches_done)
+                if steps is None:
+                    state, out = step_fn(state, *batch)
+                    after_step(state, out, epoch, i)
+                    continue
+                pending.append((i, batch))
+                if len(pending) < k:
+                    continue
+                first_i = pending[0][0]
+                state, out = steps(state, *_stack_batches([b for _, b in pending]))
+                pending = []
+                for j, row in enumerate(host_rows(out, steps.heavy_keys, k)):
+                    after_step(state, row, epoch, first_i + j)
+        for i, batch in pending:  # the epoch's tail, shorter than K
+            state, out = step_fn(state, *batch)
+            after_step(state, out, epoch, i)
     observer.close()
     return state
