@@ -80,7 +80,21 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    deterministic, bit for bit), and the eager and the graphed ms a step (or
    unit), images/s, the capture's and instantiation's host time, the memory
    around the capture and the busy share of a replay.
-12. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
+12. The rest of the critic family and the conditional family, each at its
+   reference configuration (batch 64; gan and wgan_div at 28x28 with latent
+   100, dragan, cgan, acgan and sgan at 32x32 with latent 100 and 10
+   classes, infogan at 32x32 with latent 62 and code 2): each ``main``
+   unfused for one epoch, then fused over two epochs with a tail (K = 20
+   steps a graph through ``run_training``; wgan_div K = 10 units through
+   ``run_critic_family``); finite losses at every row, every PNG by name and
+   grid size (infogan's three folders, dragan's per-epoch grids), no launch
+   of the port's kernels (these paths reach no Pallas kernel in the JAX
+   package); then replay against eager (run_training trainers: cuDNN held
+   deterministic, bit for bit; wgan_div: shipped settings, as wgan's), and
+   the eager and graphed ms a step (``[gan fused]``, ``[dragan fused]``, ``[wgan_div fused]``,
+   ``[cgan fused]``, ``[acgan fused]``, ``[sgan fused]``, ``[infogan
+   fused]``).
+13. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
    of 60 steps replayed), its JSON line printed before a ``[fused summary]``
    line and the last three lines.
 
@@ -200,6 +214,14 @@ LSGAN_BATCHES, LSGAN_SAMPLE_INTERVAL = 20, 10
 # batches), wgan over 3 (150).
 DCGAN_K, DCGAN_FUSED_EPOCHS, DCGAN_EPOCH_BATCHES = 60, 3, 64
 WGAN_K, WGAN_FUSED_EPOCHS, WGAN_PLAIN_FUSED_EPOCHS = 10, 2, 3
+# The rest of the critic family and the conditional family, each at its
+# reference configuration: the run_training trainers (gan, dragan, cgan,
+# acgan, sgan, infogan) unfused for one epoch of 30 batches, then with K = 20
+# steps a graph over two epochs of 30 (a dispatch and a tail of 10 each);
+# wgan_div unfused for one epoch of 53 batches, then with K = 10 units (50
+# batches) a graph over two (a tail of 3 each).
+RECIPE_K, RECIPE_EPOCH_BATCHES, RECIPE_SAMPLE_INTERVAL = 20, 30, 10
+WDIV_K, WDIV_TAIL = 10, 3
 # (shape, offset, w kind): "normal" w ~ 1 +- 0.3, "zeros" with zeros and
 # negatives. Tolerances, kernel against plain: y within 1e-5 * (1 + |offset|)
 # * max(1, max|w|), mean within 1e-5 * (1 + |offset|), rstd within 1e-5
@@ -1460,9 +1482,8 @@ def _reset_port_launches():
         mod.reset_launch_counts()
 
 
-def _check_mnist_run(tag, out_dir, metrics, n_batches, interval, img_size, batch):
-    """Finite losses at every step and a 5-a-row grid of the first 25 images
-    at every sample step."""
+def _check_rows(tag, metrics, n_batches) -> list:
+    """The metric rows of steps 0..n_batches-1, every value finite."""
     with open(metrics) as f:
         rows = [json.loads(line) for line in f]
     if [r["step"] for r in rows] != list(range(n_batches)):
@@ -1470,15 +1491,27 @@ def _check_mnist_run(tag, out_dir, metrics, n_batches, interval, img_size, batch
     for row in rows:
         if not all(math.isfinite(v) for v in row.values()):
             raise AssertionError(f"{tag}: non-finite losses at step {row['step']}: {row}")
-    n = min(25, batch)
-    grid_wh = (5 * (img_size + 2) + 2, -(-n // 5) * (img_size + 2) + 2)
-    pngs = [os.path.join(out_dir, "images", f"{i}.png") for i in range(0, n_batches, interval)]
-    for path in pngs:
+    return rows
+
+
+def _check_grids(tag, paths, grid_wh) -> None:
+    """Each of ``paths`` is a PNG of ``grid_wh`` (width, height)."""
+    for path in paths:
         with open(path, "rb") as f:
             head = f.read(24)
         wh = (int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big"))
         if head[:8] != b"\x89PNG\r\n\x1a\n" or wh != grid_wh:
             raise AssertionError(f"{tag}: {path} is not a {grid_wh} PNG grid (size {wh})")
+
+
+def _check_mnist_run(tag, out_dir, metrics, n_batches, interval, img_size, batch):
+    """Finite losses at every step and a 5-a-row grid of the first 25 images
+    at every sample step."""
+    rows = _check_rows(tag, metrics, n_batches)
+    n = min(25, batch)
+    grid_wh = (5 * (img_size + 2) + 2, -(-n // 5) * (img_size + 2) + 2)
+    pngs = [os.path.join(out_dir, "images", f"{i}.png") for i in range(0, n_batches, interval)]
+    _check_grids(tag, pngs, grid_wh)
     log(f"{tag} losses finite at all {n_batches} steps (last {rows[-1]}); wrote "
         f"{[os.path.basename(p) for p in pngs]}, {grid_wh[0]}x{grid_wh[1]} grids")
 
@@ -1617,17 +1650,19 @@ def phase_dcgan_bench():
 
 
 def _snapshot(state) -> dict:
-    """Every tensor of a train state on the host: parameters, buffers,
-    optimizer state, the generator's state and the step count."""
+    """Every tensor of a train state on the host: parameters, buffers, the
+    state of every optimizer (infogan's third one too), the generator's
+    state and the step count."""
     import torch
 
     snap = {"draws": state.draws.get_state(), "step": torch.tensor(state.step)}
     for role, m in state.modules.items():
         for k, v in m.state_dict().items():
             snap[f"{role}.{k}"] = v.detach().cpu().clone()
-        for i, st in enumerate(state.optimizers[role].state.values()):
+    for name, opt in state.optimizers.items():
+        for i, st in enumerate(opt.state.values()):
             for k, v in st.items():
-                snap[f"{role}.opt{i}.{k}"] = torch.as_tensor(v).detach().cpu().clone()
+                snap[f"{name}.opt{i}.{k}"] = torch.as_tensor(v).detach().cpu().clone()
     return snap
 
 
@@ -1635,6 +1670,8 @@ def _replay_vs_eager(tag, make, chunks, k, deterministic=False, n_eager=4):
     """The same state from the same seed run as eager steps ``n_eager`` times
     and through ``graph_steps`` (the warm-up call, the capture and its
     replay, a replay with new batches), each followed by one eager step.
+    ``chunks`` is a tensor of (dispatches, k, ...) batches, or a tuple of
+    them (images and labels), one a step argument.
     Where the eager runs agree bit for bit on a tensor the replay must too.
     Elsewhere the replay is one more run of the same nondeterministic
     arithmetic (cuDNN's weight gradients use atomics, and Adam turns their
@@ -1650,28 +1687,30 @@ def _replay_vs_eager(tag, make, chunks, k, deterministic=False, n_eager=4):
 
     from tpugan_torch.train.loop import graph_steps
 
+    chunks = (chunks,) if torch.is_tensor(chunks) else tuple(chunks)
+    n_chunks = len(chunks[0])
     shipped = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = deterministic
     try:
         snaps = []
         for _ in range(n_eager):
             state, step = make()
-            for chunk in chunks:
-                for b in chunk:
-                    state, _ = step(state, b)
-            state, _ = step(state, chunks[0][0])
+            for c in range(n_chunks):
+                for j in range(k):
+                    state, _ = step(state, *(x[c][j] for x in chunks))
+            state, _ = step(state, *(x[0][0] for x in chunks))
             torch.cuda.synchronize()
             snaps.append(_snapshot(state))
         state, step = make()
         fused = graph_steps(step, k)
-        for chunk in chunks:
-            state, out = fused(state, chunk)
-        state, _ = step(state, chunks[0][0])
+        for c in range(n_chunks):
+            state, out = fused(state, *(x[c] for x in chunks))
+        state, _ = step(state, *(x[0][0] for x in chunks))
         torch.cuda.synchronize()
         replay = _snapshot(state)
     finally:
         torch.backends.cudnn.deterministic = shipped
-    if (fused.calls, fused.replays) != (len(chunks), len(chunks) - 1):
+    if (fused.calls, fused.replays) != (n_chunks, n_chunks - 1):
         raise AssertionError(f"{tag} {fused.calls} calls, {fused.replays} replays")
     if not all(bool(torch.isfinite(v).all()) for v in out.values()):
         raise AssertionError(f"{tag} non-finite outputs of the last replay")
@@ -1700,13 +1739,16 @@ def _replay_vs_eager(tag, make, chunks, k, deterministic=False, n_eager=4):
         rep[role] = [max(r, t) for r, t in zip(rep.get(role, [0.0] * n_eager), to_eager)]
         eag[role] = max(eag.get(role, 0.0), spread)
     worst = {role: (min(rep[role]), eag[role]) for role in rep}
+    if deterministic and exact != total:
+        raise AssertionError(f"{tag} with deterministic cuDNN only {exact} of {total} tensors "
+                             f"agree bit for bit: {worst}")
     for role, (near, spread) in worst.items():
         if near > spread:
             raise AssertionError(f"{tag} {role}: the replay differs from the nearest of "
                                  f"{n_eager} eager runs by {near:.3e}, two eager runs by at "
                                  f"most {spread:.3e}")
     mode = "deterministic cuDNN" if deterministic else "shipped settings"
-    log(f"{tag} replay against {n_eager} eager runs ({mode}, K={k}, {len(chunks)} dispatches and "
+    log(f"{tag} replay against {n_eager} eager runs ({mode}, K={k}, {n_chunks} dispatches and "
         f"one eager step after): generator state and step count equal; {exact} of {total} "
         "tensors bit for bit; largest differences by module, replay-nearest eager vs "
         "eager-eager: " + ", ".join(f"{r} {x:.3e} vs {y:.3e}" for r, (x, y) in worst.items()))
@@ -1718,33 +1760,36 @@ def _fused_times(tag, smi, make, chunk, k, images_per_step, unit="step", n_repla
     one state: host-clock ms a step (synchronized), images/s, the capture's
     and instantiation's host seconds, max_memory_allocated around the
     capture (its peak reset just before), and one replay under
-    torch.profiler: its device kernels, device time and busy share."""
+    torch.profiler: its device kernels, device time and busy share.
+    ``chunk`` is a tensor of k batches, or a tuple of them (images and
+    labels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from tpugan_torch.train.loop import graph_steps
 
+    chunk = (chunk,) if torch.is_tensor(chunk) else tuple(chunk)
     state, step = make()
-    for b in chunk[:3]:
-        state, out = step(state, b)
+    for j in range(3):
+        state, out = step(state, *(x[j] for x in chunk))
     torch.cuda.synchronize()
     n_eager = 2 * k
     t0 = time.perf_counter()
     for j in range(n_eager):
-        state, out = step(state, chunk[j % k])
+        state, out = step(state, *(x[j % k] for x in chunk))
     torch.cuda.synchronize()
     eager_ms = (time.perf_counter() - t0) / n_eager * 1e3
     fused = graph_steps(step, k)
-    state, out = fused(state, chunk)  # the eager warm-up
+    state, out = fused(state, *chunk)  # the eager warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, out = fused(state, chunk)  # the capture, then a replay
+    state, out = fused(state, *chunk)  # the capture, then a replay
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for _ in range(n_replays):
-        state, out = fused(state, chunk)
+        state, out = fused(state, *chunk)
     torch.cuda.synchronize()
     graph_ms = (time.perf_counter() - t0) / (n_replays * k) * 1e3
     if not all(bool(torch.isfinite(out[n]).all()) for n in out):
@@ -1755,7 +1800,7 @@ def _fused_times(tag, smi, make, chunk, k, images_per_step, unit="step", n_repla
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            state, out = fused(state, chunk)
+            state, out = fused(state, *chunk)
             torch.cuda.synchronize()
             t = (time.perf_counter() - t0) * 1e3
         got = device_kernels(prof)
@@ -1850,10 +1895,11 @@ def phase_dcgan_fused(smi):
     return {"replay_vs_eager": worst, **times}
 
 
-def _critic_fused(tag, smi, mod, epochs, k, interval):
+def _critic_fused(tag, smi, mod, epochs, k, interval, tail=0):
     """``mod.main`` of the critic family at its reference configuration
-    unfused (one epoch of ``k`` units' batches) and with ``k`` schedule
-    units a dispatch (``epochs`` epochs of ``k`` units, a dispatch each);
+    unfused (one epoch of ``k`` units' batches and ``tail`` more) and with
+    ``k`` schedule units a dispatch (``epochs`` such epochs, a dispatch each
+    and ``tail`` batches unfused);
     the same rows' steps and keys, finite, and the PNGs both ways; then
     replay against eager and the graphed unit beside the eager one. Returns
     the fused run's launches, its replays and the times."""
@@ -1864,7 +1910,7 @@ def _critic_fused(tag, smi, mod, epochs, k, interval):
     from tpugan_torch.models._critic_family import make_schedule_unit
 
     runs = {}
-    per_epoch = k * mod.Config.n_critic
+    per_epoch = k * mod.Config.n_critic + tail
     for fused_k, n_epochs in ((1, 1), (k, epochs)):
         out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{mod.NAME}_{fused_k}_")
         batches = n_epochs * per_epoch
@@ -1987,6 +2033,114 @@ def phase_wgan_fused(smi):
     return r
 
 
+def _recipe_pngs(mod, cfg, out_dir, n_batches, epochs):
+    """The PNGs a run_training trainer's main writes, and their grid size:
+    the step's first 25 images 5 a row (gan, sgan); n_classes^2 images of
+    the class grid, n_classes a row (cgan, acgan; infogan in its three
+    folders); the last logged batch at each epoch's end, sqrt(batch) a row
+    (dragan)."""
+    cell = cfg.img_size + 2
+    imgdir = os.path.join(out_dir, "images")
+    if mod.NAME == "dragan":
+        n_row = int(math.sqrt(cfg.batch_size))
+        return ([os.path.join(imgdir, f"{e}.png") for e in range(epochs)],
+                (n_row * cell + 2, -(-cfg.batch_size // n_row) * cell + 2))
+    steps = range(0, n_batches, RECIPE_SAMPLE_INTERVAL)
+    if mod.NAME in ("gan", "sgan"):
+        return [os.path.join(imgdir, f"{i}.png") for i in steps], (5 * cell + 2, 5 * cell + 2)
+    dirs = mod.SAMPLE_DIRS if mod.NAME == "infogan" else ("",)
+    n_row = cfg.n_classes
+    return ([os.path.join(imgdir, d, f"{i}.png") for d in dirs for i in steps],
+            (n_row * cell + 2, n_row * cell + 2))
+
+
+def _recipe_fused(tag, smi, mod):
+    """``mod.main`` of a run_training trainer at its reference configuration
+    unfused (one epoch of ``RECIPE_EPOCH_BATCHES``) and with ``RECIPE_K``
+    steps a dispatch (two such epochs, a dispatch and a tail each): finite
+    losses at every row, the same rows' steps and keys, every PNG by name
+    and grid size, no launch of the port's kernels, one graph replay. Then
+    replay against eager from the same seed with cuDNN held deterministic
+    (bit for bit on every tensor), and the graphed step beside the eager
+    one, with the batches' labels."""
+    import numpy as np
+    import torch
+
+    cfg = mod.Config(synthetic_data=True)
+    keys = {}
+    for k, epochs in ((1, 1), (RECIPE_K, 2)):
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{mod.NAME}_{k}_")
+        n = epochs * RECIPE_EPOCH_BATCHES
+        wall, launches, replays = _run_main(mod, [
+            "--synthetic_data", "--n_epochs", str(epochs), "--max_batches",
+            str(RECIPE_EPOCH_BATCHES), "--sample_interval", str(RECIPE_SAMPLE_INTERVAL),
+            "--log_interval", "10", "--steps_per_dispatch", str(k)], out_dir)
+        rows = _check_rows(tag, os.path.join(out_dir, "metrics.jsonl"), n)
+        pngs, grid_wh = _recipe_pngs(mod, cfg, out_dir, n, epochs)
+        _check_grids(tag, pngs, grid_wh)
+        found = sorted(os.path.join(r, f) for r, _, files in os.walk(os.path.join(out_dir, "images"))
+                       for f in files)
+        log(f"{tag} main() --steps_per_dispatch {k}, {epochs} epoch(s) of {RECIPE_EPOCH_BATCHES} "
+            f"batches ({cfg.img_size}px, batch {cfg.batch_size}): {wall:.1f} s; graph replays "
+            f"{replays}; the port's kernel launches {launches}, expected none; losses finite in "
+            f"{len(rows)} rows (last {rows[-1]}); {len(pngs)} PNGs, "
+            f"{grid_wh[0]}x{grid_wh[1]}: {[os.path.relpath(p, out_dir) for p in pngs]}")
+        if any(launches.values()):
+            raise AssertionError(f"{tag} launched the port's kernels: {launches}")
+        if replays != (epochs - 1 if k > 1 else 0):
+            raise AssertionError(f"{tag} {replays} graph replays, expected {epochs - 1}")
+        if found != sorted(pngs):
+            raise AssertionError(f"{tag} wrote {found}, expected {sorted(pngs)}")
+        keys[k] = [(r["step"], sorted(r)) for r in rows]
+    if keys[RECIPE_K][:len(keys[1])] != keys[1]:
+        raise AssertionError(f"{tag} the fused run's rows differ from the unfused run's")
+
+    dev = torch.device("cuda")
+
+    def make():
+        state = mod.create_state(cfg, mod.build(cfg, dev), dev)
+        return state, mod.make_step(cfg, state)
+
+    b, size = cfg.batch_size, cfg.img_size
+    imgs = _u8_chunks((3, RECIPE_K, b, size, size, 1))
+    labels = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 10, (3, RECIPE_K, b), dtype=np.int32)).to(dev)
+    # With cuDNN held deterministic the eager runs agree bit for bit, and so
+    # must the replay, on every tensor. The shipped settings' comparison is
+    # one draw of a chaotic spread for the convolutional trainers (cuDNN's
+    # atomics through 61 Adam steps): sgan's discriminator once lay 6.5e-2
+    # from the nearest of four eager runs that lay at most 3.5e-2 apart.
+    worst = _replay_vs_eager(tag, make, (imgs, labels), RECIPE_K, deterministic=True,
+                             n_eager=2)
+    times = _fused_times(tag, smi, make, (imgs[0], labels[0]), RECIPE_K, b)
+    return {"replay_vs_eager": worst, **times}
+
+
+def phase_critic_rest_fused(smi):
+    """gan and dragan through ``run_training``, wgan_div through
+    ``run_critic_family`` (K = 10 units, epochs with a tail of 3 batches),
+    each unfused and fused; none launches a kernel of the port."""
+    from tpugan_torch.models import dragan, gan, wgan_div
+
+    out = {mod.NAME: _recipe_fused(f"[{mod.NAME} fused]", smi, mod) for mod in (gan, dragan)}
+    tag = "[wgan_div fused]"
+    r = _critic_fused(tag, smi, wgan_div, 2, WDIV_K, WGAN_SAMPLE_INTERVAL, tail=WDIV_TAIL)
+    for launches in (r["launches"], r["launches_unfused"]):
+        if any(launches.values()):
+            raise AssertionError(f"{tag} launched the port's kernels: {launches}")
+    out["wgan_div"] = r
+    return out
+
+
+def phase_conditional_fused(smi):
+    """cgan, acgan, sgan and infogan through ``run_training``, each unfused
+    and fused; none launches a kernel of the port."""
+    from tpugan_torch.models import acgan, cgan, infogan, sgan
+
+    return {mod.NAME: _recipe_fused(f"[{mod.NAME} fused]", smi, mod)
+            for mod in (cgan, acgan, sgan, infogan)}
+
+
 def main() -> int:
     import torch
 
@@ -2006,6 +2160,8 @@ def main() -> int:
     fused = {"dcgan 64px": phase_dcgan_fused(smi), "wgan_gp": phase_wgan_gp_fused(smi),
              "wgan": phase_wgan_fused(smi)}
     gp_fused = fused["wgan_gp"]
+    fused.update(phase_critic_rest_fused(smi))
+    fused.update(phase_conditional_fused(smi))
     bench_rec = phase_dcgan_bench()
     keep = ("eager_ms", "graph_ms", "device_ms", "busy", "capture_s", "instantiate_s",
             "memory_before", "memory_after", "replay_vs_eager")

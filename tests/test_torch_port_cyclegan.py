@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_critic_rest import one_torch_thread  # noqa: F401 (autouse fixture)
 
 from tpugan.io.torch_interop import export_state_dict
 from tpugan.losses import l1 as l1_j

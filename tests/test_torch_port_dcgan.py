@@ -40,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_critic_rest import one_torch_thread  # noqa: F401 (autouse fixture)
 
 from tpugan.data.sources import ArrayDataset as ArrayDataset_j
 from tpugan.data.sources import resize_dataset as resize_dataset_j

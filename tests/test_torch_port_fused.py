@@ -1,6 +1,9 @@
 """The port's fused multi-step dispatch on the CPU, and its wgan trainer,
 against the unfused loops and the JAX package (mirrors
-tests/test_scan_dispatch.py and tests/test_critic_family.py:121-230).
+tests/test_scan_dispatch.py and tests/test_critic_family.py:121-230). The
+fused loops run every trainer that fuses: dcgan, lsgan, gan, dragan, cgan,
+acgan, sgan and infogan through ``run_training``; wgan, wgan_gp and wgan_div
+through ``run_critic_family``.
 
 On a CPU state ``graph_steps`` runs its K steps in a Python loop, so the
 fused loops do exactly the arithmetic of the unfused ones: parameters,
@@ -26,15 +29,24 @@ import jax
 import numpy as np
 import pytest
 import torch
+from test_torch_port_critic_rest import one_torch_thread  # noqa: F401 (autouse fixture)
 
 from tpugan.models import dcgan as dc_j
 from tpugan.models import wgan as wg_j
+from tpugan.models import wgan_div as wd_j
 from tpugan.models import wgan_gp as wgp_j
 from tpugan_torch.io.interop import load_jax_params
 from tpugan_torch.models import _critic_family as cf_t
+from tpugan_torch.models import acgan as ac_t
+from tpugan_torch.models import cgan as cg_t
 from tpugan_torch.models import dcgan as dc_t
+from tpugan_torch.models import dragan as dr_t
+from tpugan_torch.models import gan as gan_t
+from tpugan_torch.models import infogan as ig_t
 from tpugan_torch.models import lsgan as ls_t
+from tpugan_torch.models import sgan as sg_t
 from tpugan_torch.models import wgan as wg_t
+from tpugan_torch.models import wgan_div as wd_t
 from tpugan_torch.models import wgan_gp as wgp_t
 from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
 from tpugan_torch.train import loop
@@ -44,7 +56,14 @@ CPU = torch.device("cpu")
 B, LATENT, N_CRITIC = 6, 16, 2
 LOSS_RTOL = 1e-5
 PARAM_RTOL, PARAM_ATOL = 1e-3, 5e-5
-CRITIC = {"wgan": (wg_t, wg_j), "wgan_gp": (wgp_t, wgp_j)}
+CRITIC = {"wgan": (wg_t, wg_j), "wgan_gp": (wgp_t, wgp_j), "wgan_div": (wd_t, wd_j)}
+# The run_training trainers by where their samples come from: the step's
+# images (``grid_sampler``), G on its own noise after the step (the class
+# grids; infogan's three folders), or the last logged images at each epoch's
+# end (dragan).
+RUN_TRAINING = {"dcgan": (dc_t, "out"), "lsgan": (ls_t, "out"), "gan": (gan_t, "out"),
+                "sgan": (sg_t, "out"), "cgan": (cg_t, "state"), "acgan": (ac_t, "state"),
+                "infogan": (ig_t, "state"), "dragan": (dr_t, "epoch")}
 
 
 def _u8(shape, seed=7):
@@ -150,7 +169,8 @@ def _run_main(main, argv, out_dir):
     main(argv + ["--output_dir", str(out_dir), "--metrics_jsonl", str(out_dir / "m.jsonl")])
     rows = [json.loads(line) for line in (out_dir / "m.jsonl").read_text().splitlines()]
     imgdir = out_dir / "images"
-    return rows, {p: (imgdir / p).read_bytes() for p in os.listdir(imgdir)}
+    return rows, {os.path.relpath(os.path.join(r, f), imgdir): open(os.path.join(r, f), "rb").read()
+                  for r, _, files in os.walk(imgdir) for f in files}
 
 
 def _chunk_last(i, k, n):
@@ -160,12 +180,17 @@ def _chunk_last(i, k, n):
     return i if i >= full else (i // k + 1) * k - 1
 
 
-@pytest.mark.parametrize("mod", [dc_t, ls_t], ids=["dcgan", "lsgan"])
-def test_fused_run_training_writes_the_unfused_rows_and_samples(tmp_path, mod, capsys):
+@pytest.mark.parametrize("name", sorted(RUN_TRAINING))
+def test_fused_run_training_writes_the_unfused_rows_and_samples(tmp_path, name, capsys):
     """7 batches an epoch, 2 epochs, K = 3: two dispatches and a tail of one
-    each epoch. The rows are the unfused loop's bit for bit; every step is
-    sampled, and each sample is its dispatch's last gen_imgs (the
-    documented deviation): the unfused run's sample of that step."""
+    each epoch. The rows and log lines are the unfused loop's bit for bit.
+    Every step is sampled. A sample of the step's images is its dispatch's
+    last gen_imgs (the documented deviation): the unfused run's sample of
+    that step. A sample of G on its own noise is taken after the dispatch:
+    the unfused run's bit for bit at each dispatch's last step and in the
+    tails. dragan's per-epoch grid holds the last logged batch's images
+    (batch 6, in the tail): the unfused run's."""
+    mod, source = RUN_TRAINING[name]
     argv = ["--synthetic_data", "--n_epochs", "2", "--max_batches", "7", "--batch_size", "8",
             "--latent_dim", str(LATENT), "--img_size", "16", "--sample_interval", "1",
             "--log_interval", "3"]
@@ -177,11 +202,22 @@ def test_fused_run_training_writes_the_unfused_rows_and_samples(tmp_path, mod, c
     (rows1, png1), (rows3, png3) = runs[1], runs[3]
     assert rows3 == rows1 and [r["step"] for r in rows1] == list(range(14))
     assert logs[3] == logs[1] and len(logs[1]) == 6
-    assert sorted(png3) == sorted(png1) == sorted(f"{i}.png" for i in range(14))
-    for epoch in range(2):
-        for i in range(7):
-            src = epoch * 7 + _chunk_last(i, 3, 7)
-            assert png3[f"{epoch * 7 + i}.png"] == png1[f"{src}.png"], (epoch, i)
+    if source == "epoch":
+        assert sorted(png3) == sorted(png1) == ["0.png", "1.png"]
+        assert png3 == png1
+        return
+    dirs = ig_t.SAMPLE_DIRS if name == "infogan" else ("",)
+    assert sorted(png3) == sorted(png1) == sorted(os.path.join(d, f"{i}.png") for d in dirs
+                                                  for i in range(14))
+    for d in dirs:
+        for epoch in range(2):
+            for i in range(7):
+                last = _chunk_last(i, 3, 7)
+                png = os.path.join(d, f"{epoch * 7 + i}.png")
+                if source == "out":
+                    assert png3[png] == png1[os.path.join(d, f"{epoch * 7 + last}.png")], png
+                elif last == i:
+                    assert png3[png] == png1[png], png
 
 
 def _critic_argv(sample_interval, max_batches=15, n_epochs=2):
@@ -194,11 +230,12 @@ def _critic_argv(sample_interval, max_batches=15, n_epochs=2):
 def test_fused_critic_loop_writes_the_unfused_rows_and_samples(tmp_path, name, capsys):
     """15 batches an epoch with n_critic 2 and K = 3 units a dispatch: two
     dispatches (12 batches), a unit short of a dispatch and a batch short of
-    a unit, unfused; two epochs. Both sampling branches: wgan_gp samples on
-    G batches (batches_done += n_critic), wgan on every batch with the
-    latest G output. Each sample is its dispatch's last unit's images."""
+    a unit, unfused; two epochs. Both sampling branches: wgan_gp and
+    wgan_div sample on G batches (batches_done += n_critic), wgan on every
+    batch with the latest G output. Each sample is its dispatch's last unit's images."""
     mod = CRITIC[name][0]
-    interval = N_CRITIC if name == "wgan_gp" else 1
+    in_gstep = name != "wgan"
+    interval = N_CRITIC if in_gstep else 1
     runs, logs = {}, {}
     for k in (1, 3):
         runs[k] = _run_main(lambda a: mod.main(a, CPU),
@@ -217,18 +254,18 @@ def test_fused_critic_loop_writes_the_unfused_rows_and_samples(tmp_path, name, c
     # in two dispatches of 3; units 6 and 7 unfused.
     for tag in png1:
         bd = int(tag.split(".")[0])
-        if name == "wgan_gp":
+        if in_gstep:
             epoch, unit = divmod(bd // N_CRITIC, 8)
         else:
             epoch, i = divmod(bd, 15)
             unit = i // N_CRITIC
         last = unit if unit >= 6 else (unit // 3 + 1) * 3 - 1
         # The unfused run's sample of unit ``last``'s own G batch.
-        want = N_CRITIC * (epoch * 8 + last) if name == "wgan_gp" else epoch * 15 + N_CRITIC * last
+        want = N_CRITIC * (epoch * 8 + last) if in_gstep else epoch * 15 + N_CRITIC * last
         assert png3[tag] == png1[f"{want}.png"], (tag, want)
 
 
-@pytest.mark.parametrize("name", ["dcgan", "wgan_gp", "wgan"])
+@pytest.mark.parametrize("name", ["dcgan", "wgan_gp", "wgan", "wgan_div"])
 def test_fused_rows_and_pngs_match_the_jax_fused_loop(tmp_path, name):
     """The port's fused loop and the JAX package's at the same config and
     K = 3: the same row steps and keys and the same PNG names (the values
@@ -240,7 +277,7 @@ def test_fused_rows_and_pngs_match_the_jax_fused_loop(tmp_path, name):
                 "--log_interval", "0"]
     else:
         mods = CRITIC[name]
-        argv = _critic_argv(4 if name == "wgan_gp" else 3, n_epochs=1)
+        argv = _critic_argv(3 if name == "wgan" else 4, n_epochs=1)
     argv += ["--steps_per_dispatch", "3"]
     got = {}
     for side, main in (("port", lambda a: mods[0].main(a, CPU)), ("jax", mods[1].main)):

@@ -28,6 +28,8 @@ def test_every_port_module_imports_without_jax_or_tpugan():
     names = _port_modules()
     assert {"tpugan_torch.native", "tpugan_torch.models.wgan_gp", "tpugan_torch.models.wgan",
             "tpugan_torch.ops.mlp_gp", "tpugan_torch.utils.config"} <= set(names)
+    assert {f"tpugan_torch.models.{name}" for name in (
+        "gan", "wgan_div", "dragan", "cgan", "acgan", "sgan", "infogan")} <= set(names)
     code = (
         "import importlib, sys\n"
         "for name in sys.argv[1:]:\n"

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, and the launch counts of one CycleGAN step, one WGAN-GP critic step
 and one MUNIT step; and one DCGAN step at 64px on the card against the same
-step on the CPU.
+step on the CPU, and one step of each of gan, wgan_div, dragan, cgan, acgan,
+sgan and infogan at its reference configuration likewise.
 
 These need a CUDA device and skip without one. The fused dispatch: DCGAN
 steps (K = 3) and WGAN-GP schedule units (K = 2) replayed from a CUDA graph
@@ -27,7 +28,10 @@ round relative to a whole map: measured up to 6e-4 of the generator's
 largest), parameters after Adam 1e-5 absolute where the gradient is above
 that floor and above 100x Adam's eps of 1e-8 (below that, the first update
 lr*g/(|g|+eps) turns the gradient's rounding into a share of lr), and 2*lr
-elsewhere, running statistics 1e-4 relative and 1e-5 absolute.
+elsewhere, running statistics 1e-4 relative and 1e-5 absolute. The other
+trainers' steps: the same tolerances, with the gradient floors of
+``STEP_FLOORS`` by optimizer (the test prints each measured card-CPU
+difference as a share of the largest gradient).
 """
 
 import pytest
@@ -574,7 +578,8 @@ def test_a_replayed_unit_launches_the_gp_kernels_once_each_way_per_critic_step(c
     assert bool(torch.isfinite(out["d_loss"]).all())
 
 
-@pytest.mark.parametrize("name", ["dcgan", "wgan_gp", "wgan"])
+@pytest.mark.parametrize("name", ["dcgan", "wgan_gp", "wgan", "gan", "wgan_div", "dragan", "cgan",
+                                  "acgan", "sgan", "infogan"])
 def test_fused_main_writes_the_rows_and_samples_of_the_unfused_main(cuda, tmp_path, name):
     """The trainer's ``main`` on the card with ``--steps_per_dispatch 3``
     (the loader's thread copying while the graph is captured) against the
@@ -586,8 +591,10 @@ def test_fused_main_writes_the_rows_and_samples_of_the_unfused_main(cuda, tmp_pa
     mod = importlib.import_module(f"tpugan_torch.models.{name}")
     argv = ["--synthetic_data", "--n_epochs", "2", "--max_batches", "20", "--sample_interval",
             "4", "--log_interval", "0"]
-    if name != "dcgan":
+    if name in ("wgan_gp", "wgan", "wgan_div"):
         argv += ["--n_critic", "2"]
+    if name == "dragan":  # its grid is the last logged batch's, each epoch
+        argv[argv.index("--log_interval") + 1] = "5"
     rows, pngs = {}, {}
     for k in (1, 3):
         out = tmp_path / str(k)
@@ -595,7 +602,160 @@ def test_fused_main_writes_the_rows_and_samples_of_the_unfused_main(cuda, tmp_pa
                          "--metrics_jsonl", str(out / "m.jsonl")])
         torch.cuda.synchronize()
         rows[k] = [json.loads(line) for line in (out / "m.jsonl").read_text().splitlines()]
-        pngs[k] = sorted(os.listdir(out / "images"))
+        pngs[k] = sorted(os.path.relpath(os.path.join(r, f), out)
+                         for r, _, files in os.walk(out / "images") for f in files)
     assert [(r["step"], sorted(r)) for r in rows[3]] == [(r["step"], sorted(r)) for r in rows[1]]
     assert pngs[3] == pngs[1] and pngs[1]
     assert all(all(torch.isfinite(torch.tensor(v)) for v in r.values()) for r in rows[3])
+
+
+# --- The rest of the critic family and the conditional family: one step ------
+#
+# Each trainer at its reference configuration, from the same weights (drawn
+# on the CPU), batch and draws (drawn on the CPU and moved) on both devices.
+# The gradients each optimizer applies are recorded by wrapping its ``step``.
+
+STEP_TRAINERS = ["gan", "wgan_div", "dragan", "cgan", "acgan", "sgan", "infogan"]
+# The gradient floor of each optimizer, a share of its module's largest
+# CPU gradient: 1e-3 where cuDNN's convolutions put gradients that reach the
+# generator through the discriminator apart (as DCGAN's), 1e-5 for the
+# discriminators (cuDNN and cuBLAS). Measured card-CPU differences on an
+# H100: the generators up to 3.9e-4 of their largest (infogan), but acgan's
+# 1.8e-3, where the cross-entropy of the aux head sends gradients of about
+# 1e-5 through the discriminator's convolutions; the discriminators up to
+# 5.2e-6 (acgan); infogan's information phase 2.1e-3 of its generator's
+# largest, since it starts from parameters that Adam's first G and D steps
+# already moved apart by up to lr where their gradients were rounding noise.
+STEP_FLOORS = {"generator": 1e-3, "discriminator": 1e-5, "info": 1e-3}
+STEP_FLOOR_OVERRIDES = {("acgan", "generator"): 5e-3, ("infogan", "info"): 5e-3}
+
+
+def _record_updates(state):
+    names = {id(p): (role, k) for role, m in state.modules.items()
+             for k, p in m.named_parameters()}
+    rec = {}
+    for name, opt in state.optimizers.items():
+        params = [p for g in opt.param_groups for p in g["params"]]
+
+        def step(*a, _name=name, _params=params, _orig=opt.step, **kw):
+            before = [(p.detach().cpu().clone(), None if p.grad is None else p.grad.cpu())
+                      for p in _params]
+            result = _orig(*a, **kw)
+            rec[_name] = {names[id(p)]: (b, g, p.detach().cpu().clone())
+                          for (b, g), p in zip(before, _params)}
+            return result
+
+        opt.step = step
+    return rec
+
+
+def _step_draws(name, cfg, D, shape, g):
+    """The step's keyword draws, on the CPU, in the step's own order."""
+    b = shape[0]
+    kw = {"z": torch.randn(b, cfg.latent_dim, generator=g)}
+    if name in ("cgan", "acgan", "infogan"):
+        kw["gen_labels"] = torch.randint(0, cfg.n_classes, (b,), generator=g)
+    if name == "infogan":
+        kw["code"] = torch.rand(b, cfg.code_dim, generator=g) * 2 - 1
+        kw["info_z"] = torch.randn(b, cfg.latent_dim, generator=g)
+        kw["info_labels"] = torch.randint(0, cfg.n_classes, (b,), generator=g)
+        kw["info_code"] = torch.rand(b, cfg.code_dim, generator=g) * 2 - 1
+    if hasattr(D, "draw_masks"):
+        kw["masks"] = [D.draw_masks(b, g) for _ in range(4 if name in ("dragan", "infogan") else 3)]
+    if name == "dragan":
+        kw["alpha"] = torch.rand(shape, generator=g)
+        kw["noise"] = torch.rand(shape, generator=g)
+    return kw
+
+
+def _to(kw, dev):
+    return {k: [[m.to(dev) for m in ms] for ms in v] if k == "masks" else v.to(dev)
+            for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("name", STEP_TRAINERS)
+def test_one_step_on_the_card_matches_the_cpu(cuda, name):
+    """Losses, images, every optimizer's gradients, Adam's first step of the
+    card's own gradients, parameters where settled and running statistics,
+    card against CPU; no kernel of the port launched."""
+    import importlib
+
+    import numpy as np
+
+    mod = importlib.import_module(f"tpugan_torch.models.{name}")
+    cfg = mod.Config(synthetic_data=True)
+    b, size = cfg.batch_size, cfg.img_size
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.integers(0, 256, (b, size, size, 1), dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 10, b).astype(np.int32))
+    kw = _step_draws(name, cfg, mod.build(cfg, "cpu")["discriminator"], (b, 1, size, size),
+                     torch.Generator().manual_seed(1))
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    counts = (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches, gp.gp_fwd_launches)
+    runs = []
+    try:
+        for dev in (torch.device("cpu"), cuda):
+            modules = mod.build(cfg, dev)
+            state = mod.create_state(cfg, modules, dev)
+            rec = _record_updates(state)
+            if name == "wgan_div":
+                d_step, g_step = mod.make_steps(cfg, state)
+                state, d_out = d_step(state, imgs.to(dev), None, **_to(kw, dev))
+                state, out = g_step(state, d_out["z"])
+                out = {**d_out, **out}
+            else:
+                state, out = mod.make_step(cfg, state)(state, imgs.to(dev), labels.to(dev),
+                                                       **_to(kw, dev))
+            runs.append((modules, rec, {k: v.cpu() for k, v in out.items()}))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert counts == (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches,
+                      gp.gp_fwd_launches)
+    (mods_c, rec_c, out_c), (mods_g, rec_g, out_g) = runs
+    for k in ("d_loss", "g_loss", "info_loss", "d_acc"):
+        if k in out_c:
+            torch.testing.assert_close(out_g[k], out_c[k], rtol=1e-4, atol=0, msg=k)
+    torch.testing.assert_close(out_g["gen_imgs"], out_c["gen_imgs"], rtol=0, atol=1e-4)
+    settled, seen = {}, set()
+    for opt_name, want in rec_c.items():
+        got = rec_g[opt_name]
+        largest = {}
+        for (role, _), (_, grad, _) in want.items():
+            if grad is not None:
+                largest[role] = max(largest.get(role, 0.0), float(grad.abs().max()))
+        worst = {}
+        share = STEP_FLOOR_OVERRIDES.get((name, opt_name), STEP_FLOORS[opt_name])
+        for key, (before_c, grad_c, _) in want.items():
+            before_g, grad_g, after_g = got[key]
+            if key not in seen:  # a later optimizer starts from the earlier's update
+                torch.testing.assert_close(before_g, before_c, rtol=0, atol=0)
+                seen.add(key)
+            if grad_c is None:
+                assert grad_g is None, (opt_name, key)
+                continue
+            role = key[0]
+            floor = share * largest[role]
+            worst[role] = max(worst.get(role, 0.0), float((grad_g - grad_c).abs().max()))
+            torch.testing.assert_close(grad_g, grad_c, rtol=1e-3, atol=floor, msg=lambda m: (
+                f"{opt_name} {key}: |g| max {float(grad_c.abs().max()):.3e}, card-CPU "
+                f"{float((grad_g - grad_c).abs().max()):.3e}, floor {floor:.3e}\n{m}"))
+            torch.testing.assert_close(after_g, _adam_first_step(before_g, grad_g, cfg),
+                                       rtol=1e-6, atol=1e-7, msg=lambda m: f"{key}: {m}")
+            mask = grad_c.abs() > max(floor, 1e-6)
+            settled[key] = settled.get(key, True) & mask
+        print(f"{name} {opt_name}: card-CPU gradients differ by at most " + ", ".join(
+            f"{role} {worst[role] / largest[role]:.3e}" for role in worst)
+            + f" of the largest; floor {share:.0e}")
+    for role, m in mods_g.items():
+        cpu = dict(mods_c[role].named_parameters())
+        for k, p in m.named_parameters():
+            mask = settled.get((role, k))
+            if mask is not None and mask.any():
+                diff = (p.detach().cpu() - cpu[k].detach()).abs()[mask]
+                assert float(diff.max()) <= 1e-5, (role, k, float(diff.max()))
+        stats_c = mods_c[role].state_dict()
+        for k, v in m.state_dict().items():
+            if "running" in k or "num_batches" in k:
+                torch.testing.assert_close(v.cpu(), stats_c[k], rtol=1e-4, atol=1e-5, msg=k)

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_critic_rest import one_torch_thread  # noqa: F401 (autouse fixture)
 
 from tpugan.data.im2im import joint_hflip_transform as jhf_j
 from tpugan.data.im2im import paired_or_synthetic as pos_j

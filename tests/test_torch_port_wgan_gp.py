@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_critic_rest import one_torch_thread  # noqa: F401 (autouse fixture)
 
 from tpugan.data import DeviceLoader as DeviceLoader_j
 from tpugan.data.sources import mnist_or_synthetic as mnist_or_synthetic_j

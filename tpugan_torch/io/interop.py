@@ -38,7 +38,7 @@ def _flax_groups(params: Dict) -> Dict[str, List[np.ndarray]]:
     """Flax leaves by kind, in insertion order (``torch_interop.py:60-111``)."""
     groups: Dict[str, list] = {
         "conv_kernel": [], "conv_bias": [], "linear_kernel": [],
-        "linear_bias": [], "norm_scale": [], "norm_bias": [],
+        "linear_bias": [], "norm_scale": [], "norm_bias": [], "embedding": [],
     }
     leaves = list(_walk(params))
     owner = {}
@@ -52,6 +52,8 @@ def _flax_groups(params: Dict) -> Dict[str, List[np.ndarray]]:
             kind = "norm_scale"
         elif name == "beta":
             kind = "norm_bias"
+        elif name == "embedding" and nd == 2:
+            kind = "embedding"
         elif name == "bias":
             continue
         else:
@@ -86,6 +88,10 @@ def _torch_kind(sd, key: str) -> str:
     if base in ("gamma", "beta"):
         return {"gamma": "norm_scale", "beta": "norm_bias"}[base]
     if base == "weight":
+        if nd == 2 and (f"{scope}.bias" if scope else "bias") not in sd:
+            # A 2-D weight without a sibling bias is an Embedding's table
+            # (``torch_interop.py:77-78,132-134``): not transposed.
+            return "embedding"
         return {4: "conv_kernel", 2: "linear_kernel", 1: "norm_scale"}[nd]
     if base == "bias":
         wkey = f"{scope}.weight" if scope else "weight"

@@ -1,3 +1,9 @@
-from tpugan_torch.losses.adversarial import bce, l1, mse
+from tpugan_torch.losses.adversarial import (
+    bce,
+    cross_entropy_logits,
+    cross_entropy_on_softmax,
+    l1,
+    mse,
+)
 
-__all__ = ["bce", "l1", "mse"]
+__all__ = ["bce", "cross_entropy_logits", "cross_entropy_on_softmax", "l1", "mse"]

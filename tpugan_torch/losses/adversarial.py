@@ -23,3 +23,17 @@ def mse(pred: torch.Tensor, target) -> torch.Tensor:
 def l1(pred: torch.Tensor, target) -> torch.Tensor:
     """torch.nn.L1Loss."""
     return torch.mean(torch.abs(pred.float() - target))
+
+
+def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """torch.nn.CrossEntropyLoss(logits, int labels), mean-reduced
+    (``tpugan/losses/adversarial.py:cross_entropy_logits``)."""
+    return F.cross_entropy(logits.float(), labels.long())
+
+
+def cross_entropy_on_softmax(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The reference's double-softmax quirk (acgan/acgan.py:100,113,
+    sgan/sgan.py:99,112, infogan/infogan.py:111,126): Softmax outputs fed to
+    CrossEntropyLoss, which treats the probabilities as logits
+    (``tpugan/losses/adversarial.py:48-61``). Kept for parity."""
+    return cross_entropy_logits(probs, labels)

@@ -1,5 +1,5 @@
-"""Trainer registry of the port: ``cyclegan``, ``dcgan``, ``lsgan``, ``munit``,
-``wgan`` and ``wgan_gp``, so far. Each trainer module exposes ``Config``, ``build``, ``create_state``, its
+"""Trainer registry of the port: 13 of the JAX package's 33 entries so far.
+Each trainer module exposes ``Config``, ``build``, ``create_state``, its
 step makers (``make_step`` or ``make_steps``), ``make_loader``, ``run`` and
 ``main``."""
 
@@ -8,12 +8,9 @@ from __future__ import annotations
 import importlib
 
 _REGISTRY = {
-    "cyclegan": "tpugan_torch.models.cyclegan",
-    "dcgan": "tpugan_torch.models.dcgan",
-    "lsgan": "tpugan_torch.models.lsgan",
-    "munit": "tpugan_torch.models.munit",
-    "wgan": "tpugan_torch.models.wgan",
-    "wgan_gp": "tpugan_torch.models.wgan_gp",
+    name: f"tpugan_torch.models.{name}"
+    for name in ("acgan", "cgan", "cyclegan", "dcgan", "dragan", "gan", "infogan", "lsgan",
+                 "munit", "sgan", "wgan", "wgan_div", "wgan_gp")
 }
 
 

@@ -1,6 +1,7 @@
 """Shared plumbing of the MNIST-class trainers (``tpugan/models/_common.py``):
-the MNIST-or-synthetic loader, the reference's log line, the 5x5 sample grid
-and ``run_mnist_recipe``, which runs the template-B trainers.
+the MNIST-or-synthetic loader, the reference's log lines, the 5x5 sample
+grid, the class-grid noise of the conditional samplers and
+``run_mnist_recipe``, which runs the template-A/B trainers.
 
 One device. The JAX package's data-parallel branch becomes DDP in ROADMAP
 queue 1, item 9.
@@ -9,6 +10,9 @@ queue 1, item 9.
 from __future__ import annotations
 
 import os
+
+import numpy as np
+import torch
 
 from tpugan_torch.data.loader import DeviceLoader
 from tpugan_torch.data.sources import mnist_or_synthetic
@@ -47,6 +51,36 @@ def std_log_line(cfg):
     return log
 
 
+def acc_log_line(cfg):
+    """acgan's and sgan's line, ``[D loss: f, acc: d%]`` with the step's
+    ``d_acc`` (``tpugan/models/acgan.py:219-227``)."""
+
+    def log(epoch, i, bpe, out):
+        print(
+            "[Epoch %d/%d] [Batch %d/%d] [D loss: %f, acc: %d%%] [G loss: %f]"
+            % (epoch, cfg.n_epochs, i, bpe, float(out["d_loss"]),
+               int(100 * float(out["d_acc"])), float(out["g_loss"]))
+        )
+
+    return log
+
+
+def sample_noise(cfg, batches_done: int, shape, device) -> torch.Tensor:
+    """N(0, 1) noise of ``shape`` for the sample taken at ``batches_done``,
+    from a generator of the sampler's own seeded from (``--seed``,
+    batches_done), as the JAX samplers fold batches_done into a key they do
+    not keep (``tpugan/models/cgan.py:202``): sampling leaves the training
+    draws, ``state.draws``, as they were."""
+    seed = np.random.SeedSequence([cfg.seed, int(batches_done)]).generate_state(1, np.uint64)
+    draws = torch.Generator().manual_seed(int(seed[0]))
+    return torch.randn(shape, generator=draws).to(device)
+
+
+def save_grid(imgs: torch.Tensor, path: str, nrow: int) -> None:
+    """NCHW images to a normalized PNG grid of ``nrow`` a row."""
+    save_image(imgs.permute(0, 2, 3, 1).cpu().numpy(), path, nrow=nrow, normalize=True)
+
+
 def grid_sampler(cfg):
     """``sample(state, out, batches_done)``: the first 25 images of
     ``out["gen_imgs"]`` (NCHW) as a grid of 5 a row, normalized, to
@@ -55,20 +89,20 @@ def grid_sampler(cfg):
     os.makedirs(imgdir, exist_ok=True)
 
     def sample(state, out, batches_done):
-        imgs = out["gen_imgs"][:25].permute(0, 2, 3, 1).cpu().numpy()
-        save_image(imgs, os.path.join(imgdir, "%d.png" % batches_done), nrow=5, normalize=True)
+        save_grid(out["gen_imgs"][:25], os.path.join(imgdir, "%d.png" % batches_done), 5)
 
     return sample
 
 
-def run_mnist_recipe(cfg, recipe_mod, device=None):
-    """build -> create_state -> loader -> ``run_training``, with the
-    reference's log line and sample grid. ``device`` as ``train_device``."""
+def run_mnist_recipe(cfg, recipe_mod, callbacks=None, device=None):
+    """build -> create_state -> loader -> ``run_training``
+    (``tpugan/models/_common.py:95``), with ``callbacks`` or the reference's
+    log line and sample grid. ``device`` as ``train_device``."""
     device = train_device(cfg, device)
     modules = recipe_mod.build(cfg, device)
     state = recipe_mod.create_state(cfg, modules, device)
     loader = recipe_mod.make_loader(cfg, device)
     step = recipe_mod.make_step(cfg, state)
-    cb = Callbacks(log=std_log_line(cfg), sample=grid_sampler(cfg))
+    cb = callbacks or Callbacks(log=std_log_line(cfg), sample=grid_sampler(cfg))
     return run_training(cfg, loader, state, step, cb, n_epochs=cfg.n_epochs,
                         sample_interval=cfg.sample_interval)

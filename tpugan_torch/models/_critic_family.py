@@ -1,5 +1,5 @@
 """Shared machinery of the n_critic Wasserstein family
-(``tpugan/models/_critic_family.py``): wgan and wgan_gp now; wgan_div later.
+(``tpugan/models/_critic_family.py``): wgan, wgan_gp and wgan_div.
 
 Reference control flow (wgan/wgan.py:117-166, wgan_gp/wgan_gp.py:144-203):
 the critic trains on every batch with a fresh z; the generator trains every
@@ -23,8 +23,8 @@ from typing import Callable
 
 import torch
 
-from tpugan_torch.io.images import save_image
 from tpugan_torch.models._common import mnist_loader as make_loader_a
+from tpugan_torch.models._common import save_grid
 from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
 from tpugan_torch.train.loop import StepObserver, _stack_batches, graph_steps, host_rows
 from tpugan_torch.train.state import TrainState, normalize_uint8
@@ -54,13 +54,16 @@ def _device(module: torch.nn.Module) -> torch.device:
     return next(module.parameters()).device
 
 
-def make_d_step(cfg, modules: dict, opt_d, d_loss_fn: Callable, post_update=None):
+def make_d_step(cfg, modules: dict, opt_d, d_loss_fn: Callable, post_update=None,
+                draw_alpha: bool = True):
     """``d_step(state, imgs_u8, labels, z=None, alpha=None) -> (state, out)``:
     one critic update (``_critic_family.py:52-102``).
 
     ``d_loss_fn(D, real, fake, alpha)`` is the critic loss; ``alpha`` holds
     one interpolation weight per sample, (B, 1, 1, 1). ``z`` and ``alpha``
-    are drawn from ``state.draws`` in that order unless passed in. G runs in
+    are drawn from ``state.draws`` in that order unless passed in;
+    ``draw_alpha`` False draws no alpha (wgan_div, whose loss takes none:
+    its ``alpha`` is None). wgan draws one and leaves it unused. G runs in
     train mode under ``no_grad``: its BatchNorm running statistics advance,
     as in JAX, and ``fake`` carries no graph. ``post_update(D)`` runs after
     the optimizer step (wgan's weight clip). ``out`` holds ``d_loss`` and the
@@ -74,7 +77,7 @@ def make_d_step(cfg, modules: dict, opt_d, d_loss_fn: Callable, post_update=None
         b = real.shape[0]
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
-        if alpha is None:
+        if alpha is None and draw_alpha:
             alpha = torch.rand(b, 1, 1, 1, generator=state.draws, device=device)
         with torch.no_grad():
             fake = G(z)
@@ -164,12 +167,7 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
     last_gen = None
 
     def save(imgs, tag):
-        save_image(
-            imgs[:25].permute(0, 2, 3, 1).cpu().numpy(),
-            os.path.join(imgdir, "%d.png" % tag),
-            nrow=5,
-            normalize=True,
-        )
+        save_grid(imgs[:25], os.path.join(imgdir, "%d.png" % tag), 5)
 
     def log_line(epoch, i, d_loss, g_loss):
         print(

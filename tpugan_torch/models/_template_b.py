@@ -1,6 +1,7 @@
 """Template-B (DCGAN-style) 1:1 alternating step (``tpugan/models/_template_b.py``),
-shared by dcgan (BCE, dcgan/dcgan.py:143-183) and lsgan (MSE,
-lsgan/lsgan.py:140-188).
+shared by dcgan (BCE, dcgan/dcgan.py:143-183), lsgan (MSE,
+lsgan/lsgan.py:140-188) and gan (template A's MLPs, BCE, gan/gan.py:135-161,
+whose discriminator draws no masks).
 
 G update first on a fresh fake batch, then D update on the real batch and
 the same fakes detached, both Adam. The discriminator's BatchNorm running
@@ -43,11 +44,14 @@ def make_step_b(cfg, state: TrainState, adv_loss: Callable):
     for lsgan). ``imgs_u8`` is an NHWC uint8 batch. ``z`` is (B, latent_dim);
     ``masks`` holds the Dropout2d keep masks of D's three forwards, each a
     list from ``D.draw_masks``. Both are drawn from ``state.draws``, z first,
-    unless passed in. ``out`` holds ``d_loss`` and ``g_loss`` (0-d tensors)
-    and ``gen_imgs``, the G phase's fakes (NCHW)."""
+    unless passed in; a discriminator without ``draw_masks`` (template A's)
+    takes none. ``out`` holds ``d_loss`` and ``g_loss`` (0-d tensors) and
+    ``gen_imgs``, the G phase's fakes (NCHW)."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
+    uses_masks = hasattr(D, "draw_masks")
+    d = lambda x, m: D(x, m) if uses_masks else D(x)
 
     def step(state: TrainState, imgs_u8, labels=None, z=None, masks=None):
         del labels
@@ -57,19 +61,19 @@ def make_step_b(cfg, state: TrainState, adv_loss: Callable):
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if masks is None:
-            masks = [D.draw_masks(b, state.draws) for _ in range(3)]
+            masks = [D.draw_masks(b, state.draws) if uses_masks else None for _ in range(3)]
 
         # G phase: only G's parameters take gradients.
         opt_g.zero_grad(set_to_none=True)
         gen = G(z)
-        g_loss = adv_loss(D(gen, masks[0]), 1.0)
+        g_loss = adv_loss(d(gen, masks[0]), 1.0)
         g_loss.backward(inputs=g_params)
         opt_g.step()
 
         # D phase on the real batch and the pre-update fakes, detached.
         fake = gen.detach()
         opt_d.zero_grad(set_to_none=True)
-        d_loss = 0.5 * (adv_loss(D(real, masks[1]), 1.0) + adv_loss(D(fake, masks[2]), 0.0))
+        d_loss = 0.5 * (adv_loss(d(real, masks[1]), 1.0) + adv_loss(d(fake, masks[2]), 0.0))
         d_loss.backward()
         opt_d.step()
 

@@ -39,7 +39,7 @@ def make_step(cfg: Config, state):
 
 
 def run(cfg: Config, device=None):
-    return run_mnist_recipe(cfg, sys.modules[__name__], device)
+    return run_mnist_recipe(cfg, sys.modules[__name__], device=device)
 
 
 def main(argv=None, device=None):

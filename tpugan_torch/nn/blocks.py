@@ -1,6 +1,6 @@
 """Templates A and B of ``tpugan/nn/blocks.py``, on NCHW images: the MLP
 generator and discriminator / critic, and the DCGAN generator, trunk and
-discriminator.
+discriminator, and the trunk with the aux heads of acgan, sgan and infogan.
 
 All keep the reference's module names and ``nn.Sequential`` numbering
 (gan/gan.py:38-81, dcgan/dcgan.py:45-99), so their ``state_dict`` keys are the
@@ -25,14 +25,47 @@ from tpugan_torch.nn.layers import (
     Dropout2d,
     LeakyReLU,
     Linear,
+    MaskedDropout,
     Upsample,
 )
 
 
+def forward_masked(layers: nn.Sequential, x: torch.Tensor,
+                   masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """``layers`` applied in order, each dropout layer with the next of
+    ``masks`` (in call order; None outside training)."""
+    masks = iter(masks) if masks is not None else None
+    for layer in layers:
+        if isinstance(layer, MaskedDropout) and masks is not None:
+            x = layer(x, next(masks))
+        else:
+            x = layer(x)
+    return x
+
+
+def mlp_generator_body(in_features: int, out_features: int,
+                       widths: Sequence[int] = (128, 256, 512, 1024), bn_eps: float = 0.8,
+                       *, generator: Optional[torch.Generator] = None) -> nn.Sequential:
+    """The reference's ``model`` of template A (gan/gan.py:38-57,
+    cgan/cgan.py:43-60): Linear -> [BatchNorm1d(eps=0.8)] -> LeakyReLU(0.2)
+    through ``widths`` (no norm on the first block), a Linear to
+    ``out_features``, Tanh."""
+    layers = []
+    fan_in = in_features
+    for i, w in enumerate(widths):
+        layers.append(Linear(fan_in, w, generator=generator))
+        if i > 0:
+            layers.append(BatchNorm1d(w, bn_eps))
+        layers.append(LeakyReLU(0.2))
+        fan_in = w
+    layers += [Linear(fan_in, out_features, generator=generator), nn.Tanh()]
+    return nn.Sequential(*layers)
+
+
 class MLPGenerator(nn.Module):
-    """Template A generator (``tpugan/nn/blocks.py:32-57``): Linear ->
-    [BatchNorm1d(eps=0.8)] -> LeakyReLU(0.2) through ``widths`` (no norm on
-    the first block), a Linear to C*H*W, Tanh, then ``view(B, C, H, W)``."""
+    """Template A generator (``tpugan/nn/blocks.py:32-57``): the
+    ``mlp_generator_body`` from ``latent_dim`` to C*H*W, then
+    ``view(B, C, H, W)``."""
 
     def __init__(
         self,
@@ -45,16 +78,8 @@ class MLPGenerator(nn.Module):
     ):
         super().__init__()
         self.img_shape = tuple(img_shape)  # (C, H, W)
-        layers = []
-        fan_in = latent_dim
-        for i, w in enumerate(widths):
-            layers.append(Linear(fan_in, w, generator=generator))
-            if i > 0:
-                layers.append(BatchNorm1d(w, bn_eps))
-            layers.append(LeakyReLU(0.2))
-            fan_in = w
-        layers += [Linear(fan_in, math.prod(self.img_shape), generator=generator), nn.Tanh()]
-        self.model = nn.Sequential(*layers)
+        self.model = mlp_generator_body(latent_dim, math.prod(self.img_shape), widths, bn_eps,
+                                        generator=generator)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.model(z).view(z.shape[0], *self.img_shape)
@@ -148,13 +173,7 @@ class DCGANTrunk(nn.Sequential):
 
     def forward(self, img: torch.Tensor,
                 masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
-        masks = iter(masks) if masks is not None else None
-        x = img
-        for layer in self:
-            if isinstance(layer, Dropout2d) and masks is not None:
-                x = layer(x, next(masks))
-            else:
-                x = layer(x)
+        x = forward_masked(self, img, masks)
         return x.reshape(x.shape[0], -1)
 
 
@@ -178,3 +197,29 @@ class DCGANDiscriminator(nn.Module):
     def forward(self, img: torch.Tensor,
                 masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         return self.adv_layer(self.model(img, masks))
+
+
+class DCGANAuxDiscriminator(nn.Module):
+    """The template-B discriminator with several output heads that acgan,
+    sgan and infogan each declare (acgan/acgan.py:74-100, sgan/sgan.py:76-99,
+    infogan/infogan.py:95-121): ``conv_blocks`` = the trunk, then one
+    ``nn.Sequential`` a head, Linear(128 * (s/16)^2 -> n) and its tail
+    (Sigmoid, Softmax or nothing), registered under the reference's names
+    in order. ``forward`` returns the heads' outputs as a tuple."""
+
+    def __init__(self, img_size: int, channels: int, heads: Sequence[Tuple[str, int, list]],
+                 *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv_blocks = DCGANTrunk(channels, generator=generator)
+        feat = 128 * (img_size // 2 ** 4) ** 2
+        self.head_names = [name for name, _, _ in heads]
+        for name, n, tail in heads:
+            setattr(self, name, nn.Sequential(Linear(feat, n, generator=generator), *tail))
+
+    def draw_masks(self, batch: int, generator: torch.Generator) -> list:
+        return self.conv_blocks.draw_masks(batch, generator)
+
+    def forward(self, img: torch.Tensor,
+                masks: Optional[Sequence[torch.Tensor]] = None) -> tuple:
+        feat = self.conv_blocks(img, masks)
+        return tuple(getattr(self, name)(feat) for name in self.head_names)

@@ -1,6 +1,7 @@
 """Layers with the JAX package's semantics (``tpugan/nn/layers.py``), on NCHW.
 
-Only what the CycleGAN, WGAN-GP, MUNIT, DCGAN and LSGAN slices need is here.
+Only what the ported trainers (``tpugan_torch/models/__init__.py``) need is
+here.
 Options they do not use raise ``NotImplementedError`` naming the ROADMAP item
 that ports them; ``_LAYERS_ITEM`` also names the items of the layers not
 here yet.
@@ -8,6 +9,7 @@ here yet.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -21,7 +23,6 @@ from tpugan_torch.ops.instance_norm import instance_norm_act
 _LAYERS_ITEM = {
     "ConvTranspose2d": "ROADMAP queue 1, item 5 (rest of im2im)",
     "InstanceNorm": "ROADMAP queue 1, item 5 (rest of im2im: affine and tracked IN)",
-    "Embedding": "ROADMAP queue 1, item 4 (rest of templates A/B)",
     "PixelShuffle": "ROADMAP queue 1, item 7 (SR)",
     "PReLU": "ROADMAP queue 1, item 7 (SR)",
     "he": "ROADMAP queue 1, item 7 (SR: the VGG features)",
@@ -138,20 +139,18 @@ class BatchNorm2d(nn.BatchNorm2d):
         _init_batch_norm(self, init_mode, generator)
 
 
-class Dropout2d(nn.Module):
-    """torch.nn.Dropout2d (``tpugan/nn/layers.py:Dropout2d``): in training,
-    whole channels are zeroed, through a (B, C, 1, 1) keep mask, and the
-    kept ones scaled by 1/(1-p). The caller passes the mask, drawn by
-    ``draw_mask`` from an explicit generator; never from the global RNG, as
-    ``F.dropout2d`` would. In eval mode the input passes unchanged."""
+class MaskedDropout(nn.Module):
+    """Dropout through a keep mask the caller passes, drawn by ``draw_mask``
+    from an explicit generator; never from the global RNG, as ``F.dropout``
+    would. In training the kept elements are scaled by 1/(1-p); in eval mode
+    the input passes unchanged."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
 
     def draw_mask(self, shape, generator: torch.Generator) -> torch.Tensor:
-        """A float 0/1 keep mask of ``shape`` (B, C, 1, 1), on the
-        generator's device."""
+        """A float 0/1 keep mask of ``shape``, on the generator's device."""
         keep = torch.full(shape, 1.0 - self.p, device=generator.device)
         return torch.bernoulli(keep, generator=generator)
 
@@ -159,11 +158,51 @@ class Dropout2d(nn.Module):
         if not self.training:
             return x
         if mask is None:
-            raise ValueError("Dropout2d in training needs its keep mask (draw_mask)")
+            raise ValueError(f"{type(self).__name__} in training needs its keep mask (draw_mask)")
         return x / (1.0 - self.p) * mask
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+class Dropout2d(MaskedDropout):
+    """torch.nn.Dropout2d (``tpugan/nn/layers.py:Dropout2d``): whole channels
+    are zeroed, through a (B, C, 1, 1) keep mask."""
+
+
+class Dropout(MaskedDropout):
+    """torch.nn.Dropout (``tpugan/nn/layers.py:Dropout``): each element is
+    zeroed, through a keep mask of the input's shape."""
+
+
+class Embedding(nn.Embedding):
+    """torch.nn.Embedding (``tpugan/nn/layers.py:Embedding``): a
+    (num_embeddings, features) table with weights N(0, 1), drawn from
+    ``generator``."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 *, generator: Optional[torch.Generator] = None):
+        super().__init__(num_embeddings, features)
+        with torch.no_grad():
+            self.weight.normal_(0.0, 1.0, generator=generator)
+
+
+@contextlib.contextmanager
+def batch_stats_frozen(module: nn.Module):
+    """Within the block, every BatchNorm of ``module`` in training normalizes
+    by its batch statistics, as always, but leaves its running statistics
+    and ``num_batches_tracked`` as they are: the forward whose statistics
+    the JAX package throws away (DRAGAN's penalty, ``tpugan/models/dragan.py:
+    99-112``; the samplers' train-mode generator). A Python switch, so a
+    CUDA graph can capture the forward."""
+    norms = [m for m in module.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    for m in norms:
+        m.track_running_stats = False
+    try:
+        yield module
+    finally:
+        for m in norms:
+            m.track_running_stats = True
 
 
 class InstanceNorm(nn.Module):

@@ -1,11 +1,17 @@
-"""The generic gradient penalty (``tpugan/ops/penalty.py:wgan_gp_penalty``):
-dD/dx through ``torch.autograd.grad(create_graph=True)``, differentiated
-again by the loss's ``backward()`` (wgan_gp/wgan_gp.py:119-138). It works for
-any critic; the template-A MLP critic takes the closed form of
-``tpugan_torch.ops.mlp_gp`` instead.
+"""Gradient penalties (``tpugan/ops/penalty.py``): dD/dx through
+``torch.autograd.grad(create_graph=True)``, differentiated again by the
+loss's ``backward()``.
 
-``dragan_penalty`` and ``wdiv_penalty`` come with their trainers (ROADMAP
-queue 1, item 3).
+- ``wgan_gp_penalty`` (wgan_gp/wgan_gp.py:119-138) works for any critic;
+  the template-A MLP critic takes the closed form of
+  ``tpugan_torch.ops.mlp_gp`` instead.
+- ``dragan_penalty`` (dragan/dragan.py:142-167): perturbed real data.
+- ``wdiv_penalty`` (wgan_div/wgan_div.py:148-163): the Wasserstein
+  divergence on real and fake.
+
+The critic's activations must have gradient 1 at exactly 0, as JAX's
+``where`` gives (the port's ``leaky_relu``, not ``F.leaky_relu``), or a dead
+unit differs from JAX.
 """
 
 from __future__ import annotations
@@ -23,6 +29,16 @@ def _safe_sqrt(sq: torch.Tensor) -> torch.Tensor:
     return torch.where(nonzero, torch.sqrt(torch.where(nonzero, sq, 1.0)), 0.0)
 
 
+def _grad_wrt_input(d_fn: Callable[[torch.Tensor], torch.Tensor],
+                    x: torch.Tensor) -> torch.Tensor:
+    """dD/dx with grad_outputs=ones, the graph kept for the second
+    differentiation; ``x`` itself takes no gradient."""
+    x = x.detach().requires_grad_(True)
+    out = d_fn(x)
+    (grads,) = torch.autograd.grad(out, x, torch.ones_like(out), create_graph=True)
+    return grads
+
+
 def wgan_gp_penalty(
     d_fn: Callable[[torch.Tensor], torch.Tensor],
     real: torch.Tensor,
@@ -32,14 +48,52 @@ def wgan_gp_penalty(
 ) -> torch.Tensor:
     """mean((|dD/dx_interp| - 1)^2) over samples, x_interp = alpha*real
     + (1-alpha)*fake with one alpha per sample, shape (B, 1, 1, 1): passed
-    in, or drawn U[0, 1) from ``generator``. The critic's activations must
-    have gradient 1 at exactly 0, as JAX's ``where`` gives (the port's
-    ``leaky_relu``, not ``F.leaky_relu``), or a dead unit differs from JAX."""
+    in, or drawn U[0, 1) from ``generator``."""
     if alpha is None:
         shape = (real.shape[0],) + (1,) * (real.dim() - 1)
         alpha = torch.rand(shape, generator=generator, device=real.device, dtype=real.dtype)
-    interp = (alpha * real + (1.0 - alpha) * fake).requires_grad_(True)
-    out = d_fn(interp)
-    (grads,) = torch.autograd.grad(out, interp, torch.ones_like(out), create_graph=True)
+    grads = _grad_wrt_input(d_fn, alpha * real + (1.0 - alpha) * fake)
     norms = _safe_sqrt((grads.reshape(grads.shape[0], -1) ** 2).sum(dim=1))
     return ((norms - 1.0) ** 2).mean()
+
+
+def dragan_penalty(
+    d_fn: Callable[[torch.Tensor], torch.Tensor],
+    real: torch.Tensor,
+    alpha: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """DRAGAN's penalty on perturbed real data (``penalty.py:72-93``):
+    interp = alpha*X + (1-alpha)*(X + 0.5*std(X)*noise), with ``alpha`` and
+    ``noise`` element-wise U[0, 1) of X's shape: passed in, or drawn from
+    ``generator`` in that order. std is the population std of all of X
+    (ddof 0, ``jnp.std``). Kept for parity: the norm of dD/dx is over the
+    channel axis only (dim 1 of NCHW), at every position, as the reference's
+    ``gradients.norm(2, dim=1)`` without a flatten (dragan.py:166);
+    mean((norm - 1)^2) over batch and positions."""
+    if alpha is None:
+        alpha = torch.rand(real.shape, generator=generator, device=real.device, dtype=real.dtype)
+    if noise is None:
+        noise = torch.rand(real.shape, generator=generator, device=real.device, dtype=real.dtype)
+    perturbed = real + 0.5 * real.std(correction=0) * noise
+    grads = _grad_wrt_input(d_fn, alpha * real + (1.0 - alpha) * perturbed)
+    norms = _safe_sqrt((grads ** 2).sum(dim=1))
+    return ((norms - 1.0) ** 2).mean()
+
+
+def wdiv_penalty(
+    d_fn: Callable[[torch.Tensor], torch.Tensor],
+    real: torch.Tensor,
+    fake: torch.Tensor,
+    k: float = 2.0,
+    p: float = 6.0,
+) -> torch.Tensor:
+    """The Wasserstein-divergence penalty (``penalty.py:96-111``):
+    mean(|dD/dx_real|^p + |dD/dx_fake|^p) * k / 2, the p-th power taken as
+    (sum of squares)^(p/2) per sample. No random draw."""
+    powers = [
+        (_grad_wrt_input(d_fn, x).reshape(x.shape[0], -1) ** 2).sum(dim=1) ** (p / 2)
+        for x in (real, fake)
+    ]
+    return (powers[0] + powers[1]).mean() * k / 2.0

@@ -236,6 +236,8 @@ class Callbacks:
     log: Optional[Callable[[int, int, int, dict], None]] = None
     # sample(state, out_dict, batches_done)
     sample: Optional[Callable[[Any, dict, int], None]] = None
+    # epoch_end(state, epoch) -> state | None
+    epoch_end: Optional[Callable[[Any, int], Any]] = None
 
 
 def run_training(cfg, loader, state, step_fn, callbacks: Callbacks, n_epochs: int,
@@ -253,7 +255,9 @@ def run_training(cfg, loader, state, step_fn, callbacks: Callbacks, n_epochs: in
     due inside a dispatch takes the dispatch's last ``gen_imgs``, up to K-1
     steps newer than its file name says: the JAX package's documented
     deviation (a K that divides ``sample_interval`` is exact). The epoch's
-    tail shorter than K runs one eager step at a time."""
+    tail shorter than K runs one eager step at a time. ``callbacks.epoch_end``
+    runs after each epoch, its tail included; a state it returns replaces
+    the loop's."""
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
@@ -290,5 +294,7 @@ def run_training(cfg, loader, state, step_fn, callbacks: Callbacks, n_epochs: in
         for i, batch in pending:  # the epoch's tail, shorter than K
             state, out = step_fn(state, *batch)
             after_step(state, out, epoch, i)
+        if callbacks.epoch_end is not None:
+            state = callbacks.epoch_end(state, epoch) or state
     observer.close()
     return state
