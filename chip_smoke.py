@@ -58,7 +58,21 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    steady-state step time, the step's FLOPs and operations bound, the
    device's busy share and the step's largest device kernels
    (torch.profiler).
-10. DCGAN slice: ``tpugan_torch.models.dcgan.main`` at 64px, batch 64, with
+10. im2im IN parity and time: the instance-norm pair against its plain
+   version at every (shape, slope) site of the five im2im paths (pix2pix,
+   discogan, dualgan, context_encoder, ccgan: ``IM2IM_IN``), their steps'
+   and samplers', down to discogan's 32,768 2x2 planes at batch 64; the pair
+   captured in a CUDA graph at a plane split over a cluster, replayed bit
+   for bit; then the times at each site of one pix2pix and one discogan
+   step and their sums (``[im2im in parity]``, ``[im2im in time]``).
+11. im2im slices: ``pix2pix.main`` (256px, batch 1), ``discogan.main``
+   (64px, batch 64) and ``dualgan.main`` (128px, batch 8, n_critic 5), each
+   at its reference configuration for 5-6 batches, eager: finite losses,
+   each PNG by name and grid size, each checkpoint by the reference's name,
+   the exact IN launches; then the steady-state step (dualgan: schedule
+   unit) time, device time, IN device time and busy share (``[pix2pix
+   slice]``, ``[discogan slice]``, ``[dualgan slice]``).
+12. DCGAN slice: ``tpugan_torch.models.dcgan.main`` at 64px, batch 64, with
    synthetic data for 40 batches with samples, and ``lsgan.main`` at its
    defaults (32px, batch 64) for 20; checks finite losses, the sample PNGs
    and that neither launched any of the port's kernels (the JAX path
@@ -66,7 +80,7 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    steady-state ms a step and images/s, the step's FLOPs and FP32 bound, the
    device's busy share, the largest device kernels, and the kernels each
    cuDNN convolution ran (its algorithm; an FFT is flagged).
-11. Fused dispatch (``--steps_per_dispatch``, one CUDA graph of K steps,
+13. Fused dispatch (``--steps_per_dispatch``, one CUDA graph of K steps,
    replayed): ``dcgan.main`` at 64px with K = 60 over 3 epochs of 64
    batches, ``wgan_gp.main`` with K = 10 schedule units over 2 epochs of 50
    batches (the GP pair inside the graph) and ``wgan.main`` at its reference
@@ -80,7 +94,7 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    deterministic, bit for bit), and the eager and the graphed ms a step (or
    unit), images/s, the capture's and instantiation's host time, the memory
    around the capture and the busy share of a replay.
-12. The rest of the critic family and the conditional family, each at its
+14. The rest of the critic family and the conditional family, each at its
    reference configuration (batch 64; gan and wgan_div at 28x28 with latent
    100, dragan, cgan, acgan and sgan at 32x32 with latent 100 and 10
    classes, infogan at 32x32 with latent 62 and code 2): each ``main``
@@ -94,7 +108,14 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    the eager and graphed ms a step (``[gan fused]``, ``[dragan fused]``, ``[wgan_div fused]``,
    ``[cgan fused]``, ``[acgan fused]``, ``[sgan fused]``, ``[infogan
    fused]``).
-13. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
+15. The inpainting pair fused: ``context_encoder.main`` (128px, 64px mask,
+   batch 8) and ``ccgan.main`` (128px, 32px mask, batch 8) unfused for one
+   epoch of 25 batches, then with K = 10 steps a graph over two: the IN
+   pair's launches on the device (calls not captured plus captured calls
+   times replays), 6 each way a step; replay against eager with cuDNN held
+   deterministic, bit for bit; eager and graphed ms a step
+   (``[context_encoder fused]``, ``[ccgan fused]``).
+16. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
    of 60 steps replayed), its JSON line printed before a ``[fused summary]``
    line and the last three lines.
 
@@ -104,8 +125,9 @@ The bounds use the published peaks of the card ``nvidia-smi`` names
 Any failure raises, and the script exits non-zero without the final line.
 The last three lines are the kernels' JSON record (every kernel with its
 launches on the main path, error, times, device time, bound and library-call
-time; the IN pair, which runs on the CycleGAN and the MUNIT paths, and the GP
-pair, which runs eager and inside the replayed WGAN-GP unit, also by path),
+time; the IN pair, which runs on the CycleGAN, MUNIT and five im2im paths,
+two of them inside replayed CUDA graphs, and the GP pair, which runs eager
+and inside the replayed WGAN-GP unit, also by path),
 ``nvidia-smi``'s name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -238,6 +260,94 @@ ADAIN_CASES = [
 ]
 # Calls a host time of the [launch cost] phase is taken over.
 LAUNCH_CALLS = 2000
+
+# ((B, C, H, W), slope) of every instance-norm site of the five im2im paths
+# and how often one unit makes it, recorded from a CPU run of each unit at
+# batch 1 (``tests/test_torch_port_in_plan.py`` records them again): the
+# leading dimension is the batch's multiple (2 where a discriminator sees
+# the real and the fake batch in one forward), scaled by ``IM2IM_BATCH`` in
+# ``im2im_sites``; a sampler's shapes are its own. Every step site is
+# differentiated (a d_step's and a sampler's are forward only). pix2pix and
+# discogan fuse IN with LeakyReLU(0.2) (slope 0.2) and with ReLU (slope 0);
+# dualgan's affine IN is the kernel at slope 1 with the affine after it; the
+# inpainting pair's IN is its discriminator's, LeakyReLU(0.2) fused.
+IM2IM_BATCH = {"pix2pix": 1, "discogan": 64, "dualgan": 8, "context_encoder": 8, "ccgan": 8}
+_P2P_G = {(128, 64, 0.2): 1, (256, 32, 0.2): 1, (512, 16, 0.2): 1, (512, 8, 0.2): 1,
+          (512, 4, 0.2): 1, (512, 2, 0.2): 1, (512, 2, 0.0): 1, (512, 4, 0.0): 1,
+          (512, 8, 0.0): 1, (512, 16, 0.0): 1, (256, 32, 0.0): 1, (128, 64, 0.0): 1,
+          (64, 128, 0.0): 1}
+_DISCO_G = {(128, 16, 0.2): 1, (256, 8, 0.2): 1, (512, 4, 0.2): 1, (512, 2, 0.2): 1,
+            (512, 2, 0.0): 1, (512, 4, 0.0): 1, (256, 8, 0.0): 1, (128, 16, 0.0): 1,
+            (64, 32, 0.0): 1}
+_DUAL_G = {(128, 32, 1.0): 2, (256, 16, 1.0): 2, (512, 8, 1.0): 2, (512, 4, 1.0): 2,
+           (512, 2, 1.0): 2, (64, 64, 1.0): 1}
+
+
+def _sites(b, per, times=1):
+    """{((b, C, H, W), slope): n * times} from {(C, H, slope): n}."""
+    return {((b, c, h, h), slope): n * times for (c, h, slope), n in per.items()}
+
+
+def _add_sites(*dicts):
+    out = {}
+    for d in dicts:
+        for k, n in d.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+IM2IM_IN = {
+    # G once; D on (fake, real_a) in the G phase, on the real and fake pairs
+    # in one forward in the D phase (``models/pix2pix.py:make_step``).
+    "pix2pix": {"step": _add_sites(_sites(1, _P2P_G),
+                                   _sites(1, {(128, 64, 0.2): 1, (256, 32, 0.2): 1,
+                                              (512, 16, 0.2): 1}),
+                                   _sites(2, {(128, 64, 0.2): 1, (256, 32, 0.2): 1,
+                                              (512, 16, 0.2): 1})),
+                "sample": _sites(10, _P2P_G)},
+    # Four generator forwards; D_A and D_B once each in the G phase and on
+    # [real; fake] in their own.
+    "discogan": {"step": _add_sites(_sites(1, _DISCO_G, 4),
+                                    _sites(1, {(128, 16, 0.2): 1, (256, 8, 0.2): 1}, 2),
+                                    _sites(2, {(128, 16, 0.2): 1, (256, 8, 0.2): 1}, 2)),
+                 "sample": _sites(16, _DISCO_G, 2)},
+    # The critics are BatchNorm: the generators' IN only, twice a d_step
+    # (forward only, the fakes detached) and four times a g_step.
+    "dualgan": {"d_step": _sites(1, _DUAL_G, 2), "g_step": _sites(1, _DUAL_G, 4),
+                "sample": _sites(16, _DUAL_G, 2)},
+    # The discriminator on the generated patch (G phase), then on [real;
+    # fake] patches; the generators are BatchNorm.
+    "context_encoder": {"step": _add_sites(
+        _sites(1, {(128, 16, 0.2): 1, (256, 8, 0.2): 1}), _sites(2, {(128, 16, 0.2): 1,
+                                                                     (256, 8, 0.2): 1}),
+        {((1, 512, 8, 8), 0.2): 1, ((2, 512, 8, 8), 0.2): 1})},
+    "ccgan": {"step": _add_sites(
+        _sites(1, {(128, 32, 0.2): 1, (256, 16, 0.2): 1, (512, 16, 0.2): 1}),
+        _sites(2, {(128, 32, 0.2): 1, (256, 16, 0.2): 1, (512, 16, 0.2): 1}))},
+}
+IM2IM_BWD_UNITS = ("step", "g_step")  # the units whose every site is differentiated
+
+
+def im2im_sites(path: str, unit: str) -> dict:
+    """The sites of a unit at the path's reference batch."""
+    b = 1 if unit == "sample" else IM2IM_BATCH[path]
+    return {((s[0] * b, *s[1:]), slope): n for (s, slope), n in IM2IM_IN[path][unit].items()}
+
+
+def im2im_per_unit(path: str, unit: str, direction: str) -> int:
+    """IN launches of one unit of a path, forward or backward."""
+    if direction == "bwd" and unit not in IM2IM_BWD_UNITS:
+        return 0
+    return sum(IM2IM_IN[path][unit].values())
+
+
+# The im2im slices, each main at its reference configuration: batches, and
+# the sample interval (pix2pix and discogan sample at batch 0 and 5, dualgan
+# at 0 and 4: two of its five batches take a g_step).
+IM2IM_SLICE = {"pix2pix": (6, 5), "discogan": (6, 5), "dualgan": (5, 4)}
+# The inpainting pair fused: unfused one epoch of 25 batches, then with K =
+# 10 steps a CUDA graph over two (two dispatches and a tail of 5 each).
+INPAINT_K, INPAINT_EPOCH_BATCHES, INPAINT_SAMPLE_INTERVAL = 10, 25, 10
 
 
 def log(msg: str = "") -> None:
@@ -1468,6 +1578,7 @@ def _port_launches():
     from tpugan_torch.ops import mlp_gp as gp
 
     return {"in_fwd": tin.fwd_launches, "in_bwd": tin.bwd_launches,
+            "in_fwd_captured": tin.fwd_captured, "in_bwd_captured": tin.bwd_captured,
             "adain_fwd": ta.adain_fwd_launches, "adain_bwd": ta.adain_bwd_launches,
             "gp_fwd": gp.gp_fwd_launches, "gp_bwd": gp.gp_bwd_launches,
             "gp_fwd_captured": gp.gp_fwd_captured, "gp_bwd_captured": gp.gp_bwd_captured}
@@ -2141,6 +2252,275 @@ def phase_conditional_fused(smi):
             for mod in (cgan, acgan, sgan, infogan)}
 
 
+def _in_capture_check(tag):
+    """The IN pair launched inside a captured CUDA graph at a plane split over
+    a cluster of 4 CTAs each way, (1, 64, 128, 128): the replay equals the
+    launches outside the graph bit for bit, and the captured counters count
+    the captured calls."""
+    import torch
+
+    from tpugan_torch.ops import instance_norm as tin
+
+    shape = (1, 64, 128, 128)
+    planes, hw = shape[0] * shape[1], shape[2] * shape[3]
+    clusters = (tin.plan(planes, hw, "fwd").group, tin.plan(planes, hw, "bwd").group)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn(shape, device="cuda", generator=gen)
+    g = torch.randn(shape, device="cuda", generator=gen)
+    want = (*tin.in_act_fwd(x, EPS, 0.2), )
+    want += (tin.in_act_bwd(g, x, want[1], want[2], 0.2),)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tin.in_act_fwd(x, EPS, 0.2)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    before = (tin.fwd_captured, tin.bwd_captured)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y, mean, rstd = tin.in_act_fwd(x, EPS, 0.2)
+        dx = tin.in_act_bwd(g, x, mean, rstd, 0.2)
+    captured = (tin.fwd_captured - before[0], tin.bwd_captured - before[1])
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip((y, mean, rstd, dx), want))
+    log(f"{tag} IN pair captured at {shape} (clusters of {clusters[0]} CTAs forward, "
+        f"{clusters[1]} backward) and replayed: bit for bit with the launches outside the "
+        f"graph: {same}; captured calls counted {captured}")
+    if not same or captured != (1, 1) or min(clusters) < 2:
+        raise AssertionError(f"{tag} IN pair under capture: same {same}, captured {captured}, "
+                             f"clusters {clusters}")
+
+
+def phase_im2im_in():
+    """The IN pair against its plain version at every (shape, slope) site of
+    the five im2im paths, their steps' and their samplers', forward and
+    backward, by path; a capture of the pair inside a CUDA graph at a
+    clustered shape; then the times at each site of one pix2pix step and one
+    discogan step, with their sums."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    worst, done = {}, {}
+    for path, units in IM2IM_IN.items():
+        w = {"fwd": 0.0, "bwd": 0.0}
+        for unit in units:
+            for site in im2im_sites(path, unit):
+                if site not in done:
+                    done[site] = _parity_case(*site, 0.0, gen)
+                w = {k: max(w[k], e) for k, e in zip(("fwd", "bwd"), done[site])}
+        worst[path] = w
+    log(f"[im2im in parity] {len(done)} sites of the five paths pass, each repeating bit for "
+        f"bit: max |dy|, |ddx| by path " + ", ".join(
+            f"{p} {w['fwd']:.3g}, {w['bwd']:.3g}" for p, w in worst.items())
+        + f" (y tol {Y_ATOL:g}, dx tol {DX_RTOL:g} of max|dx|)")
+    _in_capture_check("[im2im in parity]")
+    times = {path: _in_times(f"[im2im in time] {path}",
+                             [(s, sl, n) for (s, sl), n in im2im_sites(path, "step").items()],
+                             [], gen)
+             for path in ("pix2pix", "discogan")}
+    return worst, times
+
+
+def _step_report(tag, smi, step_once, n_timed, what, images):
+    """Steady state of ``step_once`` (a step, or a unit): host-clock ms over
+    ``n_timed`` after 3 warm-up, synchronized; then 3 under torch.profiler:
+    device time, device kernels and the busy share, and the IN pair's device
+    time. Returns the numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        step_once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        step_once()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_timed * 1e3
+    n_prof, kernels, prof_ms = 3, [], None
+    for _ in range(3):  # keep the most complete of three traces (device_ms)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_prof):
+                step_once()
+            torch.cuda.synchronize()
+            t = (time.perf_counter() - t0) * 1e3
+        got = device_kernels(prof)
+        if len(got) > len(kernels):
+            kernels, prof_ms = got, t
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    in_ms = sum(e.time_range.elapsed_us() for e in kernels
+                if "in_act_fwd_" in e.name or "in_act_bwd_" in e.name) / 1e3
+    r = {"ms": ms, "device_ms": busy_ms / n_prof if kernels else None,
+         "kernels": len(kernels) / n_prof, "busy": busy_ms / prof_ms if kernels else None,
+         "in_device_ms": in_ms / n_prof if kernels else None}
+    log(f"{tag} steady state on {torch.cuda.get_device_name(0)} ({smi}): {ms:.3f} ms a {what}, "
+        f"{images * 1e3 / ms:.1f} images/s (mean of {n_timed} after 3 warm-up; host clock, "
+        f"synchronized); profiled {n_prof}: {r['kernels']:.0f} device kernels and "
+        f"{fmt_ms(r['device_ms'], 0)} ms of device time a {what}, the IN pair "
+        f"{fmt_ms(r['in_device_ms'], 0)} ms of it; device busy "
+        + (f"{r['busy']:.1%}" if kernels else "not measured"))
+    return r
+
+
+def _im2im_main(tag, mod, n_batches, interval, grid_wh, in_units):
+    """``mod.main`` at its reference configuration for ``n_batches`` with
+    samples every ``interval`` and a checkpoint: finite losses at every row,
+    each PNG by name and grid size, each checkpoint by the reference's name,
+    finite; the IN launches against ``in_units`` (unit -> count in the run).
+    Returns the launches."""
+    import torch
+
+    out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{mod.NAME}_")
+    wall, launches, _ = _run_main(mod, [
+        "--synthetic_data", "--n_epochs", "1", "--max_batches", str(n_batches),
+        "--sample_interval", str(interval), "--checkpoint_interval", "1", "--log_interval", "1"],
+        out_dir)
+    log("")
+    rows = _check_rows(tag, os.path.join(out_dir, "metrics.jsonl"), n_batches)
+    dataset = mod.Config.dataset_name
+    pngs = [os.path.join(out_dir, "images", dataset, f"{i}.png")
+            for i in range(0, n_batches, interval)]
+    _check_grids(tag, pngs, grid_wh)
+    ckpts = [os.path.join(out_dir, "saved_models", dataset, f"{m}_0.pth") for m in mod.MODULES]
+    for path in ckpts:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if not all(torch.isfinite(v).all() for v in sd.values()):
+            raise AssertionError(f"{tag} non-finite weights in {os.path.basename(path)}")
+    want = {d: sum(n * im2im_per_unit(mod.NAME, unit, d) for unit, n in in_units.items())
+            for d in ("fwd", "bwd")}
+    got = {"fwd": launches["in_fwd"], "bwd": launches["in_bwd"]}
+    log(f"{tag} main() took {wall:.1f} s ({n_batches} batches: {in_units}); losses finite in "
+        f"{len(rows)} rows (last {rows[-1]}); wrote {[os.path.basename(p) for p in pngs]} "
+        f"({grid_wh[0]}x{grid_wh[1]}) and {[os.path.basename(p) for p in ckpts]}; IN launches "
+        f"{got}, expected {want}")
+    if got != want or any(launches[k] for k in launches if not k.startswith("in_")):
+        raise AssertionError(f"{tag} launches {launches}, expected IN {want} and no other")
+    return got
+
+
+def _grid_wh(n, h, w, nrow):
+    return nrow * (w + 2) + 2, -(-n // nrow) * (h + 2) + 2
+
+
+def phase_im2im_slices(smi):
+    """pix2pix (256px, batch 1), discogan (64px, batch 64) and dualgan
+    (128px, batch 8, n_critic 5) through their mains, eager, then each
+    step's steady state."""
+    import numpy as np
+    import torch
+
+    from tpugan_torch.models import discogan, dualgan, pix2pix
+
+    dev = torch.device("cuda")
+    out = {}
+    for mod, grid in ((pix2pix, _grid_wh(10, 3 * 256, 256, 5)),
+                      (discogan, _grid_wh(64, 64, 64, 8)),
+                      (dualgan, _grid_wh(32, 2 * 128, 128, 8))):
+        tag = f"[{mod.NAME} slice]"
+        n, interval = IM2IM_SLICE[mod.NAME]
+        samples = len(range(0, n, interval))
+        if mod is dualgan:
+            units = {"d_step": n, "g_step": len(range(0, n, dualgan.Config.n_critic)),
+                     "sample": samples}
+        else:
+            units = {"step": n, "sample": samples}
+        launches = _im2im_main(tag, mod, n, interval, grid, units)
+        cfg = mod.Config(synthetic_data=True)
+        size = getattr(cfg, "img_size", None) or cfg.img_height
+        rng = np.random.default_rng(0)
+        a, b = (torch.from_numpy(rng.integers(0, 256, (cfg.batch_size, size, size, 3),
+                                              dtype=np.uint8)).to(dev) for _ in range(2))
+        state = mod.create_state(cfg, mod.build(cfg, dev), dev)
+        if mod is dualgan:
+            d_step, g_step = dualgan.make_steps(cfg, state)
+
+            def unit():  # one schedule unit: n_critic critic steps, one generator step
+                for i in range(cfg.n_critic):
+                    d_step(state, a, b)
+                    if i == 0:
+                        g_step(state, a, b)
+
+            r = _step_report(tag, smi, unit, 4, f"unit of {cfg.n_critic} batches",
+                             cfg.n_critic * cfg.batch_size)
+        else:
+            step = mod.make_step(cfg, state)
+            r = _step_report(tag, smi, lambda: step(state, a, b), 20, "step", cfg.batch_size)
+        out[mod.NAME] = {"launches": launches, **r}
+    return out
+
+
+def _inpainting_fused(tag, smi, mod):
+    """``mod.main`` at its reference configuration unfused (one epoch of
+    ``INPAINT_EPOCH_BATCHES``) and with ``INPAINT_K`` steps a CUDA graph (two
+    such epochs): finite losses, the same rows' steps and keys, the PNGs by
+    name, the graph's replays, and the IN pair's launches on the device
+    (wrapper calls not captured, plus captured calls times replays), 6 each
+    way a step. Then replay against eager from the same seed with cuDNN held
+    deterministic (bit for bit on every tensor), and the graphed step beside
+    the eager one."""
+    import torch
+
+    cfg = mod.Config(synthetic_data=True)
+    k, per_step = INPAINT_K, im2im_per_unit(mod.NAME, "step", "fwd")
+    keys, device = {}, {"fwd": 0, "bwd": 0}
+    calls = {"fwd": 0, "bwd": 0, "fwd_captured": 0, "bwd_captured": 0, "replays": 0}
+    for fused_k, epochs in ((1, 1), (k, 2)):
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{mod.NAME}_{fused_k}_")
+        n = epochs * INPAINT_EPOCH_BATCHES
+        wall, launches, replays = _run_main(mod, [
+            "--synthetic_data", "--n_epochs", str(epochs), "--max_batches",
+            str(INPAINT_EPOCH_BATCHES), "--sample_interval", str(INPAINT_SAMPLE_INTERVAL),
+            "--log_interval", "5", "--steps_per_dispatch", str(fused_k)], out_dir)
+        rows = _check_rows(tag, os.path.join(out_dir, "metrics.jsonl"), n)
+        pngs = sorted(os.listdir(os.path.join(out_dir, "images")), key=lambda p: int(p[:-4]))
+        want_pngs = [f"{i}.png" for i in range(0, n, INPAINT_SAMPLE_INTERVAL)]
+        for d in ("fwd", "bwd"):
+            cap = launches[f"in_{d}_captured"]
+            device[d] += launches[f"in_{d}"] - cap + cap * replays
+            calls[d] += launches[f"in_{d}"]
+            calls[f"{d}_captured"] += cap
+        calls["replays"] += replays
+        log(f"{tag} main() --steps_per_dispatch {fused_k}, {epochs} epoch(s) of "
+            f"{INPAINT_EPOCH_BATCHES} batches ({cfg.img_size}px, batch {cfg.batch_size}): "
+            f"{wall:.1f} s; graph replays {replays}; IN wrapper calls {launches['in_fwd']}/"
+            f"{launches['in_bwd']}, {launches['in_fwd_captured']}/{launches['in_bwd_captured']} "
+            f"of them captured; losses finite in {len(rows)} rows (last {rows[-1]}); wrote {pngs}")
+        if pngs != want_pngs:
+            raise AssertionError(f"{tag} wrote {pngs}, expected {want_pngs}")
+        if replays != (epochs * (INPAINT_EPOCH_BATCHES // k) - 1 if fused_k > 1 else 0):
+            raise AssertionError(f"{tag} {replays} graph replays")
+        keys[fused_k] = [(r["step"], sorted(r)) for r in rows]
+    want = 3 * INPAINT_EPOCH_BATCHES * per_step
+    log(f"{tag} IN launches on the device over both runs {device}, expected {want} each way "
+        f"({per_step} a step)")
+    if device != {"fwd": want, "bwd": want} or not calls["fwd_captured"]:
+        raise AssertionError(f"{tag} IN launches on the device {device}, calls {calls}")
+    if keys[k][:len(keys[1])] != keys[1]:
+        raise AssertionError(f"{tag} the fused run's rows differ from the unfused run's")
+
+    dev = torch.device("cuda")
+
+    def make():
+        state = mod.create_state(cfg, mod.build(cfg, dev), dev)
+        return state, mod.make_step(cfg, state)
+
+    imgs = _u8_chunks((3, k, cfg.batch_size, cfg.img_size, cfg.img_size, 3))
+    worst = _replay_vs_eager(tag, make, imgs, k, deterministic=True, n_eager=2)
+    times = _fused_times(tag, smi, make, imgs[0], k, cfg.batch_size)
+    return {"device_launches": device, "calls": calls, "replay_vs_eager": worst, **times}
+
+
+def phase_inpainting_fused(smi):
+    """context_encoder and ccgan through ``run_training``, unfused and fused:
+    the IN pair inside the captured graph."""
+    from tpugan_torch.models import ccgan, context_encoder
+
+    return {mod.NAME: _inpainting_fused(f"[{mod.NAME} fused]", smi, mod)
+            for mod in (context_encoder, ccgan)}
+
+
 def main() -> int:
     import torch
 
@@ -2156,12 +2536,16 @@ def main() -> int:
     adain_time = phase_adain_time(smi)
     munit_in_worst, munit_in_time = phase_munit_in()
     munit_launches = phase_munit_slice(smi)
+    im2im_worst, im2im_time = phase_im2im_in()
+    im2im = phase_im2im_slices(smi)
     phase_dcgan_slice(smi)
     fused = {"dcgan 64px": phase_dcgan_fused(smi), "wgan_gp": phase_wgan_gp_fused(smi),
              "wgan": phase_wgan_fused(smi)}
     gp_fused = fused["wgan_gp"]
     fused.update(phase_critic_rest_fused(smi))
     fused.update(phase_conditional_fused(smi))
+    inpainting = phase_inpainting_fused(smi)
+    fused.update(inpainting)
     bench_rec = phase_dcgan_bench()
     keep = ("eager_ms", "graph_ms", "device_ms", "busy", "capture_s", "instantiate_s",
             "memory_before", "memory_after", "replay_vs_eager")
@@ -2179,9 +2563,10 @@ def main() -> int:
     }
     kernels = []
     for k in ("fwd", "bwd"):
-        # The IN pair runs on two paths. Its launches and error cover both;
-        # its times are one CycleGAN step's, and by_path keeps each path's
-        # own launches, error and times over one step of that path.
+        # The IN pair runs on seven paths. Its launches and error cover them
+        # all; its times are one CycleGAN step's, and by_path keeps each
+        # path's own launches (on the device: captured calls count once a
+        # replay), error and, where measured, times over one step of it.
         by_path = {
             path: {"launches": n, "max_abs_err": worst[k], **t[k], "times_of": times_of}
             for path, n, worst, t, times_of in (
@@ -2190,12 +2575,25 @@ def main() -> int:
                 ("munit", munit_launches[f"in_{k}"], munit_in_worst, munit_in_time,
                  f"one munit step, {MUNIT_IN_PER_STEP} launches"))
         }
+        for path in ("pix2pix", "discogan", "dualgan"):
+            by_path[path] = {"launches": im2im[path]["launches"][k],
+                             "max_abs_err": im2im_worst[path][k],
+                             "step_ms": im2im[path]["ms"],
+                             "step_in_device_ms": im2im[path]["in_device_ms"]}
+            if path in im2im_time:
+                by_path[path].update(im2im_time[path][k], times_of=(
+                    f"one {path} step, {im2im_per_unit(path, 'step', k)} launches"))
+        for path, r in inpainting.items():
+            by_path[f"{path} cuda_graph"] = {
+                "launches": r["device_launches"][k], "max_abs_err": im2im_worst[path][k],
+                "wrapper_calls": r["calls"][k], "captured": r["calls"][f"{k}_captured"],
+                "replays": r["calls"]["replays"]}
         c = by_path["cyclegan"]
         kernels.append({
             "name": f"in_act_{k}", "route": "cuda", "source": in_src,
             "replaces": replaces[f"in_act_{k}"],
-            "launches": in_launches[k] + munit_launches[f"in_{k}"],
-            "max_abs_err": max(in_worst[k], munit_in_worst[k]), "ms": c["ms"],
+            "launches": sum(p["launches"] for p in by_path.values()),
+            "max_abs_err": max(p["max_abs_err"] for p in by_path.values()), "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": "bytes",
             "library_ms": c["library_ms"], "device_ms": c["device_ms"],
             "times_of": c["times_of"], "by_path": by_path,

@@ -320,8 +320,12 @@ def test_checkpoint_then_resume_roundtrip(tmp_path):
 
 
 def test_layer_options_not_ported_raise():
+    """Tracked IN (stargan) is not ported yet; affine IN is (dualgan), and
+    it needs its channel count."""
     from tpugan_torch.nn.layers import InstanceNorm
 
-    for kw in ({"affine": True}, {"track_running_stats": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InstanceNorm(**kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InstanceNorm(track_running_stats=True)
+    with pytest.raises(ValueError, match="num_features"):
+        InstanceNorm(affine=True)
+    assert [k for k, _ in InstanceNorm(4, affine=True).named_parameters()] == ["weight", "bias"]

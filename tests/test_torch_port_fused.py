@@ -2,7 +2,7 @@
 against the unfused loops and the JAX package (mirrors
 tests/test_scan_dispatch.py and tests/test_critic_family.py:121-230). The
 fused loops run every trainer that fuses: dcgan, lsgan, gan, dragan, cgan,
-acgan, sgan and infogan through ``run_training``; wgan, wgan_gp and wgan_div
+acgan, sgan, infogan, context_encoder and ccgan through ``run_training``; wgan, wgan_gp and wgan_div
 through ``run_critic_family``.
 
 On a CPU state ``graph_steps`` runs its K steps in a Python loop, so the
@@ -38,7 +38,9 @@ from tpugan.models import wgan_gp as wgp_j
 from tpugan_torch.io.interop import load_jax_params
 from tpugan_torch.models import _critic_family as cf_t
 from tpugan_torch.models import acgan as ac_t
+from tpugan_torch.models import ccgan as cc_t
 from tpugan_torch.models import cgan as cg_t
+from tpugan_torch.models import context_encoder as ce_t
 from tpugan_torch.models import dcgan as dc_t
 from tpugan_torch.models import dragan as dr_t
 from tpugan_torch.models import gan as gan_t
@@ -63,7 +65,14 @@ CRITIC = {"wgan": (wg_t, wg_j), "wgan_gp": (wgp_t, wgp_j), "wgan_div": (wd_t, wd
 # end (dragan).
 RUN_TRAINING = {"dcgan": (dc_t, "out"), "lsgan": (ls_t, "out"), "gan": (gan_t, "out"),
                 "sgan": (sg_t, "out"), "cgan": (cg_t, "state"), "acgan": (ac_t, "state"),
-                "infogan": (ig_t, "state"), "dragan": (dr_t, "epoch")}
+                "infogan": (ig_t, "state"), "dragan": (dr_t, "epoch"),
+                "context_encoder": (ce_t, "state"), "ccgan": (cc_t, "preview")}
+# The inpainting pair's sizes: context_encoder's generator emits the mask
+# patch (image twice the mask); ccgan's d6 is 2x2 at 128px, where its
+# sampler's BatchNorm still has more than one value a channel at batch 1.
+RUN_TRAINING_SIZE = {"context_encoder": ["--img_size", "32", "--mask_size", "16",
+                                         "--batch_size", "2"],
+                     "ccgan": ["--img_size", "128", "--batch_size", "2"]}
 
 
 def _u8(shape, seed=7):
@@ -183,39 +192,47 @@ def _chunk_last(i, k, n):
 @pytest.mark.parametrize("name", sorted(RUN_TRAINING))
 def test_fused_run_training_writes_the_unfused_rows_and_samples(tmp_path, name, capsys):
     """7 batches an epoch, 2 epochs, K = 3: two dispatches and a tail of one
-    each epoch. The rows and log lines are the unfused loop's bit for bit.
-    Every step is sampled. A sample of the step's images is its dispatch's
-    last gen_imgs (the documented deviation): the unfused run's sample of
-    that step. A sample of G on its own noise is taken after the dispatch:
-    the unfused run's bit for bit at each dispatch's last step and in the
-    tails. dragan's per-epoch grid holds the last logged batch's images
-    (batch 6, in the tail): the unfused run's."""
+    each epoch (the inpainting pair, whose steps are heavier: 4 batches, one
+    dispatch and a tail of one). The rows and log lines are the unfused
+    loop's bit for bit. Every step is sampled. A sample of the step's images
+    is its dispatch's last gen_imgs (the documented deviation): the unfused
+    run's sample of that step. A sample of G on its own noise is taken after
+    the dispatch: the unfused run's bit for bit at each dispatch's last step
+    and in the tails. dragan's per-epoch grid holds the last logged batch's
+    images (batch 6, in the tail): the unfused run's. ccgan's sheets hold its
+    preview, the first image of the first ten rows logged or sampled, which
+    the JAX package keeps as it is under fused dispatch (a dispatch's rows
+    carry its last step's images): the same names."""
     mod, source = RUN_TRAINING[name]
-    argv = ["--synthetic_data", "--n_epochs", "2", "--max_batches", "7", "--batch_size", "8",
+    n = 4 if name in RUN_TRAINING_SIZE else 7
+    argv = ["--synthetic_data", "--n_epochs", "2", "--max_batches", str(n), "--batch_size", "8",
             "--latent_dim", str(LATENT), "--img_size", "16", "--sample_interval", "1",
-            "--log_interval", "3"]
+            "--log_interval", "3"] + RUN_TRAINING_SIZE.get(name, [])
     runs, logs = {}, {}
     for k in (1, 3):
         runs[k] = _run_main(lambda a: mod.main(a, CPU), argv + ["--steps_per_dispatch", str(k)],
                             tmp_path / str(k))
         logs[k] = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[Epoch")]
     (rows1, png1), (rows3, png3) = runs[1], runs[3]
-    assert rows3 == rows1 and [r["step"] for r in rows1] == list(range(14))
-    assert logs[3] == logs[1] and len(logs[1]) == 6
+    assert rows3 == rows1 and [r["step"] for r in rows1] == list(range(2 * n))
+    assert logs[3] == logs[1] and len(logs[1]) == 2 * len(range(0, n, 3))
     if source == "epoch":
         assert sorted(png3) == sorted(png1) == ["0.png", "1.png"]
         assert png3 == png1
         return
+    if source == "preview":
+        assert sorted(png3) == sorted(png1) == sorted(f"{i}.png" for i in range(2 * n))
+        return
     dirs = ig_t.SAMPLE_DIRS if name == "infogan" else ("",)
     assert sorted(png3) == sorted(png1) == sorted(os.path.join(d, f"{i}.png") for d in dirs
-                                                  for i in range(14))
+                                                  for i in range(2 * n))
     for d in dirs:
         for epoch in range(2):
-            for i in range(7):
-                last = _chunk_last(i, 3, 7)
-                png = os.path.join(d, f"{epoch * 7 + i}.png")
+            for i in range(n):
+                last = _chunk_last(i, 3, n)
+                png = os.path.join(d, f"{epoch * n + i}.png")
                 if source == "out":
-                    assert png3[png] == png1[os.path.join(d, f"{epoch * 7 + last}.png")], png
+                    assert png3[png] == png1[os.path.join(d, f"{epoch * n + last}.png")], png
                 elif last == i:
                     assert png3[png] == png1[png], png
 

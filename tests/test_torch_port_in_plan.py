@@ -1,14 +1,21 @@
 """The launch plan of the instance-norm and AdaIN kernels
 (``tpugan_torch.ops.instance_norm.plan``), on the CPU.
 
-Every shape the CycleGAN and MUNIT paths give the pair (the lists of
-``chip_smoke.py``), in both directions: the regime, the cluster size, the
-slice's bytes and its cover of H*W, the threads and the shared memory are
-what the rule says. The kernels themselves run only on the card
+Every shape the CycleGAN, MUNIT and five im2im paths give the pair (the
+lists of ``chip_smoke.py``), in both directions: the regime, the cluster
+size, the slice's bytes and its cover of H*W, the threads and the shared
+memory are what the rule says. The im2im lists themselves are held to a CPU
+run of one unit of each path at batch 1, which records every IN call's
+shape and slope. The kernels themselves run only on the card
 (``tests/test_torch_port_kernels_gpu.py``).
 """
 
+import collections
+
+import numpy as np
 import pytest
+import torch
+from test_torch_port_critic_rest import one_torch_thread  # noqa: F401 (autouse fixture)
 
 import chip_smoke
 from tpugan_torch.ops import instance_norm as tin
@@ -18,6 +25,8 @@ SHAPES = sorted(
     | {s for s, _ in chip_smoke.MUNIT_IN_STEP} | {s for s, _ in chip_smoke.MUNIT_IN_SAMPLE}
     | {chip_smoke.ADAIN_STEP_SHAPE, chip_smoke.ADAIN_SAMPLE_SHAPE}
     | {s for s, _, _ in chip_smoke.ADAIN_CASES}
+    | {s for path, units in chip_smoke.IM2IM_IN.items() for unit in units
+       for s, _ in chip_smoke.im2im_sites(path, unit)}
 )
 SMEM_LIMIT = 227 * 1024  # a CTA's shared memory on the H100
 STATIC_SMEM = 512  # the regime-B kernels' own: barriers, sums (256 bytes by ptxas)
@@ -124,3 +133,81 @@ def test_launchers_refuse_cpu_tensors():
         tin._launch_fwd("in_act_fwd", x, 1e-5, 0.0)
     with pytest.raises(ValueError, match="expected all on cuda"):
         tin._launch_bwd("in_act_bwd", x, x, x[0, :, 0, 0], x[0, :, 0, 0], 0.0)
+
+
+def test_regime_a_takes_the_im2im_small_planes():
+    """discogan's 2x2 maps at batch 64 (32,768 planes, 8 a CTA), the U-Nets'
+    512-channel 2x2 and 4x4 maps at batch 1 (a plane a CTA's warp)."""
+    assert tin.plan(64 * 512, 4, "fwd") == tin.Plan("A", 8, 0, 0, 256, 4096, 0)
+    assert tin.plan(512, 4, "bwd").regime == "A" and tin.plan(512, 16, "fwd").group == 2
+
+
+# --- The im2im site lists of chip_smoke.py, recorded on the CPU -------------------
+
+
+def _u8(shape):
+    return torch.from_numpy(np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8))
+
+
+@pytest.fixture
+def recorded(monkeypatch):
+    """Every IN call as {direction: Counter((shape, slope))}."""
+    rec = {"fwd": collections.Counter(), "bwd": collections.Counter()}
+    fwd, bwd = tin.in_act_fwd, tin.in_act_bwd
+
+    def f(x, eps, slope):
+        rec["fwd"][(tuple(x.shape), slope)] += 1
+        return fwd(x, eps, slope)
+
+    def b(g, x, mean, rstd, slope):
+        rec["bwd"][(tuple(x.shape), slope)] += 1
+        return bwd(g, x, mean, rstd, slope)
+
+    monkeypatch.setattr(tin, "in_act_fwd", f)
+    monkeypatch.setattr(tin, "in_act_bwd", b)
+    return rec
+
+
+def _check(rec, path, unit, sample_batch=None):
+    """The recorded calls against chip_smoke's unit at batch 1 (a sampler's
+    at its own batch divided out), then cleared."""
+    want = chip_smoke.IM2IM_IN[path][unit]
+    if sample_batch:
+        want = {((s[0] // sample_batch, *s[1:]), sl): n for (s, sl), n in want.items()}
+    assert dict(rec["fwd"]) == want, (path, unit)
+    back = want if unit in chip_smoke.IM2IM_BWD_UNITS else {}
+    assert dict(rec["bwd"]) == back, (path, unit)
+    for c in rec.values():
+        c.clear()
+
+
+@pytest.mark.parametrize("path", ["pix2pix", "discogan", "dualgan", "context_encoder", "ccgan"])
+def test_im2im_site_lists_are_what_a_cpu_step_records(recorded, path):
+    """One unit of each path at batch 1 and the reference image size; the
+    samplers' generator forwards at batch 1 (their sheets run them at 10 or
+    16, which ``im2im_sites`` keeps)."""
+    import importlib
+
+    mod = importlib.import_module(f"tpugan_torch.models.{path}")
+    cpu = torch.device("cpu")
+    cfg = mod.Config(batch_size=1, synthetic_data=True)
+    size = getattr(cfg, "img_size", None) or cfg.img_height
+    state = mod.create_state(cfg, mod.build(cfg, cpu), cpu)
+    x = _u8((1, size, size, 3))
+    if path == "dualgan":
+        d_step, g_step = mod.make_steps(cfg, state)
+        d_step(state, x, x)
+        _check(recorded, path, "d_step")
+        g_step(state, x, x)
+        _check(recorded, path, "g_step")
+    else:
+        mod.make_step(cfg, state)(state, *((x,) if path in ("context_encoder", "ccgan") else (x, x)))
+        _check(recorded, path, "step")
+    if "sample" in chip_smoke.IM2IM_IN[path]:
+        gens = [m for r, m in state.modules.items() if r in ("generator", "G_AB", "G_BA")]
+        real = torch.zeros(1, 3, size, size)
+        with torch.no_grad():
+            for G in gens:
+                G.train(path != "discogan")  # discogan samples in eval mode
+                G(real, generator=torch.Generator().manual_seed(0))
+        _check(recorded, path, "sample", {"pix2pix": 10, "discogan": 16, "dualgan": 16}[path])

@@ -2,7 +2,8 @@
 version, and the launch counts of one CycleGAN step, one WGAN-GP critic step
 and one MUNIT step; and one DCGAN step at 64px on the card against the same
 step on the CPU, and one step of each of gan, wgan_div, dragan, cgan, acgan,
-sgan and infogan at its reference configuration likewise.
+sgan and infogan at its reference configuration likewise, and of pix2pix,
+discogan, dualgan, context_encoder and ccgan, with their IN launches.
 
 These need a CUDA device and skip without one. The fused dispatch: DCGAN
 steps (K = 3) and WGAN-GP schedule units (K = 2) replayed from a CUDA graph
@@ -579,7 +580,7 @@ def test_a_replayed_unit_launches_the_gp_kernels_once_each_way_per_critic_step(c
 
 
 @pytest.mark.parametrize("name", ["dcgan", "wgan_gp", "wgan", "gan", "wgan_div", "dragan", "cgan",
-                                  "acgan", "sgan", "infogan"])
+                                  "acgan", "sgan", "infogan", "context_encoder", "ccgan"])
 def test_fused_main_writes_the_rows_and_samples_of_the_unfused_main(cuda, tmp_path, name):
     """The trainer's ``main`` on the card with ``--steps_per_dispatch 3``
     (the loader's thread copying while the graph is captured) against the
@@ -759,3 +760,169 @@ def test_one_step_on_the_card_matches_the_cpu(cuda, name):
         for k, v in m.state_dict().items():
             if "running" in k or "num_batches" in k:
                 torch.testing.assert_close(v.cpu(), stats_c[k], rtol=1e-4, atol=1e-5, msg=k)
+
+
+# --- The im2im trainers: one step ----------------------------------------------
+#
+# pix2pix, discogan, dualgan (one d_step and one g_step), context_encoder and
+# ccgan at their reference configurations, the same weights, batch and
+# draws on both devices: the dropout masks drawn on the CPU run and passed to
+# the card's, the mask corners and dualgan's alphas drawn beforehand. Losses
+# 1e-4 relative; each optimizer's gradients 1e-3 relative plus
+# ``IM2IM_FLOORS`` of its module's largest CPU gradient; Adam's first step of
+# the card's own gradients; running statistics 1e-4 relative and
+# ``IM2IM_STATS_ATOL`` absolute (dualgan's critics: after the d_step, before
+# Adam's first step moves a weight by up to lr where its gradient is
+# rounding); the card's IN launches, one a site, each way. The floors are
+# wider than the MNIST trainers' because a ReLU or LeakyReLU unit whose
+# pre-activation lies within rounding of 0 takes its other slope on one
+# device (the CPU tests show one such unit moving a generator's gradient by
+# up to 1e-3 of its largest), and the U-Nets' deep sums at batch 8-64 carry
+# cuDNN's rounding further. Measured
+# on an H100 (the test prints each share): pix2pix 4.8e-4 and 8.3e-4;
+# discogan's generators 2.8e-3; dualgan 6.0e-4, its critics 6.2e-4;
+# context_encoder 1.8e-4 and 1.8e-3; ccgan's generator 2.6e-3. The running
+# statistics take 5e-5 absolute: dualgan's critic statistics after the
+# d_step, whose fakes come out of a 7-down U-Net through cuDNN, lay up to
+# 1.5e-5 apart.
+
+IM2IM_FLOORS = {"generator": 5e-3, "discriminator": 5e-3, "G": 5e-3, "D_A": 5e-3, "D_B": 5e-3}
+IM2IM_STATS_ATOL = 5e-5
+
+
+def _draws_recorded(run):
+    """``run()`` with every MaskedDropout mask drawn recorded, in call order."""
+    from tpugan_torch.nn.layers import MaskedDropout
+
+    seen, draw = [], MaskedDropout.draw_mask
+
+    def record(self, shape, generator):
+        m = draw(self, shape, generator)
+        seen.append(m.cpu())
+        return m
+
+    MaskedDropout.draw_mask = record
+    try:
+        out = run()
+    finally:
+        MaskedDropout.draw_mask = draw
+    return out, seen
+
+
+def _im2im_step(name, mod, cfg, state, batch, draws):
+    """One step (dualgan: d_step then g_step) with the given draws, or with
+    the masks drawn and recorded when ``draws["masks"]`` is None. Returns
+    (out, masks)."""
+    masks = draws.get("masks")
+    if name == "dualgan":
+        d_step, g_step = mod.make_steps(cfg, state)
+
+        def run():
+            _, d_out = d_step(state, *batch, masks=None if masks is None else masks[:2],
+                              alphas=draws["alphas"])
+            for role in ("D_A", "D_B"):
+                draws[f"{role} stats"] = {k: v.cpu().clone() for k, v in
+                                          state.modules[role].state_dict().items()
+                                          if "running" in k}
+            _, g_out = g_step(state, *batch, masks=None if masks is None else masks[2:])
+            return {**d_out, **g_out}
+
+        groups = [7] * 6
+    else:
+        kw = {"corners": draws["corners"]} if "corners" in draws else {}
+        step = mod.make_step(cfg, state)
+        sites = {"pix2pix": [9], "discogan": [7] * 4, "ccgan": [7], "context_encoder": []}[name]
+        flat = {"pix2pix": True, "ccgan": True}.get(name, False)
+
+        def run():
+            if sites:
+                kw["masks"] = None if masks is None else (masks[0] if flat else masks)
+            return step(state, *batch, **kw)[1]
+
+        groups = sites
+    if masks is not None:
+        return run(), masks
+    out, seen = _draws_recorded(run)
+    it = iter(seen)
+    return out, [[next(it) for _ in range(n)] for n in groups]
+
+
+@pytest.mark.parametrize("name", ["pix2pix", "discogan", "dualgan", "context_encoder", "ccgan"])
+def test_one_im2im_step_on_the_card_matches_the_cpu(cuda, name):
+    import importlib
+
+    import numpy as np
+
+    mod = importlib.import_module(f"tpugan_torch.models.{name}")
+    cfg = mod.Config(synthetic_data=True)
+    size = getattr(cfg, "img_size", None) or cfg.img_height
+    rng = np.random.default_rng(0)
+    imgs = [torch.from_numpy(rng.integers(0, 256, (cfg.batch_size, size, size, 3),
+                                          dtype=np.uint8)) for _ in range(2)]
+    batch = imgs if name in ("pix2pix", "discogan", "dualgan") else imgs[:1]
+    g = torch.Generator().manual_seed(1)
+    draws = {"masks": None}
+    if name == "dualgan":
+        draws["alphas"] = [torch.rand(cfg.batch_size, 1, 1, 1, generator=g) for _ in range(2)]
+    if name in ("context_encoder", "ccgan"):
+        draws["corners"] = torch.randint(0, size - cfg.mask_size, (cfg.batch_size, 2), generator=g)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs = []
+    try:
+        for dev in (torch.device("cpu"), cuda):
+            modules = mod.build(cfg, dev)
+            state = mod.create_state(cfg, modules, dev)
+            rec = _record_updates(state)
+            moved = {k: v if k == "masks" and v is None else
+                     [[m.to(dev) for m in ms] for ms in v] if k == "masks" else
+                     [a.to(dev) for a in v] if k == "alphas" else v.to(dev)
+                     for k, v in draws.items() if not k.endswith("stats")}
+            tin.reset_launch_counts()
+            out, masks = _im2im_step(name, mod, cfg, state, [x.to(dev) for x in batch], moved)
+            torch.cuda.synchronize()
+            draws["masks"] = masks
+            stats = {r: draws.pop(f"{r} stats") for r in ("D_A", "D_B") if f"{r} stats" in draws}
+            runs.append((modules, rec, {k: v.cpu() for k, v in out.items() if v.ndim == 0},
+                         (tin.fwd_launches, tin.bwd_launches), stats))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    (mods_c, rec_c, out_c, _, d_stats_c), (mods_g, rec_g, out_g, launches, d_stats_g) = runs
+    import chip_smoke
+
+    units = ("d_step", "g_step") if name == "dualgan" else ("step",)
+    want = tuple(sum(chip_smoke.im2im_per_unit(name, u, d) for u in units) for d in ("fwd", "bwd"))
+    assert launches == want, (launches, want)
+    for k in out_c:
+        torch.testing.assert_close(out_g[k], out_c[k], rtol=1e-4, atol=0, msg=k)
+    for opt_name, want_rec in rec_c.items():
+        got = rec_g[opt_name]
+        largest = {}
+        for (role, _), (_, grad, _) in want_rec.items():
+            if grad is not None:
+                largest[role] = max(largest.get(role, 0.0), float(grad.abs().max()))
+        worst, share = {}, IM2IM_FLOORS[opt_name]
+        for key, (before_c, grad_c, _) in want_rec.items():
+            before_g, grad_g, after_g = got[key]
+            if grad_c is None:
+                assert grad_g is None, (opt_name, key)
+                continue
+            role = key[0]
+            floor = share * largest[role]
+            worst[role] = max(worst.get(role, 0.0), float((grad_g - grad_c).abs().max()))
+            torch.testing.assert_close(grad_g, grad_c, rtol=1e-3, atol=floor, msg=lambda m: (
+                f"{opt_name} {key}: |g| max {float(grad_c.abs().max()):.3e}, card-CPU "
+                f"{float((grad_g - grad_c).abs().max()):.3e}, floor {floor:.3e}\n{m}"))
+            torch.testing.assert_close(after_g, _adam_first_step(before_g, grad_g, cfg),
+                                       rtol=1e-6, atol=1e-7, msg=lambda m: f"{key}: {m}")
+        print(f"{name} {opt_name}: card-CPU gradients differ by at most " + ", ".join(
+            f"{role} {worst[role] / largest[role]:.3e}" for role in worst)
+            + f" of the largest; floor {share:.0e}")
+    for role, m in mods_g.items():
+        stats_g = d_stats_g.get(role) or m.state_dict()
+        stats_c = d_stats_c.get(role) or mods_c[role].state_dict()
+        for k, v in stats_g.items():
+            if "running" in k:
+                torch.testing.assert_close(v.cpu(), stats_c[k], rtol=1e-4,
+                                           atol=IM2IM_STATS_ATOL,
+                                           msg=lambda m, k=k: f"{role} {k}: {m}")

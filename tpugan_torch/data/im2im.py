@@ -171,6 +171,74 @@ def unpaired_or_synthetic(
     return a, b[rng.permutation(len(b))], False
 
 
+def synthetic_attr_faces(
+    n: int, height: int, width: int, c_dim: int, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Procedural attribute-conditioned images: each binary attribute
+    controls a visible image property (hue of a region), so the attribute
+    classifier head has real signal."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 2, size=(n, c_dim)).astype(np.float32)
+    imgs = np.zeros((n, height, width, 3), np.float32)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    for i in range(n):
+        base = rng.uniform(40, 90)
+        img = np.full((height, width, 3), base, np.float32)
+        # Central "face" ellipse.
+        cy, cx = height / 2 + rng.normal(0, 2), width / 2 + rng.normal(0, 2)
+        mask = ((yy - cy) / (height * 0.3)) ** 2 + (
+            (xx - cx) / (width * 0.22)
+        ) ** 2 < 1.0
+        img[mask] = 180.0
+        for a in range(c_dim):
+            if labels[i, a] > 0.5:
+                band = slice(a * height // max(c_dim, 1),
+                             (a + 1) * height // max(c_dim, 1))
+                img[band, :, a % 3] += 60.0
+        img += rng.normal(0, 5, img.shape)
+        imgs[i] = img
+    return np.clip(imgs, 0, 255).astype(np.uint8), labels
+
+
+def celeba_images_or_synthetic(
+    data_dir: str,
+    dataset_name: str,
+    height: int,
+    width: int,
+    mode: str = "train",
+    val_tail: int = 4000,
+    synthetic: bool = False,
+    synthetic_n: int = 512,
+    seed: int = 0,
+) -> Tuple[np.ndarray, bool]:
+    """Plain CelebA-style image folder (no attributes) with the
+    context_encoder split rule: last ``val_tail`` files are the val set
+    (context_encoder/datasets.py:17-18). Documented deviation: for folders
+    with <= val_tail images the reference's slice leaves an EMPTY train
+    set; here the tail shrinks to 10% (min 1) so both splits are non-empty
+    and never overlap. Falls back to the procedural attr-face images."""
+    if not synthetic:
+        imgs = _load_folder(os.path.join(data_dir, dataset_name), height, width)
+        if imgs is not None and len(imgs) > 0:
+            if len(imgs) == 1:
+                return imgs, True  # degenerate folder: share the one image
+            tail = val_tail
+            if len(imgs) <= val_tail:
+                tail = max(1, len(imgs) // 10)
+                print(
+                    f"[tpugan] {dataset_name}: only {len(imgs)} images — "
+                    f"val split shrunk to the last {tail} (reference slice "
+                    f"would leave an empty train set)"
+                )
+            imgs = imgs[:-tail] if mode == "train" else imgs[-tail:]
+            return imgs, True
+    imgs, _ = synthetic_attr_faces(
+        synthetic_n, height, width, 5,
+        seed=seed + (0 if mode == "train" else 1),
+    )
+    return imgs, False
+
+
 def resize_crop_flip_transform(
     seed: int,
     height: int,

@@ -65,15 +65,22 @@ def acc_log_line(cfg):
     return log
 
 
+def sample_generator(cfg, batches_done: int, device) -> torch.Generator:
+    """A generator on ``device`` of a sampler's own, seeded from (``--seed``,
+    batches_done), as the JAX samplers fold batches_done into a key they do
+    not keep (``tpugan/models/cgan.py:202``): sampling leaves the training
+    draws as they were."""
+    seed = np.random.SeedSequence([cfg.seed, int(batches_done)]).generate_state(1, np.uint64)
+    return torch.Generator(device=torch.device(device)).manual_seed(int(seed[0]))
+
+
 def sample_noise(cfg, batches_done: int, shape, device) -> torch.Tensor:
     """N(0, 1) noise of ``shape`` for the sample taken at ``batches_done``,
     from a generator of the sampler's own seeded from (``--seed``,
     batches_done), as the JAX samplers fold batches_done into a key they do
     not keep (``tpugan/models/cgan.py:202``): sampling leaves the training
     draws, ``state.draws``, as they were."""
-    seed = np.random.SeedSequence([cfg.seed, int(batches_done)]).generate_state(1, np.uint64)
-    draws = torch.Generator().manual_seed(int(seed[0]))
-    return torch.randn(shape, generator=draws).to(device)
+    return torch.randn(shape, generator=sample_generator(cfg, batches_done, "cpu")).to(device)
 
 
 def save_grid(imgs: torch.Tensor, path: str, nrow: int) -> None:

@@ -70,3 +70,72 @@ def maybe_resume(modules: dict, cfg, names) -> None:
             sd = torch.load(checkpoint_path(ckptdir, name, cfg.epoch), map_location="cpu",
                             weights_only=True)
             modules[name].load_state_dict(sd)
+
+
+def paired_loader(cfg, device, height: int, width: int, split: str = "train",
+                  batch_size=None, prefetch: int = 2):
+    """The paired loader of pix2pix, discogan and dualgan
+    (``tpugan/models/pix2pix.py:make_loader``): A|B pairs from
+    ``--data_dir``/``--dataset_name``, or synthetic pairs; the training split
+    shuffled with a joint horizontal flip, the others with seed + 991."""
+    from tpugan_torch.data.im2im import joint_hflip_transform, paired_or_synthetic
+    from tpugan_torch.data.loader import DeviceLoader
+
+    a, b, is_real = paired_or_synthetic(
+        cfg.data_dir, cfg.dataset_name, height, width,
+        split=split, synthetic=cfg.synthetic_data, seed=cfg.seed,
+    )
+    if not is_real and split == "train":
+        print("[tpugan] dataset %r not found on disk — using synthetic pairs" % cfg.dataset_name)
+    return DeviceLoader(
+        [a, b], batch_size or cfg.batch_size, device, shuffle=True,
+        seed=cfg.seed if split == "train" else cfg.seed + 991, prefetch=prefetch,
+        host_transform=joint_hflip_transform(cfg.seed) if split == "train" else None,
+    )
+
+
+def first_batch(loader, epoch: int) -> tuple:
+    """The first batch of ``loader``'s epoch ``epoch`` (a sampler's)."""
+    batches = loader.epoch(int(epoch))
+    try:
+        return next(batches)
+    finally:
+        batches.close()
+
+
+def run_per_step(cfg, loader, state, step, sample, log_body, modules: dict, names,
+                 epoch_end=None):
+    """The hand-rolled loop of cyclegan, munit, pix2pix and discogan
+    (``tpugan/models/pix2pix.py:run``): one step a batch, up to
+    ``--max_batches`` an epoch, from ``--epoch``; the step's scalars to
+    ``--metrics_jsonl``, the ETA line with ``log_body(out)`` every
+    ``--log_interval`` batches, ``sample(state, out, batches_done)`` every
+    ``sample_interval``; ``epoch_end()`` (the schedulers' step) and the
+    checkpoints after each epoch. Fused dispatch is not supported: the
+    notice, then one step a batch."""
+    import contextlib
+
+    from tpugan_torch.train.loop import StepObserver
+
+    bpe = len(loader)
+    if cfg.max_batches >= 0:
+        bpe = min(bpe, cfg.max_batches)
+    observer = StepObserver(cfg)
+    eta = EtaLogger(cfg.n_epochs)
+    for epoch in range(cfg.epoch, cfg.n_epochs):
+        with contextlib.closing(loader.epoch(epoch)) as batches:
+            for i, batch in enumerate(batches):
+                if cfg.max_batches >= 0 and i >= cfg.max_batches:
+                    break
+                state, out = step(state, *batch)
+                batches_done = epoch * bpe + i
+                observer.observe(batches_done, out)
+                if cfg.log_interval > 0 and i % cfg.log_interval == 0:
+                    eta.line(epoch, i, bpe, log_body(out))
+                if cfg.sample_interval > 0 and batches_done % cfg.sample_interval == 0:
+                    sample(state, out, batches_done)
+        if epoch_end is not None:
+            epoch_end()
+        checkpoint_epoch(modules, cfg, epoch, names)
+    observer.close()
+    return state

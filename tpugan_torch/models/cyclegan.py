@@ -18,7 +18,6 @@ CPU. ``run`` trains on CUDA and raises when there is none.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -28,9 +27,9 @@ from tpugan_torch.data.im2im import resize_crop_flip_transform, unpaired_or_synt
 from tpugan_torch.data.loader import UnpairedLoader
 from tpugan_torch.io.images import make_grid, save_image
 from tpugan_torch.losses import l1, mse
-from tpugan_torch.models._im2im_common import EtaLogger, checkpoint_epoch, maybe_resume, out_dirs
+from tpugan_torch.models._im2im_common import first_batch, maybe_resume, out_dirs, run_per_step
 from tpugan_torch.nn.im2im import GeneratorResNet, PatchGAN
-from tpugan_torch.train.loop import StepObserver, train_device
+from tpugan_torch.train.loop import train_device
 from tpugan_torch.train.optim import linear_decay_lambda
 from tpugan_torch.train.replay import ReplayBuffer
 from tpugan_torch.train.state import normalize_uint8
@@ -194,9 +193,7 @@ def make_sampler(cfg: Config, modules: dict, device):
 
     @torch.no_grad()
     def sample(state, out, batches_done):
-        batches = val_loader.epoch(int(batches_done))
-        a_u8, b_u8 = next(batches)
-        batches.close()
+        a_u8, b_u8 = first_batch(val_loader, batches_done)
         real_a, real_b = normalize_uint8(a_u8), normalize_uint8(b_u8)
         rows = (real_a, G_AB(real_a), real_b, G_BA(real_b))
         grids = [
@@ -217,41 +214,14 @@ def run(cfg: Config) -> TrainState:
     device = train_device(cfg)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
-    loader = make_loader(cfg, device)
-    bpe = len(loader)
-    if cfg.max_batches >= 0:
-        bpe = min(bpe, cfg.max_batches)
     state = create_state(cfg, modules, device)
-    observer = StepObserver(cfg)
-    step = make_step(cfg, modules, device)
-    sample = make_sampler(cfg, modules, device)
-    eta = EtaLogger(cfg.n_epochs)
-
-    for epoch in range(cfg.epoch, cfg.n_epochs):
-        with contextlib.closing(loader.epoch(epoch)) as batches:
-            for i, batch in enumerate(batches):
-                if cfg.max_batches >= 0 and i >= cfg.max_batches:
-                    break
-                state, out = step(state, *batch)
-                batches_done = epoch * bpe + i
-                observer.observe(batches_done, out)
-                if cfg.log_interval > 0 and i % cfg.log_interval == 0:
-                    eta.line(
-                        epoch, i, bpe,
-                        "[D loss: %f] [G loss: %f, adv: %f, cycle: %f, identity: %f]"
-                        % (
-                            float(out["d_loss"]), float(out["g_loss"]),
-                            float(out["loss_GAN"]), float(out["loss_cycle"]),
-                            float(out["loss_identity"]),
-                        ),
-                    )
-                if cfg.sample_interval > 0 and batches_done % cfg.sample_interval == 0:
-                    sample(state, out, batches_done)
-        for sched in state.schedulers.values():
-            sched.step()
-        checkpoint_epoch(modules, cfg, epoch, MODULES)
-    observer.close()
-    return state
+    return run_per_step(
+        cfg, make_loader(cfg, device), state, make_step(cfg, modules, device),
+        make_sampler(cfg, modules, device),
+        lambda out: "[D loss: %f] [G loss: %f, adv: %f, cycle: %f, identity: %f]" % (
+            float(out["d_loss"]), float(out["g_loss"]), float(out["loss_GAN"]),
+            float(out["loss_cycle"]), float(out["loss_identity"])),
+        modules, MODULES, epoch_end=lambda: [s.step() for s in state.schedulers.values()])
 
 
 def main(argv=None):

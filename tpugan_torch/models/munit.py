@@ -23,19 +23,22 @@ none.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
-import numpy as np
 import torch
 from torch import nn
 
-from tpugan_torch.data.im2im import joint_hflip_transform, paired_or_synthetic
-from tpugan_torch.data.loader import DeviceLoader
 from tpugan_torch.io.images import save_image
 from tpugan_torch.losses import l1
-from tpugan_torch.models._im2im_common import EtaLogger, checkpoint_epoch, maybe_resume, out_dirs
+from tpugan_torch.models._common import sample_generator
+from tpugan_torch.models._im2im_common import (
+    first_batch,
+    maybe_resume,
+    out_dirs,
+    paired_loader,
+    run_per_step,
+)
 from tpugan_torch.nn.style import (
     ContentEncoder,
     MultiDiscriminator,
@@ -43,7 +46,7 @@ from tpugan_torch.nn.style import (
     StyleEncoder,
     multi_d_loss,
 )
-from tpugan_torch.train.loop import StepObserver, train_device
+from tpugan_torch.train.loop import train_device
 from tpugan_torch.train.optim import linear_decay_lambda
 from tpugan_torch.train.state import normalize_uint8
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -193,17 +196,7 @@ def make_step(cfg: Config, modules: dict, device):
 
 
 def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2):
-    a, b, is_real = paired_or_synthetic(
-        cfg.data_dir, cfg.dataset_name, cfg.img_height, cfg.img_width,
-        split=split, synthetic=cfg.synthetic_data, seed=cfg.seed,
-    )
-    if not is_real and split == "train":
-        print("[tpugan] dataset %r not found on disk — using synthetic pairs" % cfg.dataset_name)
-    return DeviceLoader(
-        [a, b], batch_size or cfg.batch_size, device, shuffle=True,
-        seed=cfg.seed if split == "train" else cfg.seed + 991, prefetch=prefetch,
-        host_transform=joint_hflip_transform(cfg.seed) if split == "train" else None,
-    )
+    return paired_loader(cfg, device, cfg.img_height, cfg.img_width, split, batch_size, prefetch)
 
 
 def make_sampler(cfg: Config, modules: dict, device):
@@ -222,13 +215,10 @@ def make_sampler(cfg: Config, modules: dict, device):
 
     @torch.no_grad()
     def sample(state, out, batches_done):
-        batches = val_loader.epoch(int(batches_done))
-        a_u8, _ = next(batches)
-        batches.close()
+        a_u8, _ = first_batch(val_loader, batches_done)
         x = normalize_uint8(a_u8)
         n, c, h, w = x.shape
-        seed = np.random.SeedSequence([cfg.seed, int(batches_done)]).generate_state(1, np.uint64)
-        draws = torch.Generator().manual_seed(int(seed[0]))
+        draws = sample_generator(cfg, batches_done, "cpu")
         codes = (torch.rand((n * s, s), generator=draws) * 2 - 1).to(x.device)
         x12 = Dec2(Enc1.content_encoder(x.repeat_interleave(s, dim=0)), codes)
         rows = torch.cat([x[:, None], x12.reshape(n, s, c, h, w)], dim=1)
@@ -246,34 +236,12 @@ def run(cfg: Config, device=None) -> TrainState:
     device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
-    loader = make_loader(cfg, device)
-    bpe = len(loader)
-    if cfg.max_batches >= 0:
-        bpe = min(bpe, cfg.max_batches)
     state = create_state(cfg, modules, device)
-    observer = StepObserver(cfg)
-    step = make_step(cfg, modules, device)
-    sample = make_sampler(cfg, modules, device)
-    eta = EtaLogger(cfg.n_epochs)
-
-    for epoch in range(cfg.epoch, cfg.n_epochs):
-        with contextlib.closing(loader.epoch(epoch)) as batches:
-            for i, batch in enumerate(batches):
-                if cfg.max_batches >= 0 and i >= cfg.max_batches:
-                    break
-                state, out = step(state, *batch)
-                batches_done = epoch * bpe + i
-                observer.observe(batches_done, out)
-                if cfg.log_interval > 0 and i % cfg.log_interval == 0:
-                    eta.line(epoch, i, bpe, "[D loss: %f] [G loss: %f]"
-                             % (float(out["d_loss"]), float(out["g_loss"])))
-                if cfg.sample_interval > 0 and batches_done % cfg.sample_interval == 0:
-                    sample(state, out, batches_done)
-        for sched in state.schedulers.values():
-            sched.step()
-        checkpoint_epoch(modules, cfg, epoch, MODULES)
-    observer.close()
-    return state
+    return run_per_step(
+        cfg, make_loader(cfg, device), state, make_step(cfg, modules, device),
+        make_sampler(cfg, modules, device),
+        lambda out: "[D loss: %f] [G loss: %f]" % (float(out["d_loss"]), float(out["g_loss"])),
+        modules, MODULES, epoch_end=lambda: [s.step() for s in state.schedulers.values()])
 
 
 def main(argv=None, device=None):

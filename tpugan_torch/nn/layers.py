@@ -21,8 +21,7 @@ from tpugan_torch.ops.instance_norm import instance_norm_act
 
 # The ROADMAP queue 1 item that ports each layer option not here yet.
 _LAYERS_ITEM = {
-    "ConvTranspose2d": "ROADMAP queue 1, item 5 (rest of im2im)",
-    "InstanceNorm": "ROADMAP queue 1, item 5 (rest of im2im: affine and tracked IN)",
+    "InstanceNorm": "ROADMAP queue 1, item 5 (stargan: tracked IN)",
     "PixelShuffle": "ROADMAP queue 1, item 7 (SR)",
     "PReLU": "ROADMAP queue 1, item 7 (SR)",
     "he": "ROADMAP queue 1, item 7 (SR: the VGG features)",
@@ -84,6 +83,31 @@ class Conv2d(nn.Conv2d):
         _check_init_mode("Conv2d", init_mode, ("normal02zero", "normal02"))
         super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=bias)
         _init_weight_bias(self, init_mode, in_channels * kernel_size * kernel_size, generator)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """torch.nn.ConvTranspose2d (``tpugan/nn/layers.py:ConvTranspose``), cuDNN's
+    transposed convolution: out = (in - 1) * stride - 2 * padding + kernel.
+    ``init_mode`` as ``Conv2d``'s, with torch's fan-in of a transposed
+    convolution: out_channels * kernel * kernel (the weight is (in, out, k,
+    k)). The default is ``normal02``, the reference's ``weights_init_normal``
+    on pix2pix, dualgan, context_encoder and ccgan."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int,
+        stride: int = 1,
+        padding: int = 0,
+        bias: bool = True,
+        *,
+        init_mode: str = "normal02",
+        generator: Optional[torch.Generator] = None,
+    ):
+        _check_init_mode("ConvTranspose2d", init_mode, ("normal02zero", "normal02"))
+        super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=bias)
+        _init_weight_bias(self, init_mode, out_channels * kernel_size * kernel_size, generator)
 
 
 class Linear(nn.Linear):
@@ -206,32 +230,48 @@ def batch_stats_frozen(module: nn.Module):
 
 
 class InstanceNorm(nn.Module):
-    """torch.nn.InstanceNorm2d (affine=False) with an optional fused leaky
-    activation: ``act_slope`` 1.0 is plain IN, 0.0 IN+ReLU, 0.2
-    IN+LeakyReLU(0.2). Runs through the instance-norm kernel pair
-    (``tpugan_torch/ops/instance_norm.py``)."""
+    """torch.nn.InstanceNorm2d with an optional fused leaky activation:
+    ``act_slope`` 1.0 is plain IN, 0.0 IN+ReLU, 0.2 IN+LeakyReLU(0.2). Runs
+    through the instance-norm kernel pair (``tpugan_torch/ops/instance_norm.py``).
+
+    ``affine=True`` (dualgan) adds torch's per-channel ``weight`` (ones) and
+    ``bias`` (zeros) over ``num_features`` channels, applied outside the
+    kernel as the JAX package applies its scale and bias
+    (``tpugan/nn/layers.py:562-571``): the kernel at slope 1, then
+    ``y * weight + bias``. An activation after the affine stays a layer of
+    its own, so ``act_slope`` must be 1 then."""
 
     def __init__(
         self,
+        num_features: int = 0,
         act_slope: float = 1.0,
         eps: float = 1e-5,
         affine: bool = False,
         track_running_stats: bool = False,
     ):
         super().__init__()
-        if affine or track_running_stats:
+        if track_running_stats:
             raise NotImplementedError(
-                f"InstanceNorm(affine={affine}, track_running_stats="
-                f"{track_running_stats}): {_LAYERS_ITEM['InstanceNorm']}"
+                f"InstanceNorm(track_running_stats=True): {_LAYERS_ITEM['InstanceNorm']}"
             )
+        if affine and (num_features <= 0 or act_slope != 1.0):
+            raise ValueError(f"InstanceNorm(affine=True) needs num_features and act_slope 1, "
+                             f"got {num_features}, {act_slope}")
         self.act_slope = act_slope
         self.eps = eps
+        self.affine = affine
+        if affine:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return instance_norm_act(x, self.act_slope, self.eps)
+        y = instance_norm_act(x, self.act_slope, self.eps)
+        if self.affine:
+            y = y * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
+        return y
 
     def extra_repr(self) -> str:
-        return f"act_slope={self.act_slope}, eps={self.eps}"
+        return f"act_slope={self.act_slope}, eps={self.eps}, affine={self.affine}"
 
 
 class LayerNormSpatial(nn.Module):

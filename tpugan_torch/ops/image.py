@@ -28,3 +28,12 @@ def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
     """nn.AvgPool2d(window, stride, padding, count_include_pad)
     (``tpugan/ops/image.py:avg_pool``)."""
     return F.avg_pool2d(x, window, stride, padding, count_include_pad=count_include_pad)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize to ``out_hw`` (``tpugan/ops/image.py:resize_bilinear``):
+    ``jax.image.resize(..., "bilinear")``, which widens its triangle filter by
+    the scale when it shrinks (antialiasing), as ``F.interpolate`` does with
+    ``antialias=True``; half-pixel centres (``align_corners=False``)."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False,
+                         antialias=True)

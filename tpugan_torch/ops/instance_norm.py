@@ -17,7 +17,11 @@ of 2, 4 or 8 CTAs that add their partial sums in a fixed rank order.
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain version,
 a CUDA tensor launches the kernel or raises. ``fwd_launches`` and
-``bwd_launches`` count kernel launches, and only those.
+``bwd_launches`` count wrapper calls that launched, and only those;
+``fwd_captured`` and ``bwd_captured`` count those of them made while the
+current stream was capturing a CUDA graph. A captured call counts once
+however often its graph is replayed: the kernels that ran on the device are
+the calls not captured plus each captured call times its graph's replays.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from tpugan_torch.ops._build import LaunchPlan, check_tensors, library
 
 fwd_launches = 0
 bwd_launches = 0
+fwd_captured = 0
+bwd_captured = 0
 
 # The launch plan's constants (see ``plan``).
 SMS = 132  # streaming multiprocessors of the H100 SXM
@@ -42,9 +48,8 @@ CLUSTER_MAX = 8  # the portable thread block cluster size
 
 
 def reset_launch_counts() -> None:
-    global fwd_launches, bwd_launches
-    fwd_launches = 0
-    bwd_launches = 0
+    global fwd_launches, bwd_launches, fwd_captured, bwd_captured
+    fwd_launches = bwd_launches = fwd_captured = bwd_captured = 0
 
 
 class Plan(NamedTuple):
@@ -142,7 +147,9 @@ def _c_plan(p: Plan, planes: int, hw: int):
     return ctypes.byref(LaunchPlan(planes, hw, p.group, p.slice, p.held, p.threads))
 
 
-# The C entry points and the raw-stream reader, bound at the first launch.
+# The C entry points, the raw-stream reader and the capture query
+# (``torch.cuda.is_current_stream_capturing`` without its checks), bound at
+# the first launch.
 _bound = None
 
 
@@ -151,7 +158,8 @@ def _bind():
     lib = library()
     # The value of torch.cuda.current_stream(index).cuda_stream, without
     # building a Stream object (CUDA builds of torch only).
-    _bound = (lib.in_act_fwd, lib.in_act_bwd, torch._C._cuda_getCurrentRawStream)
+    _bound = (lib.in_act_fwd, lib.in_act_bwd, torch._C._cuda_getCurrentRawStream,
+              torch._C._cuda_isCurrentStreamCapturing)
     return _bound
 
 
@@ -184,7 +192,7 @@ def _launch_fwd(name: str, x, eps: float, slope: float, w=None, b=None):
                          f"expected {(n, c)}")
     planes, hw = n * c, h * wd
     p, cp = _plan_arg(planes, hw, "fwd")
-    fwd, _, stream = _bound or _bind()
+    fwd, _, stream, _ = _bound or _bind()
     y = torch.empty_like(x)
     mean = x.new_empty(planes)
     rstd = torch.empty_like(mean)
@@ -216,7 +224,7 @@ def _launch_bwd(name: str, g, x, mean, rstd, slope: float, w=None):
             f"rstd {tuple(rstd.shape)}{'' if w is None else f', w {tuple(w.shape)}'} do not agree"
         )
     p, cp = _plan_arg(planes, hw, "bwd")
-    _, bwd, stream = _bound or _bind()
+    _, bwd, stream, _ = _bound or _bind()
     dx = torch.empty_like(x)
     if w is None:
         rc = bwd(g.data_ptr(), x.data_ptr(), None, mean.data_ptr(), rstd.data_ptr(),
@@ -234,22 +242,24 @@ def _launch_bwd(name: str, g, x, mean, rstd, slope: float, w=None):
 def in_act_fwd(x: torch.Tensor, eps: float, slope: float):
     """Forward wrapper: (y, mean, rstd). CPU tensors take the plain version;
     CUDA tensors launch ``in_act_fwd`` of ``instance_norm.cu``."""
-    global fwd_launches
+    global fwd_launches, fwd_captured
     if x.is_cpu:
         return in_act_fwd_ref(x, eps, slope)
     out = _launch_fwd("in_act_fwd", x, eps, slope)
     fwd_launches += 1
+    fwd_captured += _bound[3]()
     return out
 
 
 def in_act_bwd(g, x, mean, rstd, slope: float):
     """Backward wrapper: dx. CPU tensors take the plain version; CUDA
     tensors launch ``in_act_bwd`` of ``instance_norm.cu``."""
-    global bwd_launches
+    global bwd_launches, bwd_captured
     if x.is_cpu:
         return in_act_bwd_ref(g, x, mean, rstd, slope)
     dx = _launch_bwd("in_act_bwd", g, x, mean, rstd, slope)
     bwd_launches += 1
+    bwd_captured += _bound[3]()
     return dx
 
 
