@@ -63,8 +63,9 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    discogan, dualgan, context_encoder, ccgan: ``IM2IM_IN``), their steps'
    and samplers', down to discogan's 32,768 2x2 planes at batch 64; the pair
    captured in a CUDA graph at a plane split over a cluster, replayed bit
-   for bit; then the times at each site of one pix2pix and one discogan
-   step and their sums (``[im2im in parity]``, ``[im2im in time]``).
+   for bit; then the times at each site of one step of each path (dualgan:
+   a d_step and a g_step) and their sums (``[im2im in parity]``, ``[im2im
+   in time]``).
 11. im2im slices: ``pix2pix.main`` (256px, batch 1), ``discogan.main``
    (64px, batch 64) and ``dualgan.main`` (128px, batch 8, n_critic 5), each
    at its reference configuration for 5-6 batches, eager: finite losses,
@@ -115,7 +116,26 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    times replays), 6 each way a step; replay against eager with cuDNN held
    deterministic, bit for bit; eager and graphed ms a step
    (``[context_encoder fused]``, ``[ccgan fused]``).
-16. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
+16. stargan, unit and pixelda IN parity and time: the instance-norm pair
+   against its plain version at every (shape, slope) site of each path, the
+   steps' and the samplers' (stargan's batch-50 sheet, unit's batch-5),
+   repeating bit for bit, then the times over one step of each
+   (``[stargan in parity]``/``[stargan in time]``, likewise unit, pixelda).
+17. stargan and unit slices: ``stargan.main`` (128px, batch 16, 6 residual
+   blocks, n_critic 5) for 5 batches and ``unit.main`` (256px, batch 1, dim
+   64) for 6, eager: finite losses, the sheets, the checkpoints reloaded,
+   the exact IN launches; then the steady state (stargan's d_step and
+   g_step apart) and the peak memory (``[stargan slice]``, ``[unit
+   slice]``); the tracked IN's train-mode buffers and eval forward against
+   plain PyTorch (``[stargan tracked in]``).
+18. The two-domain pair fused: ``pixelda.main`` (32px, batch 64) and
+   ``cogan.main`` (32px, batch 32) over the MNIST/MNIST-M ``ZipLoader``, as
+   the inpainting pair: pixelda's IN launches on the device (18 forward, 15
+   backward a step), cogan's none; replay bit for bit against eager with
+   cuDNN deterministic; eager and graphed ms a step (``[pixelda fused]``,
+   ``[cogan fused]``). Each of these phases prints its seconds, and the
+   script its whole.
+19. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
    of 60 steps replayed), its JSON line printed before a ``[fused summary]``
    line and the last three lines.
 
@@ -125,8 +145,8 @@ The bounds use the published peaks of the card ``nvidia-smi`` names
 Any failure raises, and the script exits non-zero without the final line.
 The last three lines are the kernels' JSON record (every kernel with its
 launches on the main path, error, times, device time, bound and library-call
-time; the IN pair, which runs on the CycleGAN, MUNIT and five im2im paths,
-two of them inside replayed CUDA graphs, and the GP pair, which runs eager
+time; the IN pair, which runs on the CycleGAN, MUNIT and eight im2im paths,
+three of them inside replayed CUDA graphs, and the GP pair, which runs eager
 and inside the replayed WGAN-GP unit, also by path),
 ``nvidia-smi``'s name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no JAX.
@@ -326,6 +346,42 @@ IM2IM_IN = {
         _sites(2, {(128, 32, 0.2): 1, (256, 16, 0.2): 1, (512, 16, 0.2): 1}))},
 }
 IM2IM_BWD_UNITS = ("step", "g_step")  # the units whose every site is differentiated
+IM2IM_PATHS = ("pix2pix", "discogan", "dualgan", "context_encoder", "ccgan")
+
+# The IN sites of the three paths PR 11 adds, recorded likewise
+# (``tests/test_torch_port_in_plan.py`` records them again, stargan and unit
+# at a smaller image size and scaled). stargan (128px, batch 16): 17 tracked
+# affine INs a generator forward, the kernel at slope 1; a d_step makes one
+# forward, not differentiated, a g_step two; the sample sheet one at batch
+# 50 (10 images x 5 translations). unit (256px, batch 1): an encoder call
+# makes 11 sites (IN+LeakyReLU(0.2) after the c7, IN+ReLU after each down,
+# the four residual blocks' IN+ReLU and IN), a generator call 10, a
+# discriminator call 3 (IN+LeakyReLU(0.2)); a step makes 4 encoder, 6
+# generator and 6 discriminator calls, every one differentiated; the sheet
+# two of each network at batch 5. pixelda (32px, batch 64): plain IN after
+# LeakyReLU at 8x8, 4x4 and 2x2 in the discriminator and the classifier
+# blocks, 5 differentiated calls a step and one forward only (the
+# classifier's accuracy on MNIST-M, ``telemetry``).
+_STAR_G = {(64, 128, 1.0): 2, (128, 64, 1.0): 2, (256, 32, 1.0): 13}
+_UNIT_E = {(64, 256, 0.2): 1, (128, 128, 0.0): 1, (256, 64, 0.0): 5, (256, 64, 1.0): 4}
+_UNIT_G = {(256, 64, 0.0): 4, (256, 64, 1.0): 4, (128, 128, 0.2): 1, (64, 256, 0.2): 1}
+_UNIT_D = {(128, 64, 0.2): 1, (256, 32, 0.2): 1, (512, 16, 0.2): 1}
+_PIXELDA_BLOCKS = {(128, 8, 1.0): 1, (256, 4, 1.0): 1, (512, 2, 1.0): 1}
+IM2IM_BATCH.update(stargan=16, unit=1, pixelda=64)
+IM2IM_IN.update({
+    "stargan": {"d_step": _sites(1, _STAR_G), "g_step": _sites(1, _STAR_G, 2),
+                "sample": _sites(50, _STAR_G)},
+    "unit": {"step": _add_sites(_sites(1, _UNIT_E, 4), _sites(1, _UNIT_G, 6),
+                                _sites(1, _UNIT_D, 6)),
+             "sample": _add_sites(_sites(5, _UNIT_E, 2), _sites(5, _UNIT_G, 2))},
+    "pixelda": {"step": _sites(1, _PIXELDA_BLOCKS, 5), "telemetry": _sites(1, _PIXELDA_BLOCKS)},
+})
+NEW_IN_PATHS = ("stargan", "unit", "pixelda")
+# The units of one timed step of each path (stargan: a batch with a g_step).
+IN_TIMED_UNITS = {"pix2pix": ("step",), "discogan": ("step",), "dualgan": ("d_step", "g_step"),
+                  "context_encoder": ("step",), "ccgan": ("step",),
+                  "stargan": ("d_step", "g_step"), "unit": ("step",),
+                  "pixelda": ("step", "telemetry")}
 
 
 def im2im_sites(path: str, unit: str) -> dict:
@@ -339,6 +395,17 @@ def im2im_per_unit(path: str, unit: str, direction: str) -> int:
     if direction == "bwd" and unit not in IM2IM_BWD_UNITS:
         return 0
     return sum(IM2IM_IN[path][unit].values())
+
+
+def timed_sites(path: str) -> list:
+    """(shape, slope, forward launches, backward launches) of every site of
+    one timed step of a path (``IN_TIMED_UNITS``), at its reference batch."""
+    out = {}
+    for unit in IN_TIMED_UNITS[path]:
+        for site, n in im2im_sites(path, unit).items():
+            f, b = out.get(site, (0, 0))
+            out[site] = (f + n, b + (n if unit in IM2IM_BWD_UNITS else 0))
+    return [(shape, slope, f, b) for (shape, slope), (f, b) in out.items()]
 
 
 # The im2im slices, each main at its reference configuration: batches, and
@@ -717,7 +784,9 @@ def phase_parity():
 
 
 def _in_times(tag, step_sites, sample_sites, gen):
-    """At each (shape, slope, launches) site: the IN pair's times beside the
+    """At each (shape, slope, launches) site, or (shape, slope, forward
+    launches, backward launches) where a step differentiates only some of
+    its calls: the IN pair's times beside the
     plain version's, the bound (8 bytes an element forward, 12 backward) and
     the PyTorch call that computes the slope-1 function on the (1, B*C, H, W)
     view, ``F.instance_norm`` forward and ``native_batch_norm_backward``
@@ -733,7 +802,8 @@ def _in_times(tag, step_sites, sample_sites, gen):
     per_step = {k: dict.fromkeys(keys, 0.0) for k in ("fwd", "bwd")}
     log(f"{tag} shape          slope launches/step | fwd ms  plain   bound   library  device "
         "lib dev | bwd ms  plain   bound   library  device lib dev")
-    for i, (shape, slope, n) in enumerate(step_sites + sample_sites):
+    for i, (shape, slope, *n) in enumerate(step_sites + sample_sites):
+        n = {"fwd": n[0], "bwd": n[-1]}
         x = torch.randn(shape, device="cuda", generator=gen)
         g = torch.randn(shape, device="cuda", generator=gen)
         _, mean, rstd = tin.in_act_fwd_ref(x, EPS, slope)
@@ -767,12 +837,14 @@ def _in_times(tag, step_sites, sample_sites, gen):
         if in_step:
             for k in ("fwd", "bwd"):
                 for key in keys:
-                    per_step[k][key] = add_ms(per_step[k][key], n, t[k][key])
-        log(f"{tag} {str(shape):18s} {slope:3g} {n:3d}{'         ' if in_step else ' (sample)'} | "
+                    per_step[k][key] = add_ms(per_step[k][key], n[k], t[k][key])
+        count = f"{n['fwd']:3d}" if n["fwd"] == n["bwd"] else f"{n['fwd']}/{n['bwd']}"
+        log(f"{tag} {str(shape):18s} {slope:3g} {count:>5s}{'       ' if in_step else ' (sample)'} | "
             + " | ".join(" ".join(fmt_ms(t[k][key]) for key in keys) for k in ("fwd", "bwd")))
     for k, lib in (("fwd", "F.instance_norm"), ("bwd", "native_batch_norm_backward")):
         o = per_step[k]
-        log(f"{tag} one step's {sum(n for *_, n in step_sites)} {k} launches: {o['ms']:.3f} ms "
+        launches = sum(n[0 if k == "fwd" else -1] for _, _, *n in step_sites)
+        log(f"{tag} one step's {launches} {k} launches: {o['ms']:.3f} ms "
             f"(plain {o['plain_ms']:.3f}, bound {o['bound_ms']:.3f}, {lib} {o['library_ms']:.3f}); "
             f"device time {fmt_ms(o['device_ms'], 0)} ms, {lib} {fmt_ms(o['library_device_ms'], 0)}")
     return per_step
@@ -2296,30 +2368,35 @@ def phase_im2im_in():
     """The IN pair against its plain version at every (shape, slope) site of
     the five im2im paths, their steps' and their samplers', forward and
     backward, by path; a capture of the pair inside a CUDA graph at a
-    clustered shape; then the times at each site of one pix2pix step and one
-    discogan step, with their sums."""
+    clustered shape; then the times at each site of one step of each path
+    (dualgan: a d_step and a g_step), with their sums."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(9)
-    worst, done = {}, {}
-    for path, units in IM2IM_IN.items():
-        w = {"fwd": 0.0, "bwd": 0.0}
-        for unit in units:
-            for site in im2im_sites(path, unit):
-                if site not in done:
-                    done[site] = _parity_case(*site, 0.0, gen)
-                w = {k: max(w[k], e) for k, e in zip(("fwd", "bwd"), done[site])}
-        worst[path] = w
+    worst, done = _paths_parity(IM2IM_PATHS, gen)
     log(f"[im2im in parity] {len(done)} sites of the five paths pass, each repeating bit for "
         f"bit: max |dy|, |ddx| by path " + ", ".join(
             f"{p} {w['fwd']:.3g}, {w['bwd']:.3g}" for p, w in worst.items())
         + f" (y tol {Y_ATOL:g}, dx tol {DX_RTOL:g} of max|dx|)")
     _in_capture_check("[im2im in parity]")
-    times = {path: _in_times(f"[im2im in time] {path}",
-                             [(s, sl, n) for (s, sl), n in im2im_sites(path, "step").items()],
-                             [], gen)
-             for path in ("pix2pix", "discogan")}
+    times = {path: _in_times(f"[im2im in time] {path}", timed_sites(path), [], gen)
+             for path in IM2IM_PATHS}
     return worst, times
+
+
+def _paths_parity(paths, gen):
+    """``_parity_case`` once at every (shape, slope) site of every unit of
+    ``paths``; the largest |dy| and |ddx| by path, and the sites done."""
+    worst, done = {}, {}
+    for path in paths:
+        w = {"fwd": 0.0, "bwd": 0.0}
+        for unit in IM2IM_IN[path]:
+            for site in im2im_sites(path, unit):
+                if site not in done:
+                    done[site] = _parity_case(*site, 0.0, gen)
+                w = {k: max(w[k], e) for k, e in zip(("fwd", "bwd"), done[site])}
+        worst[path] = w
+    return worst, done
 
 
 def _step_report(tag, smi, step_once, n_timed, what, images):
@@ -2379,21 +2456,26 @@ def _im2im_main(tag, mod, n_batches, interval, grid_wh, in_units):
         out_dir)
     log("")
     rows = _check_rows(tag, os.path.join(out_dir, "metrics.jsonl"), n_batches)
-    dataset = mod.Config.dataset_name
-    pngs = [os.path.join(out_dir, "images", dataset, f"{i}.png")
-            for i in range(0, n_batches, interval)]
+    # stargan writes images/ and saved_models/ without the dataset's folder
+    # (stargan.py:297-300); it samples on its g_step batches only.
+    sub = "" if mod.NAME == "stargan" else mod.Config.dataset_name
+    every = max(interval, mod.Config.n_critic) if mod.NAME == "stargan" else interval
+    pngs = [os.path.join(out_dir, "images", sub, f"{i}.png") for i in range(0, n_batches, every)]
     _check_grids(tag, pngs, grid_wh)
-    ckpts = [os.path.join(out_dir, "saved_models", dataset, f"{m}_0.pth") for m in mod.MODULES]
-    for path in ckpts:
+    ckpts = [os.path.join(out_dir, "saved_models", sub, f"{m}_0.pth") for m in mod.MODULES]
+    fresh = mod.build(mod.Config(), torch.device("cpu"))
+    for name, path in zip(mod.MODULES, ckpts):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         if not all(torch.isfinite(v).all() for v in sd.values()):
             raise AssertionError(f"{tag} non-finite weights in {os.path.basename(path)}")
+        fresh[name].load_state_dict(sd)
     want = {d: sum(n * im2im_per_unit(mod.NAME, unit, d) for unit, n in in_units.items())
             for d in ("fwd", "bwd")}
     got = {"fwd": launches["in_fwd"], "bwd": launches["in_bwd"]}
     log(f"{tag} main() took {wall:.1f} s ({n_batches} batches: {in_units}); losses finite in "
         f"{len(rows)} rows (last {rows[-1]}); wrote {[os.path.basename(p) for p in pngs]} "
-        f"({grid_wh[0]}x{grid_wh[1]}) and {[os.path.basename(p) for p in ckpts]}; IN launches "
+        f"({grid_wh[0]}x{grid_wh[1]}) and {[os.path.basename(p) for p in ckpts]}, each reloaded "
+        f"into a new module; IN launches "
         f"{got}, expected {want}")
     if got != want or any(launches[k] for k in launches if not k.startswith("in_")):
         raise AssertionError(f"{tag} launches {launches}, expected IN {want} and no other")
@@ -2521,9 +2603,282 @@ def phase_inpainting_fused(smi):
             for mod in (context_encoder, ccgan)}
 
 
+# --- PR 11: stargan, unit, pixelda, cogan ------------------------------------------
+
+
+def _times_of(path: str, k: str) -> str:
+    n = sum(im2im_per_unit(path, u, k) for u in IN_TIMED_UNITS[path])
+    return f"one {path} step ({'+'.join(IN_TIMED_UNITS[path])}), {n} launches"
+
+
+def phase_new_in():
+    """The IN pair against its plain version at every (shape, slope) site of
+    the stargan, unit and pixelda paths, their steps' and samplers', both
+    directions, each repeating bit for bit (``[<path> in parity]``); then the
+    times at each site of one step of each path, with their sums
+    (``[<path> in time]``)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst, times = {}, {}
+    for path in NEW_IN_PATHS:
+        t0 = time.perf_counter()
+        w, done = _paths_parity((path,), gen)
+        worst[path] = w[path]
+        log(f"[{path} in parity] {len(done)} sites pass, each repeating bit for bit: max |dy| "
+            f"{w[path]['fwd']:.3g}, |ddx| {w[path]['bwd']:.3g} (y tol {Y_ATOL:g}, dx tol "
+            f"{DX_RTOL:g} of max|dx|); {time.perf_counter() - t0:.1f} s")
+        times[path] = _in_times(f"[{path} in time]", timed_sites(path), [], gen)
+    return worst, times
+
+
+# stargan 5 batches (one g_step at batch 0, n_critic 5) and unit 6, each
+# sampling at batch 0 (unit also at 5) with a checkpoint.
+NEW_SLICE = {"stargan": (5, 5), "unit": (6, 5)}
+
+
+def phase_new_slices(smi):
+    """stargan (128px, batch 16, 6 residual blocks, n_critic 5) and unit
+    (256px, batch 1, dim 64) through their mains at the reference
+    configuration, eager (``_im2im_main``: finite losses, the sheets, the
+    checkpoints reloaded, the exact IN launches); then the steady state of
+    stargan's d_step and g_step apart and of unit's step, with the peak
+    memory of each (``[stargan slice]``, ``[unit slice]``)."""
+    import numpy as np
+    import torch
+
+    from tpugan_torch.models import stargan, unit
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    out = {}
+    for mod, grid in ((stargan, _grid_wh(1, 10 * 128, 6 * 128, 1)),
+                      (unit, _grid_wh(20, 256, 256, 5))):
+        t0 = time.perf_counter()
+        tag = f"[{mod.NAME} slice]"
+        n, interval = NEW_SLICE[mod.NAME]
+        cfg = mod.Config(synthetic_data=True)
+        if mod is stargan:
+            units = {"d_step": n, "g_step": len(range(0, n, cfg.n_critic)),
+                     "sample": len(range(0, n, max(cfg.n_critic, interval)))}
+        else:
+            units = {"step": n, "sample": len(range(0, n, interval))}
+        launches = _im2im_main(tag, mod, n, interval, grid, units)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = mod.create_state(cfg, mod.build(cfg, dev), dev)
+        size = cfg.img_height
+        imgs = torch.from_numpy(rng.integers(0, 256, (cfg.batch_size, size, size, 3),
+                                             dtype=np.uint8)).to(dev)
+        if mod is stargan:
+            labels = torch.from_numpy(rng.integers(0, 2, (cfg.batch_size, 5)).astype(
+                np.float32)).to(dev)
+            d_step, g_step = stargan.make_steps(cfg, state)
+            _, d_out = d_step(state, imgs, labels)
+            c = d_out["sampled_c"]
+            rd = _step_report(f"{tag} d_step", smi, lambda: d_step(state, imgs, labels, c), 10,
+                              "d_step", cfg.batch_size)
+            rg = _step_report(f"{tag} g_step", smi, lambda: g_step(state, imgs, labels, c), 5,
+                              "g_step", cfg.batch_size)
+            r = {"d_step": rd, "g_step": rg,
+                 **{k: rd[k] + rg[k] for k in ("ms", "device_ms", "in_device_ms", "kernels")
+                    if rd[k] is not None and rg[k] is not None}}
+            r.setdefault("device_ms", None)
+            r.setdefault("in_device_ms", None)
+        else:
+            b = torch.from_numpy(rng.integers(0, 256, imgs.shape, dtype=np.uint8)).to(dev)
+            step = unit.make_step(cfg, state)
+            r = _step_report(tag, smi, lambda: step(state, imgs, b), 10, "step", cfg.batch_size)
+        torch.cuda.synchronize()
+        r["max_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        log(f"{tag} max_memory_allocated over the steady-state steps "
+            f"{r['max_memory_mib']:.1f} MiB; phase {time.perf_counter() - t0:.1f} s")
+        out[mod.NAME] = {"launches": launches, **r}
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tracked_in():
+    """stargan's tracked IN, ``InstanceNorm(256, affine=True,
+    track_running_stats=True)``, on the card at the generator's (16, 256,
+    32, 32) with a random affine and random buffers: a train-mode forward
+    launches the IN forward once and nothing else, and its y and running
+    buffers agree with a plain PyTorch computation of torch's update; a
+    frozen forward leaves the buffers bit for bit; an eval-mode forward
+    launches nothing and agrees with the plain formula (``[stargan tracked
+    in]``). Tolerances: y 1e-5 absolute (unit-scale planes, offset 0.5, scale
+    2); buffers 1e-6 absolute plus 1e-5 relative."""
+    import torch
+
+    from tpugan_torch.nn.layers import InstanceNorm, batch_stats_frozen
+    from tpugan_torch.ops import instance_norm as tin
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    c, shape, eps, m = 256, (16, 256, 32, 32), 1e-5, 0.1
+    layer = InstanceNorm(c, affine=True, track_running_stats=True).to(dev)
+    with torch.no_grad():
+        layer.weight.copy_(1.0 + 0.3 * torch.randn(c, device=dev, generator=gen))
+        layer.bias.copy_(0.3 * torch.randn(c, device=dev, generator=gen))
+        layer.running_mean.copy_(0.2 * torch.randn(c, device=dev, generator=gen))
+        layer.running_var.copy_(1.0 + 0.5 * torch.rand(c, device=dev, generator=gen))
+    w, b = layer.weight.detach().view(1, -1, 1, 1), layer.bias.detach().view(1, -1, 1, 1)
+    rm0, rv0 = layer.running_mean.clone(), layer.running_var.clone()
+    x = torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5
+    _reset_port_launches()
+    with torch.no_grad():
+        y = layer(x)
+    torch.cuda.synchronize()
+    train_launches = _port_launches()
+    hw = shape[2] * shape[3]
+    mean = x.mean(dim=(2, 3))
+    var = ((x - mean[:, :, None, None]) ** 2).sum(dim=(2, 3)) / (hw - 1)
+    rm_ref = (1 - m) * rm0 + m * mean.mean(dim=0)
+    rv_ref = (1 - m) * rv0 + m * var.mean(dim=0)
+    y_ref = tin.in_act_fwd_ref(x, eps, 1.0)[0] * w + b
+    errs = {"y": float((y - y_ref).abs().max()),
+            "running_mean": float(((layer.running_mean - rm_ref).abs()
+                                   / (1e-6 + 1e-5 * rm_ref.abs())).max()),
+            "running_var": float(((layer.running_var - rv_ref).abs()
+                                  / (1e-6 + 1e-5 * rv_ref.abs())).max())}
+    after = (layer.running_mean.clone(), layer.running_var.clone())
+    with torch.no_grad(), batch_stats_frozen(layer):
+        y_frozen = layer(x)
+    frozen_same = (torch.equal(layer.running_mean, after[0])
+                   and torch.equal(layer.running_var, after[1]) and torch.equal(y_frozen, y))
+    layer.eval()
+    _reset_port_launches()
+    with torch.no_grad():
+        y_eval = layer(x)
+    torch.cuda.synchronize()
+    eval_launches = _port_launches()
+    want = (x - after[0].view(1, -1, 1, 1)) / torch.sqrt(after[1].view(1, -1, 1, 1) + eps) * w + b
+    errs["eval y"] = float((y_eval - want).abs().max())
+    log(f"[stargan tracked in] train forward at {shape}: IN launches {train_launches['in_fwd']} "
+        f"forward, {train_launches['in_bwd']} backward; |y - plain| {errs['y']:.3g}; buffers "
+        f"against the plain update, |err| / (1e-6 + 1e-5 |want|): mean {errs['running_mean']:.3g}, "
+        f"var {errs['running_var']:.3g}; frozen forward leaves them bit for bit: {frozen_same}; "
+        f"eval forward: launches {eval_launches['in_fwd']}, |y - plain| {errs['eval y']:.3g}")
+    others = {k: v for k, v in train_launches.items() if k != "in_fwd" and v}
+    if train_launches["in_fwd"] != 1 or others or any(eval_launches.values()):
+        raise AssertionError(f"[stargan tracked in] launches: train {train_launches}, eval "
+                             f"{eval_launches}")
+    if (errs["y"] > Y_ATOL or errs["eval y"] > Y_ATOL or errs["running_mean"] > 1.0
+            or errs["running_var"] > 1.0 or not frozen_same):
+        raise AssertionError(f"[stargan tracked in] {errs}, frozen {frozen_same}")
+    return errs
+
+
+# pixelda and cogan fused: unfused one epoch of 25 batches, then K = 10 steps
+# a CUDA graph over two (two dispatches and a tail of 5 each).
+TWO_DOMAIN_K, TWO_DOMAIN_EPOCH_BATCHES, TWO_DOMAIN_SAMPLE_INTERVAL = 10, 25, 10
+
+
+def _two_domain_fused(tag, smi, mod):
+    """``mod.main`` at its reference configuration over the MNIST/MNIST-M
+    ``ZipLoader``, unfused (one epoch of ``TWO_DOMAIN_EPOCH_BATCHES``) and with
+    ``TWO_DOMAIN_K`` steps a CUDA graph (two such epochs): finite losses, the
+    same rows' steps and keys, each PNG by name and grid size, the graph's
+    replays, and the IN pair's launches on the device (wrapper calls not
+    captured, plus captured calls times replays): pixelda's 18 forward and
+    15 backward a step, cogan's none. Then replay against eager from the
+    same seed with cuDNN held deterministic (bit for bit on every tensor),
+    and the graphed step beside the eager one."""
+    import numpy as np
+    import torch
+
+    cfg = mod.Config(synthetic_data=True)
+    k, epoch_n = TWO_DOMAIN_K, TWO_DOMAIN_EPOCH_BATCHES
+    units = ("step", "telemetry") if mod.NAME == "pixelda" else ()
+    per_step = {d: sum(im2im_per_unit(mod.NAME, u, d) for u in units) for d in ("fwd", "bwd")}
+    n_img = min(5, cfg.batch_size)  # pixelda: five of A over their translations over five of B
+    grid = (_grid_wh(n_img, 3 * cfg.img_size, cfg.img_size,
+                     min(n_img, int(math.sqrt(cfg.batch_size)))) if mod.NAME == "pixelda"
+            else _grid_wh(2 * cfg.batch_size, cfg.img_size, cfg.img_size, 8))
+    keys, device = {}, {"fwd": 0, "bwd": 0}
+    calls = {"fwd": 0, "bwd": 0, "fwd_captured": 0, "bwd_captured": 0, "replays": 0}
+    for fused_k, epochs in ((1, 1), (k, 2)):
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{mod.NAME}_{fused_k}_")
+        n = epochs * epoch_n
+        wall, launches, replays = _run_main(mod, [
+            "--synthetic_data", "--n_epochs", str(epochs), "--max_batches", str(epoch_n),
+            "--sample_interval", str(TWO_DOMAIN_SAMPLE_INTERVAL), "--log_interval", "5",
+            "--steps_per_dispatch", str(fused_k)], out_dir)
+        rows = _check_rows(tag, os.path.join(out_dir, "metrics.jsonl"), n)
+        pngs = sorted(os.listdir(os.path.join(out_dir, "images")), key=lambda p: int(p[:-4]))
+        want_pngs = [f"{i}.png" for i in range(0, n, TWO_DOMAIN_SAMPLE_INTERVAL)]
+        if pngs != want_pngs:
+            raise AssertionError(f"{tag} wrote {pngs}, expected {want_pngs}")
+        _check_grids(tag, [os.path.join(out_dir, "images", p) for p in pngs], grid)
+        for d in ("fwd", "bwd"):
+            cap = launches[f"in_{d}_captured"]
+            device[d] += launches[f"in_{d}"] - cap + cap * replays
+            calls[d] += launches[f"in_{d}"]
+            calls[f"{d}_captured"] += cap
+        calls["replays"] += replays
+        others = {n_: v for n_, v in launches.items() if not n_.startswith("in_") and v}
+        log(f"{tag} main() --steps_per_dispatch {fused_k}, {epochs} epoch(s) of {epoch_n} batches "
+            f"({cfg.img_size}px, batch {cfg.batch_size}): {wall:.1f} s; graph replays {replays}; "
+            f"IN wrapper calls {launches['in_fwd']}/{launches['in_bwd']}, "
+            f"{launches['in_fwd_captured']}/{launches['in_bwd_captured']} of them captured; "
+            f"losses finite in {len(rows)} rows (last {rows[-1]}); wrote {pngs} "
+            f"({grid[0]}x{grid[1]})")
+        if others:
+            raise AssertionError(f"{tag} launched other kernels of the port: {others}")
+        if replays != (epochs * (epoch_n // k) - 1 if fused_k > 1 else 0):
+            raise AssertionError(f"{tag} {replays} graph replays")
+        keys[fused_k] = [(r["step"], sorted(r)) for r in rows]
+    want = {d: 3 * epoch_n * per_step[d] for d in ("fwd", "bwd")}
+    log(f"{tag} IN launches on the device over both runs {device}, expected {want} ({per_step} "
+        f"a step)")
+    if device != want or (per_step["fwd"] and not calls["fwd_captured"]):
+        raise AssertionError(f"{tag} IN launches on the device {device}, calls {calls}")
+    if keys[k][:len(keys[1])] != keys[1]:
+        raise AssertionError(f"{tag} the fused run's rows differ from the unfused run's")
+
+    dev = torch.device("cuda")
+
+    def make():
+        state = mod.create_state(cfg, mod.build(cfg, dev), dev)
+        return state, mod.make_step(cfg, state)
+
+    b, size = cfg.batch_size, cfg.img_size
+    rng = np.random.default_rng(1)
+    labels = lambda: torch.from_numpy(rng.integers(0, 10, (3, k, b), dtype=np.int32)).to(dev)
+    chunks = (_u8_chunks((3, k, b, size, size, 3), 0), labels(),
+              _u8_chunks((3, k, b, size, size, 3), 1), labels())
+    worst = _replay_vs_eager(tag, make, chunks, k, deterministic=True, n_eager=2)
+    times = _fused_times(tag, smi, make, tuple(c[0] for c in chunks), k, b)
+    return {"device_launches": device, "calls": calls, "replay_vs_eager": worst, **times}
+
+
+def phase_two_domain_fused(smi):
+    """pixelda and cogan through ``run_training`` over a ``ZipLoader``,
+    unfused and fused: pixelda's IN pair inside the captured graph
+    (``[pixelda fused]``, ``[cogan fused]``)."""
+    from tpugan_torch.models import cogan, pixelda
+
+    out = {}
+    for mod in (pixelda, cogan):
+        t0 = time.perf_counter()
+        out[mod.NAME] = _two_domain_fused(f"[{mod.NAME} fused]", smi, mod)
+        log(f"[{mod.NAME} fused] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _timed_phase(name, fn):
+    """``fn()``, its host seconds logged."""
+    t0 = time.perf_counter()
+    out = fn()
+    log(f"[phase seconds] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     smi = phase_device()
     phase_build()
     phase_launch_cost(smi)
@@ -2546,6 +2901,11 @@ def main() -> int:
     fused.update(phase_conditional_fused(smi))
     inpainting = phase_inpainting_fused(smi)
     fused.update(inpainting)
+    new_in_worst, new_in_time = _timed_phase("new in", phase_new_in)
+    new_slices = _timed_phase("new slices", lambda: phase_new_slices(smi))
+    _timed_phase("stargan tracked in", phase_tracked_in)
+    two_domain = _timed_phase("two-domain fused", lambda: phase_two_domain_fused(smi))
+    fused.update(two_domain)
     bench_rec = phase_dcgan_bench()
     keep = ("eager_ms", "graph_ms", "device_ms", "busy", "capture_s", "instantiate_s",
             "memory_before", "memory_after", "replay_vs_eager")
@@ -2563,7 +2923,7 @@ def main() -> int:
     }
     kernels = []
     for k in ("fwd", "bwd"):
-        # The IN pair runs on seven paths. Its launches and error cover them
+        # The IN pair runs on eleven paths. Its launches and error cover them
         # all; its times are one CycleGAN step's, and by_path keeps each
         # path's own launches (on the device: captured calls count once a
         # replay), error and, where measured, times over one step of it.
@@ -2580,14 +2940,21 @@ def main() -> int:
                              "max_abs_err": im2im_worst[path][k],
                              "step_ms": im2im[path]["ms"],
                              "step_in_device_ms": im2im[path]["in_device_ms"]}
-            if path in im2im_time:
-                by_path[path].update(im2im_time[path][k], times_of=(
-                    f"one {path} step, {im2im_per_unit(path, 'step', k)} launches"))
-        for path, r in inpainting.items():
+            by_path[path].update(im2im_time[path][k], times_of=_times_of(path, k))
+        for path in ("stargan", "unit"):
+            by_path[path] = {"launches": new_slices[path]["launches"][k],
+                             "max_abs_err": new_in_worst[path][k],
+                             "step_ms": new_slices[path]["ms"],
+                             "step_in_device_ms": new_slices[path]["in_device_ms"],
+                             **new_in_time[path][k], "times_of": _times_of(path, k)}
+        for path, r in {**inpainting, "pixelda": two_domain["pixelda"]}.items():
             by_path[f"{path} cuda_graph"] = {
-                "launches": r["device_launches"][k], "max_abs_err": im2im_worst[path][k],
+                "launches": r["device_launches"][k],
+                "max_abs_err": {**im2im_worst, **new_in_worst}[path][k],
                 "wrapper_calls": r["calls"][k], "captured": r["calls"][f"{k}_captured"],
                 "replays": r["calls"]["replays"]}
+            times = {**im2im_time, **new_in_time}[path][k]
+            by_path[f"{path} cuda_graph"].update(times, times_of=_times_of(path, k))
         c = by_path["cyclegan"]
         kernels.append({
             "name": f"in_act_{k}", "route": "cuda", "source": in_src,
@@ -2630,6 +2997,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "times_of": f"one munit step, {ADAIN_PER_STEP} launches",
         })
+    log(f"[script seconds] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -461,12 +461,14 @@ def test_runs_raise_without_cuda(tmp_path, name):
 
 
 def test_cli_lists_thirteen_trainers(capsys):
-    """The registry as it stands: the thirteen trainers above and the
-    im2im ones, pix2pix, discogan, dualgan, context_encoder and ccgan."""
+    """The registry as it stands: the thirteen trainers above, the im2im
+    ones (pix2pix, discogan, dualgan, context_encoder, ccgan, stargan, unit)
+    and the two-domain pair (pixelda, cogan)."""
     from tpugan_torch.__main__ import main
 
     assert main(["list"]) == 0
     names = [ln.strip() for ln in capsys.readouterr().out.splitlines()[2:]]
-    assert names == ["acgan", "ccgan", "cgan", "context_encoder", "cyclegan", "dcgan",
+    assert names == ["acgan", "ccgan", "cgan", "cogan", "context_encoder", "cyclegan", "dcgan",
                      "discogan", "dragan", "dualgan", "gan", "infogan", "lsgan", "munit",
-                     "pix2pix", "sgan", "wgan", "wgan_div", "wgan_gp"]
+                     "pix2pix", "pixelda", "sgan", "stargan", "unit", "wgan", "wgan_div",
+                     "wgan_gp"]

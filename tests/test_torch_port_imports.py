@@ -30,7 +30,7 @@ def test_every_port_module_imports_without_jax_or_tpugan():
             "tpugan_torch.ops.mlp_gp", "tpugan_torch.utils.config"} <= set(names)
     assert {f"tpugan_torch.models.{name}" for name in (
         "gan", "wgan_div", "dragan", "cgan", "acgan", "sgan", "infogan", "pix2pix", "discogan",
-        "dualgan", "context_encoder", "ccgan")} <= set(names)
+        "dualgan", "context_encoder", "ccgan", "stargan", "unit", "pixelda", "cogan")} <= set(names)
     code = (
         "import importlib, sys\n"
         "for name in sys.argv[1:]:\n"

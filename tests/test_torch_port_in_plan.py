@@ -211,3 +211,79 @@ def test_im2im_site_lists_are_what_a_cpu_step_records(recorded, path):
                 G.train(path != "discogan")  # discogan samples in eval mode
                 G(real, generator=torch.Generator().manual_seed(0))
         _check(recorded, path, "sample", {"pix2pix": 10, "discogan": 16, "dualgan": 16}[path])
+
+
+def _scaled(sites, batch, scale):
+    """chip_smoke's sites at batch 1 and 1/scale of the image size."""
+    return {((s[0] // batch, s[1], s[2] // scale, s[3] // scale), sl): n
+            for (s, sl), n in sites.items()}
+
+
+def _check_new(rec, path, unit, batch, scale, bwd=True):
+    want = _scaled(chip_smoke.im2im_sites(path, unit), batch, scale)
+    assert dict(rec["fwd"]) == want, (path, unit)
+    assert dict(rec["bwd"]) == (want if bwd else {}), (path, unit)
+    for c in rec.values():
+        c.clear()
+
+
+def test_new_site_lists_are_what_a_cpu_step_records(recorded):
+    """stargan's d_step and g_step at 64px (its sites at 128px halved),
+    unit's step at 64px (its sites at 256px quartered), both at batch 1, and
+    pixelda's step at its 32px, batch 1: every IN call's shape and slope,
+    each way; pixelda's classifier on MNIST-M runs forward only. The
+    samplers' networks at batch 1: stargan's generator with its buffers
+    frozen, unit's two encoders and two generators."""
+    from tpugan_torch.models import pixelda, stargan, unit
+    from tpugan_torch.nn.layers import batch_stats_frozen
+
+    cpu = torch.device("cpu")
+    cfg = stargan.Config(batch_size=1, img_height=64, img_width=64)
+    state = stargan.create_state(cfg, stargan.build(cfg, cpu), cpu)
+    d_step, g_step = stargan.make_steps(cfg, state)
+    x, labels = _u8((1, 64, 64, 3)), torch.zeros(1, 5)
+    state, out = d_step(state, x, labels)
+    _check_new(recorded, "stargan", "d_step", 16, 2, bwd=False)
+    g_step(state, x, labels, out["sampled_c"])
+    _check_new(recorded, "stargan", "g_step", 16, 2)
+    G = state.modules["generator"]
+    with torch.no_grad(), batch_stats_frozen(G):
+        G(torch.zeros(1, 3, 64, 64), torch.zeros(1, 5))
+    _check_new(recorded, "stargan", "sample", 50, 2, bwd=False)
+
+    cfg = unit.Config(img_height=64, img_width=64)
+    state = unit.create_state(cfg, unit.build(cfg, cpu), cpu)
+    x = _u8((1, 64, 64, 3))
+    unit.make_step(cfg, state)(state, x, x)
+    _check_new(recorded, "unit", "step", 1, 4)
+    m = state.modules
+    with torch.no_grad():
+        real = torch.zeros(1, 3, 64, 64)
+        _, z1 = m["E1"](real, generator=torch.Generator().manual_seed(0))
+        _, z2 = m["E2"](real, generator=torch.Generator().manual_seed(0))
+        m["G2"](z1), m["G1"](z2)
+    _check_new(recorded, "unit", "sample", 5, 4, bwd=False)
+
+    cfg = pixelda.Config(batch_size=1, n_residual_blocks=1)
+    state = pixelda.create_state(cfg, pixelda.build(cfg, cpu), cpu)
+    x, y = _u8((1, 32, 32, 3)), torch.zeros(1, dtype=torch.int32)
+    pixelda.make_step(cfg, state)(state, x, y, x, y)
+    both = chip_smoke._add_sites(chip_smoke.im2im_sites("pixelda", "step"),
+                                 chip_smoke.im2im_sites("pixelda", "telemetry"))
+    assert dict(recorded["fwd"]) == _scaled(both, 64, 1)
+    assert dict(recorded["bwd"]) == _scaled(chip_smoke.im2im_sites("pixelda", "step"), 64, 1)
+
+
+def test_the_new_paths_take_the_plans_the_issue_names():
+    """unit's (1, 64, 256, 256) maps on clusters of 4 CTAs forward and 8
+    backward; stargan's (16, 64, 128, 128) on one CTA forward and 2
+    backward; pixelda's 8x8 to 2x2 planes at batch 64 in regime A, 8,192 to
+    32,768 planes a launch."""
+    assert tin.plan(64, 256 * 256, "fwd").group == 4 and tin.plan(64, 256 * 256, "bwd").group == 8
+    assert tin.plan(16 * 64, 128 * 128, "fwd").group == 1
+    assert tin.plan(16 * 64, 128 * 128, "bwd").group == 2
+    for c, hw in ((128, 64), (256, 16), (512, 4)):
+        p = tin.plan(64 * c, hw, "fwd")
+        assert p.regime == "A" and p.group == 8 and p.grid == 64 * c // 8
+    assert {s[0] * s[1] for s, _ in chip_smoke.im2im_sites("pixelda", "step")} == {
+        8192, 16384, 32768}

@@ -3,7 +3,9 @@ version, and the launch counts of one CycleGAN step, one WGAN-GP critic step
 and one MUNIT step; and one DCGAN step at 64px on the card against the same
 step on the CPU, and one step of each of gan, wgan_div, dragan, cgan, acgan,
 sgan and infogan at its reference configuration likewise, and of pix2pix,
-discogan, dualgan, context_encoder and ccgan, with their IN launches.
+discogan, dualgan, context_encoder and ccgan, with their IN launches; the IN
+pair at every site of the stargan, unit and pixelda paths, their steps'
+launches, and stargan's tracked IN on the card against the CPU.
 
 These need a CUDA device and skip without one. The fused dispatch: DCGAN
 steps (K = 3) and WGAN-GP schedule units (K = 2) replayed from a CUDA graph
@@ -926,3 +928,97 @@ def test_one_im2im_step_on_the_card_matches_the_cpu(cuda, name):
                 torch.testing.assert_close(v.cpu(), stats_c[k], rtol=1e-4,
                                            atol=IM2IM_STATS_ATOL,
                                            msg=lambda m, k=k: f"{role} {k}: {m}")
+
+
+# --- stargan, unit and pixelda: the IN pair at their sites ----------------------
+
+
+def _new_sites():
+    import chip_smoke
+
+    return sorted({site for path in chip_smoke.NEW_IN_PATHS for unit in chip_smoke.IM2IM_IN[path]
+                   for site in chip_smoke.im2im_sites(path, unit)})
+
+
+@pytest.mark.parametrize("shape,slope", _new_sites())
+def test_new_path_sites_match_plain_version(cuda, shape, slope):
+    """Every (shape, slope) site of the stargan, unit and pixelda paths at
+    their reference batches, forward and backward, repeating bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(shape, device=cuda, generator=gen)
+    g = torch.randn(shape, device=cuda, generator=gen)
+    y, mean, rstd = tin.in_act_fwd(x, 1e-5, slope)
+    dx = tin.in_act_bwd(g, x, mean, rstd, slope)
+    assert all(torch.equal(a, b) for a, b in zip((y, mean, rstd), tin.in_act_fwd(x, 1e-5, slope)))
+    assert torch.equal(dx, tin.in_act_bwd(g, x, mean, rstd, slope))
+    y_r, mean_r, rstd_r = tin.in_act_fwd_ref(x, 1e-5, slope)
+    dx_r = tin.in_act_bwd_ref(g, x, mean, rstd, slope)
+    torch.testing.assert_close(y, y_r, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd_r, rtol=1e-5, atol=0)
+    torch.testing.assert_close(dx, dx_r, rtol=0, atol=1e-4 * float(dx_r.abs().max()))
+
+
+def test_new_path_steps_launch_every_site_through_the_kernels(cuda):
+    """stargan's d_step and g_step at 64px and unit's step at 64px, batch 1,
+    and pixelda's step at 32px, batch 4: the IN launches of chip_smoke's
+    site lists, each way."""
+    import numpy as np
+
+    import chip_smoke
+    from tpugan_torch.models import pixelda, stargan, unit
+
+    rng = np.random.default_rng(0)
+    u8 = lambda *s: torch.from_numpy(rng.integers(0, 256, s, dtype=np.uint8)).to(cuda)
+    per = lambda path, u, d: chip_smoke.im2im_per_unit(path, u, d)
+
+    def launched(run):
+        tin.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        return tin.fwd_launches, tin.bwd_launches
+
+    cfg = stargan.Config(batch_size=1, img_height=64, img_width=64)
+    state = stargan.create_state(cfg, stargan.build(cfg, cuda), cuda)
+    d_step, g_step = stargan.make_steps(cfg, state)
+    x, labels = u8(1, 64, 64, 3), torch.zeros(1, 5, device=cuda)
+    out = {}
+    assert launched(lambda: out.update(d_step(state, x, labels)[1])) == (17, 0)
+    assert launched(lambda: g_step(state, x, labels, out["sampled_c"])) == (34, 34)
+    cfg = unit.Config(img_height=64, img_width=64)
+    state = unit.create_state(cfg, unit.build(cfg, cuda), cuda)
+    step = unit.make_step(cfg, state)
+    x = u8(1, 64, 64, 3)
+    assert launched(lambda: step(state, x, x)) == (per("unit", "step", "fwd"),) * 2
+    cfg = pixelda.Config(batch_size=4)
+    state = pixelda.create_state(cfg, pixelda.build(cfg, cuda), cuda)
+    step = pixelda.make_step(cfg, state)
+    x, y = u8(4, 32, 32, 3), torch.zeros(4, dtype=torch.int32, device=cuda)
+    want = (per("pixelda", "step", "fwd") + per("pixelda", "telemetry", "fwd"),
+            per("pixelda", "step", "bwd"))
+    assert launched(lambda: step(state, x, y, x, y)) == want
+
+
+def test_tracked_in_on_the_card_matches_the_cpu(cuda):
+    """stargan's tracked affine IN at (16, 256, 32, 32): the card's
+    train-mode y, running buffers and input gradient against the same layer
+    on the CPU, and the eval-mode y; fp32 with sums in different orders: y
+    and dx 1e-5 absolute, buffers 1e-6 absolute plus 1e-5 relative."""
+    from tpugan_torch.nn.layers import InstanceNorm
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(16, 256, 32, 32, generator=gen) * 2 + 0.5
+    g = torch.randn(x.shape, generator=gen)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        layer = InstanceNorm(256, affine=True, track_running_stats=True).to(dev)
+        xd = x.detach().clone().to(dev).requires_grad_(True)
+        y = layer(xd)
+        (y * g.to(dev)).sum().backward()
+        layer.eval()
+        with torch.no_grad():
+            y_eval = layer(x.to(dev))
+        outs.append([t.detach().cpu() for t in (y, xd.grad, layer.running_mean,
+                                                 layer.running_var, y_eval)])
+    for name, a, b in zip(("y", "dx", "running_mean", "running_var", "eval y"), *outs):
+        tol = dict(rtol=1e-5, atol=1e-6) if "running" in name else dict(rtol=0, atol=1e-5)
+        torch.testing.assert_close(b, a, **tol, msg=name)

@@ -230,7 +230,7 @@ def test_layer_init_is_seeded_and_other_modes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Linear(4, 4, init_mode="he")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Conv2d(4, 4, 3, init_mode="torch")
+        Conv2d(4, 4, 3, init_mode="he")
 
 
 def test_ten_batch_runs_write_the_same_samples(tmp_path):

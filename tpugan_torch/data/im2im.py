@@ -171,6 +171,43 @@ def unpaired_or_synthetic(
     return a, b[rng.permutation(len(b))], False
 
 
+def load_celeba_attrs(
+    root: str, height: int, width: int, attributes: List[str],
+    mode: str = "train", limit: Optional[int] = None,
+) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """CelebA with ``list_attr_celeba.txt`` (stargan/datasets.py:12-46), as
+    ``tpugan/data/im2im.py:load_celeba_attrs`` reads it: the annotation
+    file's last 2000 images are the val split; each image bicubic-resized to
+    (height, width); labels are the ``attributes`` columns, '1' -> 1.0, else
+    0.0. None without the annotation file or any listed image."""
+    ann = os.path.join(root, "list_attr_celeba.txt")
+    if not os.path.exists(ann):
+        return None
+    with open(ann) as f:
+        lines = [l.rstrip() for l in f][1:]
+    all_attrs = lines[0].split()
+    col = [all_attrs.index(a) for a in attributes]
+    rows = lines[1:]
+    rows = rows[:-2000] if mode == "train" else rows[-2000:]
+    if limit:
+        rows = rows[:limit]
+    from PIL import Image
+
+    imgs, labels = [], []
+    for line in rows:
+        parts = line.split()
+        fp = os.path.join(root, parts[0])
+        if not os.path.exists(fp):
+            continue
+        vals = parts[1:]
+        img = Image.open(fp).convert("RGB").resize((width, height), Image.BICUBIC)
+        imgs.append(np.asarray(img, np.uint8))
+        labels.append([1.0 if vals[c] == "1" else 0.0 for c in col])
+    if not imgs:
+        return None
+    return np.stack(imgs), np.asarray(labels, np.float32)
+
+
 def synthetic_attr_faces(
     n: int, height: int, width: int, c_dim: int, seed: int = 0
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -198,6 +235,30 @@ def synthetic_attr_faces(
         img += rng.normal(0, 5, img.shape)
         imgs[i] = img
     return np.clip(imgs, 0, 255).astype(np.uint8), labels
+
+
+def celeba_or_synthetic(
+    data_dir: str,
+    dataset_name: str,
+    height: int,
+    width: int,
+    attributes: List[str],
+    mode: str = "train",
+    synthetic: bool = False,
+    synthetic_n: int = 512,
+    seed: int = 0,
+) -> Tuple[np.ndarray, np.ndarray, bool]:
+    """stargan's (images, attribute labels, is_real): CelebA from
+    ``--data_dir``/``--dataset_name`` when present and not forced synthetic,
+    else the procedural attribute faces (seed + 1 for the val split)."""
+    if not synthetic:
+        got = load_celeba_attrs(os.path.join(data_dir, dataset_name), height, width, attributes,
+                                mode=mode)
+        if got is not None:
+            return got[0], got[1], True
+    imgs, labels = synthetic_attr_faces(synthetic_n, height, width, len(attributes),
+                                        seed=seed + (0 if mode == "train" else 1))
+    return imgs, labels, False
 
 
 def celeba_images_or_synthetic(

@@ -139,3 +139,27 @@ class UnpairedLoader(DeviceLoader):
             if self.host_transform is not None:
                 batch = self.host_transform(batch, epoch, bi)
             yield batch
+
+
+class ZipLoader:
+    """Independently shuffled loaders zipped (``tpugan/data/loader.py:204-235``;
+    ``zip(dataloader1, dataloader2)`` in cogan/cogan.py:184 and
+    pixelda/pixelda.py:221): each batch is the concatenation of the members'
+    batch tuples, and an epoch is as long as the shortest member. Every
+    member's prefetch thread is closed when the epoch ends, early or on an
+    error."""
+
+    def __init__(self, *loaders: DeviceLoader):
+        self.loaders = loaders
+
+    def __len__(self) -> int:
+        return min(len(l) for l in self.loaders)
+
+    def epoch(self, epoch: int) -> Iterator[tuple]:
+        its = [l.epoch(epoch) for l in self.loaders]
+        try:
+            for _ in range(len(self)):
+                yield tuple(t for it in its for t in next(it))
+        finally:
+            for it in its:
+                it.close()

@@ -1,9 +1,11 @@
 """MNIST-class dataset sources: the port's copy of ``tpugan/data/sources.py``
-(:28-101, :190-211), in numpy, byte-identical.
+(:28-101, :118-211), in numpy, byte-identical.
 
 MNIST IDX files are read from disk when present under ``--data_dir``;
 otherwise, or with ``--synthetic_data``, a deterministic procedural dataset
-of class-conditioned Gaussian-bump glyphs stands in.
+of class-conditioned Gaussian-bump glyphs stands in. MNIST-M (pixelda's and
+cogan's second domain) is read from the reference's processed ``.pt`` or raw
+pickle, or made from the MNIST glyphs over random colour patches.
 """
 
 from __future__ import annotations
@@ -125,6 +127,69 @@ def resize_dataset(ds: ArrayDataset, img_size: int) -> ArrayDataset:
     x = np.einsum("nhwc,hH->nHwc", x, _bilinear_weights(h, img_size), optimize=True)
     x = np.einsum("nHwc,wW->nHWc", x, _bilinear_weights(w, img_size), optimize=True)
     return ArrayDataset(np.clip(x, 0, 255).astype(np.uint8), ds.labels)
+
+
+def load_mnistm(data_dir: str, train: bool = True) -> Optional[ArrayDataset]:
+    """MNIST-M from disk, if present (``tpugan/data/sources.py:load_mnistm``):
+    the reference's processed ``<data_dir>/mnistm/processed/mnist_m_train.pt``
+    (a (images, labels) pair saved by torch), or its download
+    ``<data_dir>/mnistm/raw/keras_mnistm.pkl.gz`` paired with the MNIST
+    labels (cogan/mnistm.py:19-146)."""
+    root = os.path.join(data_dir, "mnistm")
+    name = "mnist_m_train.pt" if train else "mnist_m_test.pt"
+    proc = os.path.join(root, "processed", name)
+    if os.path.exists(proc):
+        import torch
+
+        data, labels = torch.load(proc, weights_only=False)
+        imgs = np.asarray(data, dtype=np.uint8)
+        if imgs.ndim == 3:
+            imgs = np.repeat(imgs[..., None], 3, -1)
+        return ArrayDataset(imgs, np.asarray(labels, dtype=np.int32))
+    raw = os.path.join(root, "raw", "keras_mnistm.pkl.gz")
+    if os.path.exists(raw):
+        import pickle
+
+        mnist = load_mnist(data_dir, train=train)
+        if mnist is None:
+            return None
+        with gzip.open(raw, "rb") as f:
+            pkl = pickle.load(f, encoding="bytes")
+        imgs = np.asarray(pkl[b"train" if train else b"test"], dtype=np.uint8)
+        return ArrayDataset(imgs, mnist.labels[: len(imgs)])
+    return None
+
+
+def synthetic_mnistm_like(base: ArrayDataset, seed: int = 0) -> ArrayDataset:
+    """The procedural MNIST-M: each glyph of ``base`` as |background - digit|
+    over a smooth random RGB patch (uniform noise on a 4x coarser grid,
+    repeated), the real dataset's construction, so the domain gap exists."""
+    rng = np.random.default_rng(seed + 77)
+    n, h, w, _ = base.images.shape
+    digits = base.images[..., :1].astype(np.float32) / 255.0
+    coarse = rng.uniform(0, 255, size=(n, -(-h // 4), -(-w // 4), 3))
+    bg = np.repeat(np.repeat(coarse, 4, axis=1), 4, axis=2)[:, :h, :w, :]
+    out = np.abs(bg - digits * 255.0)
+    return ArrayDataset(np.clip(out, 0, 255).astype(np.uint8), base.labels.copy())
+
+
+def mnistm_or_synthetic(
+    data_dir: str,
+    img_size: int = 28,
+    synthetic: bool = False,
+    synthetic_n: int = 4096,
+    seed: int = 0,
+) -> Tuple[ArrayDataset, bool]:
+    """MNIST-M from disk when available (and not forced synthetic), resized
+    to ``img_size``; else the procedural stand-in made from
+    ``mnist_or_synthetic``'s glyphs. Returns (dataset, is_real)."""
+    if not synthetic:
+        ds = load_mnistm(data_dir)
+        if ds is not None:
+            return resize_dataset(ds, img_size), True
+    base, _ = mnist_or_synthetic(data_dir, img_size=img_size, channels=1, synthetic=synthetic,
+                                 synthetic_n=synthetic_n, seed=seed)
+    return synthetic_mnistm_like(base, seed=seed), False
 
 
 def mnist_or_synthetic(

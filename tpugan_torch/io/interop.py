@@ -3,9 +3,10 @@
 ``load_jax_params(module, params, batch_stats)`` takes nested dicts of numpy
 arrays in flax's insertion order, as ``state.params["G_AB"]`` and
 ``state.model_state[...]`` hold them after ``init``, and copies them into the
-module. BatchNorm's ``running_mean``/``running_var`` come from the flax
-``batch_stats`` leaves ``mean``/``var``, paired in the same order;
-``num_batches_tracked`` has no flax counterpart and is left as it is.
+module. The ``running_mean``/``running_var`` of BatchNorm and of the tracked
+InstanceNorm (stargan) come from the flax ``batch_stats`` leaves
+``mean``/``var``, paired in the same order; ``num_batches_tracked`` has no
+flax counterpart and is left as it is.
 
 Pairing follows ``tpugan/io/torch_interop.py:export_state_dict``: each
 ``state_dict`` entry, in registration order, takes the first unused flax leaf

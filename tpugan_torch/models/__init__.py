@@ -1,4 +1,4 @@
-"""Trainer registry of the port: 18 of the JAX package's 33 entries so far.
+"""Trainer registry of the port: 22 of the JAX package's 33 entries so far.
 Each trainer module exposes ``Config``, ``build``, ``create_state``, its
 step makers (``make_step`` or ``make_steps``), ``make_loader``, ``run`` and
 ``main``."""
@@ -9,9 +9,9 @@ import importlib
 
 _REGISTRY = {
     name: f"tpugan_torch.models.{name}"
-    for name in ("acgan", "ccgan", "cgan", "context_encoder", "cyclegan", "dcgan", "discogan",
-                 "dragan", "dualgan", "gan", "infogan", "lsgan", "munit", "pix2pix", "sgan",
-                 "wgan", "wgan_div", "wgan_gp")
+    for name in ("acgan", "ccgan", "cgan", "cogan", "context_encoder", "cyclegan", "dcgan",
+                 "discogan", "dragan", "dualgan", "gan", "infogan", "lsgan", "munit", "pix2pix",
+                 "pixelda", "sgan", "stargan", "unit", "wgan", "wgan_div", "wgan_gp")
 }
 
 

@@ -1,5 +1,6 @@
 """Shared plumbing of the MNIST-class trainers (``tpugan/models/_common.py``):
-the MNIST-or-synthetic loader, the reference's log lines, the 5x5 sample
+the MNIST-or-synthetic loader and the MNIST/MNIST-M pair of pixelda and
+cogan, the reference's log lines, the 5x5 sample
 grid, the class-grid noise of the conditional samplers and
 ``run_mnist_recipe``, which runs the template-A/B trainers.
 
@@ -14,8 +15,8 @@ import os
 import numpy as np
 import torch
 
-from tpugan_torch.data.loader import DeviceLoader
-from tpugan_torch.data.sources import mnist_or_synthetic
+from tpugan_torch.data.loader import DeviceLoader, ZipLoader
+from tpugan_torch.data.sources import mnist_or_synthetic, mnistm_or_synthetic
 from tpugan_torch.io.images import save_image
 from tpugan_torch.train.loop import Callbacks, run_training, train_device
 
@@ -36,6 +37,24 @@ def mnist_loader(cfg, device) -> DeviceLoader:
     return DeviceLoader(
         [ds.images, ds.labels], cfg.batch_size, device, shuffle=True, seed=cfg.seed
     )
+
+
+def two_domain_loader(cfg, device):
+    """MNIST (grey, repeated to ``--channels``) zipped with MNIST-M, each
+    shuffled on its own (seed and seed + 1), at ``--img_size``; synthetic
+    when absent or with ``--synthetic_data`` (``tpugan/models/pixelda.py:
+    make_loader``, ``tpugan/models/cogan.py:make_loader``)."""
+    ds_a, is_real_a = mnist_or_synthetic(cfg.data_dir, img_size=cfg.img_size, channels=1,
+                                         synthetic=cfg.synthetic_data, seed=cfg.seed)
+    imgs_a = np.repeat(ds_a.images, cfg.channels, axis=-1)
+    ds_b, is_real_b = mnistm_or_synthetic(cfg.data_dir, img_size=cfg.img_size,
+                                          synthetic=cfg.synthetic_data, seed=cfg.seed)
+    if not (is_real_a and is_real_b):
+        print("[tpugan] MNIST/MNIST-M not found on disk — using synthetic data")
+    return ZipLoader(
+        DeviceLoader([imgs_a, ds_a.labels], cfg.batch_size, device, shuffle=True, seed=cfg.seed),
+        DeviceLoader([ds_b.images, ds_b.labels], cfg.batch_size, device, shuffle=True,
+                     seed=cfg.seed + 1))
 
 
 def std_log_line(cfg):

@@ -52,19 +52,22 @@ class ResidualBlockIN(nn.Module):
     """ReflectionPad(1)-Conv3-IN-ReLU-ReflectionPad(1)-Conv3-IN with an
     identity skip (``tpugan/nn/im2im.py:157-181``). IN+ReLU is fused, as the
     JAX block's ``instance_norm_act(y, 0.0)``: its gradient at exactly 0 is
-    1."""
+    1. The ``nn.Sequential`` is registered as ``block_name``: ``block`` in
+    cyclegan (cyclegan/models.py:22-37), ``conv_block`` in unit
+    (unit/models.py:36-50)."""
 
     def __init__(self, features: int, generator: Optional[torch.Generator] = None,
-                 init_mode: str = "normal02zero"):
+                 init_mode: str = "normal02zero", block_name: str = "block"):
         super().__init__()
         conv = lambda: Conv2d(features, features, 3, init_mode=init_mode, generator=generator)
-        self.block = _numbered([
+        self.block_name = block_name
+        self.add_module(block_name, _numbered([
             (ReflectionPad(1), 1), (conv(), 1), (InstanceNorm(act_slope=0.0), 2),
             (ReflectionPad(1), 1), (conv(), 1), (InstanceNorm(), 1),
-        ])
+        ]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.block(x)
+        return x + getattr(self, self.block_name)(x)
 
 
 class GeneratorResNet(nn.Module):

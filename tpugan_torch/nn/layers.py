@@ -21,7 +21,6 @@ from tpugan_torch.ops.instance_norm import instance_norm_act
 
 # The ROADMAP queue 1 item that ports each layer option not here yet.
 _LAYERS_ITEM = {
-    "InstanceNorm": "ROADMAP queue 1, item 5 (stargan: tracked IN)",
     "PixelShuffle": "ROADMAP queue 1, item 7 (SR)",
     "PReLU": "ROADMAP queue 1, item 7 (SR)",
     "he": "ROADMAP queue 1, item 7 (SR: the VGG features)",
@@ -66,7 +65,8 @@ class Conv2d(nn.Conv2d):
     """torch.nn.Conv2d with an ``init_mode`` of ``tpugan/nn/layers.py:Conv``.
     The default is ``normal02zero``, the reference cyclegan's
     ``weights_init_normal`` (cyclegan/models.py:6-14); munit's is
-    ``normal02``."""
+    ``normal02``; cogan's convs keep torch's own init, ``torch``
+    (cogan/cogan.py:42-48 matches only Linear and BatchNorm)."""
 
     def __init__(
         self,
@@ -80,7 +80,7 @@ class Conv2d(nn.Conv2d):
         init_mode: str = "normal02zero",
         generator: Optional[torch.Generator] = None,
     ):
-        _check_init_mode("Conv2d", init_mode, ("normal02zero", "normal02"))
+        _check_init_mode("Conv2d", init_mode, ("normal02zero", "normal02", "torch"))
         super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=bias)
         _init_weight_bias(self, init_mode, in_channels * kernel_size * kernel_size, generator)
 
@@ -213,20 +213,28 @@ class Embedding(nn.Embedding):
 
 @contextlib.contextmanager
 def batch_stats_frozen(module: nn.Module):
-    """Within the block, every BatchNorm of ``module`` in training normalizes
-    by its batch statistics, as always, but leaves its running statistics
-    and ``num_batches_tracked`` as they are: the forward whose statistics
-    the JAX package throws away (DRAGAN's penalty, ``tpugan/models/dragan.py:
-    99-112``; the samplers' train-mode generator). A Python switch, so a
-    CUDA graph can capture the forward."""
+    """Within the block, every BatchNorm and every tracked InstanceNorm of
+    ``module`` in training normalizes by its batch (or instance) statistics,
+    as always, but leaves its running statistics and
+    ``num_batches_tracked`` as they are: the forward whose statistics the
+    JAX package throws away (DRAGAN's penalty, ``tpugan/models/dragan.py:
+    99-112``; the samplers' train-mode generators, stargan's among them,
+    ``tpugan/models/stargan.py:375-381``). A Python switch, so a CUDA graph
+    can capture the forward."""
     norms = [m for m in module.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    tracked = [m for m in module.modules()
+               if isinstance(m, InstanceNorm) and m.track_running_stats]
     for m in norms:
         m.track_running_stats = False
+    for m in tracked:
+        m.stats_frozen = True
     try:
         yield module
     finally:
         for m in norms:
             m.track_running_stats = True
+        for m in tracked:
+            m.stats_frozen = False
 
 
 class InstanceNorm(nn.Module):
@@ -234,12 +242,27 @@ class InstanceNorm(nn.Module):
     ``act_slope`` 1.0 is plain IN, 0.0 IN+ReLU, 0.2 IN+LeakyReLU(0.2). Runs
     through the instance-norm kernel pair (``tpugan_torch/ops/instance_norm.py``).
 
-    ``affine=True`` (dualgan) adds torch's per-channel ``weight`` (ones) and
-    ``bias`` (zeros) over ``num_features`` channels, applied outside the
-    kernel as the JAX package applies its scale and bias
+    ``affine=True`` (dualgan, stargan) adds torch's per-channel ``weight``
+    (ones) and ``bias`` (zeros) over ``num_features`` channels, applied
+    outside the kernel as the JAX package applies its scale and bias
     (``tpugan/nn/layers.py:562-571``): the kernel at slope 1, then
     ``y * weight + bias``. An activation after the affine stays a layer of
-    its own, so ``act_slope`` must be 1 then."""
+    its own, so ``act_slope`` must be 1 then.
+
+    ``track_running_stats=True`` (stargan, ``tpugan/nn/layers.py:531-556``)
+    registers torch's buffers ``running_mean`` (zeros), ``running_var``
+    (ones) and ``num_batches_tracked`` (0; torch's InstanceNorm2d never
+    advances it), and needs act_slope 1 too. In training the kernel
+    normalizes per instance as always; then, without gradients and in place
+    (so a captured CUDA graph keeps the buffers), the buffers take torch's
+    update with momentum 0.1: the batch mean of the per-plane means, and of
+    the per-plane variances made unbiased over H*W. ``stats_frozen``
+    (``batch_stats_frozen``) skips the update. In eval mode the layer
+    normalizes by the buffers in plain PyTorch, ``(x - running_mean) *
+    rsqrt(running_var + eps)``, as the JAX package does in plain XLA, then
+    applies the affine."""
+
+    MOMENTUM = 0.1  # torch's default, the reference's (stargan/models.py:23)
 
     def __init__(
         self,
@@ -250,28 +273,45 @@ class InstanceNorm(nn.Module):
         track_running_stats: bool = False,
     ):
         super().__init__()
-        if track_running_stats:
-            raise NotImplementedError(
-                f"InstanceNorm(track_running_stats=True): {_LAYERS_ITEM['InstanceNorm']}"
-            )
-        if affine and (num_features <= 0 or act_slope != 1.0):
-            raise ValueError(f"InstanceNorm(affine=True) needs num_features and act_slope 1, "
+        if (affine or track_running_stats) and (num_features <= 0 or act_slope != 1.0):
+            raise ValueError(f"InstanceNorm(affine={affine}, track_running_stats="
+                             f"{track_running_stats}) needs num_features and act_slope 1, "
                              f"got {num_features}, {act_slope}")
         self.act_slope = act_slope
         self.eps = eps
         self.affine = affine
+        self.track_running_stats = track_running_stats
+        self.stats_frozen = False
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features))
             self.bias = nn.Parameter(torch.zeros(num_features))
+        if track_running_stats:
+            self.register_buffer("running_mean", torch.zeros(num_features))
+            self.register_buffer("running_var", torch.ones(num_features))
+            self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = instance_norm_act(x, self.act_slope, self.eps)
+        if self.track_running_stats and not self.training:
+            y = ((x - self.running_mean.view(1, -1, 1, 1))
+                 * torch.rsqrt(self.running_var.view(1, -1, 1, 1) + self.eps))
+        else:
+            y = instance_norm_act(x, self.act_slope, self.eps)
+            if self.track_running_stats and not self.stats_frozen:
+                self._update_running_stats(x)
         if self.affine:
             y = y * self.weight.view(1, -1, 1, 1) + self.bias.view(1, -1, 1, 1)
         return y
 
+    @torch.no_grad()
+    def _update_running_stats(self, x: torch.Tensor) -> None:
+        var, mean = torch.var_mean(x, dim=(2, 3), correction=1)
+        m = self.MOMENTUM
+        self.running_mean.mul_(1.0 - m).add_(mean.mean(dim=0), alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var.mean(dim=0), alpha=m)
+
     def extra_repr(self) -> str:
-        return f"act_slope={self.act_slope}, eps={self.eps}, affine={self.affine}"
+        return (f"act_slope={self.act_slope}, eps={self.eps}, affine={self.affine}, "
+                f"track_running_stats={self.track_running_stats}")
 
 
 class LayerNormSpatial(nn.Module):
