@@ -5,7 +5,10 @@ step on the CPU, and one step of each of gan, wgan_div, dragan, cgan, acgan,
 sgan and infogan at its reference configuration likewise, and of pix2pix,
 discogan, dualgan, context_encoder and ccgan, with their IN launches; the IN
 pair at every site of the stargan, unit and pixelda paths, their steps'
-launches, and stargan's tracked IN on the card against the CPU.
+launches, and stargan's tracked IN on the card against the CPU; one step of
+began and one full_step of cluster_gan (``--wass_flag``) on the card against
+the CPU, and began's replayed steps, its equilibrium term k included,
+against eager ones.
 
 These need a CUDA device and skip without one. The fused dispatch: DCGAN
 steps (K = 3) and WGAN-GP schedule units (K = 2) replayed from a CUDA graph
@@ -385,10 +388,11 @@ def test_dcgan_step_on_the_card_matches_the_cpu(cuda):
                 torch.testing.assert_close(v.cpu(), stats_c[k], rtol=1e-4, atol=1e-5)
 
 
-def _adam_first_step(p0, g, cfg, eps=1e-8):
+def _adam_first_step(p0, g, cfg, eps=1e-8, weight_decay=0.0):
     """torch.optim.Adam's first update from ``p0`` with gradient ``g``: the
-    bias-corrected moments are g and g**2, so the step is lr * g / (|g| + eps)."""
-    g = g.double()
+    bias-corrected moments are g and g**2, so the step is lr * g / (|g| + eps),
+    ``weight_decay * p0`` first added to g."""
+    g = g.double() + weight_decay * p0.double()
     return (p0.double() - cfg.lr * g / (g.abs() + eps)).float()
 
 # --- Fused dispatch: K steps captured in one CUDA graph and replayed ---------
@@ -413,6 +417,8 @@ def _snapshot(state) -> dict:
         for i, st in enumerate(state.optimizers[role].state.values()):
             for k, v in st.items():
                 snap[f"{role}.opt{i}.{k}"] = torch.as_tensor(v).detach().cpu().clone()
+    for k, v in state.aux.items():  # began's k
+        snap[f"aux.{k}"] = v.detach().cpu().clone()
     return snap
 
 
@@ -1022,3 +1028,117 @@ def test_tracked_in_on_the_card_matches_the_cpu(cuda):
     for name, a, b in zip(("y", "dx", "running_mean", "running_var", "eval y"), *outs):
         tol = dict(rtol=1e-5, atol=1e-6) if "running" in name else dict(rtol=0, atol=1e-5)
         torch.testing.assert_close(b, a, **tol, msg=name)
+
+
+# --- began and cluster_gan: one step; began replayed -----------------------------
+#
+# Each at its reference configuration, from the same weights, batch and draws
+# on both devices, as the im2im steps: losses 1e-4 relative; each optimizer's
+# gradients 1e-3 relative plus ``IM2IM_FLOORS`` (5e-3) of its module's
+# largest CPU gradient, since began's and ebgan's discriminators normalize
+# features whose batch mean is up to ~1e3 times their spread (BatchNorm1d
+# after Linear(32 -> 64 * 16 * 16)), where a float32 rounding of the Linear
+# moves the normalized value by up to 1e-3 (the CPU tests measured JAX's
+# began G gradients 4.8e-4 of the largest from float64); Adam's first step
+# of the card's own gradients (cluster_gan's "ge" with its weight decay);
+# running statistics 1e-4 relative and ``IM2IM_STATS_ATOL`` absolute; no
+# kernel of the port launched.
+
+
+@pytest.mark.parametrize("name", ["began", "cluster_gan"])
+def test_one_template_rest_step_on_the_card_matches_the_cpu(cuda, name):
+    import importlib
+
+    import numpy as np
+
+    mod = importlib.import_module(f"tpugan_torch.models.{name}")
+    cfg = mod.Config(synthetic_data=True, **({"wass_flag": True} if name == "cluster_gan" else {}))
+    b, size = cfg.batch_size, cfg.img_size
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (b, size, size, 1),
+                                                              dtype=np.uint8))
+    g = torch.Generator().manual_seed(1)
+    if name == "began":
+        kw = {"z": torch.randn(b, cfg.latent_dim, generator=g)}
+    else:
+        kw = {"zn": 0.75 * torch.randn(b, cfg.latent_dim, generator=g),
+              "zc_idx": torch.randint(0, mod.N_C, (b,), generator=g),
+              "alpha": torch.rand(b, 1, 1, 1, generator=g)}
+    decay = {"ge": mod.DECAY} if name == "cluster_gan" else {}
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    counts = (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches, gp.gp_fwd_launches)
+    runs = []
+    try:
+        for dev in (torch.device("cpu"), cuda):
+            modules = mod.build(cfg, dev)
+            state = mod.create_state(cfg, modules, dev)
+            rec = _record_updates(state)
+            step = mod.make_step(cfg, state) if name == "began" else mod.make_steps(cfg, state)[0]
+            state, out = step(state, imgs.to(dev), None, **{k: v.to(dev) for k, v in kw.items()})
+            runs.append((modules, rec, {k: v.cpu() for k, v in out.items() if v.ndim == 0}))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert counts == (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches,
+                      gp.gp_fwd_launches)
+    (mods_c, rec_c, out_c), (mods_g, rec_g, out_g) = runs
+    assert sorted(out_c) == sorted(out_g)
+    for k in out_c:
+        torch.testing.assert_close(out_g[k], out_c[k], rtol=1e-4, atol=0, msg=k)
+    for opt_name, want in rec_c.items():
+        got = rec_g[opt_name]
+        largest = {}
+        for (role, _), (_, grad, _) in want.items():
+            if grad is not None:
+                largest[role] = max(largest.get(role, 0.0), float(grad.abs().max()))
+        worst, share = {}, IM2IM_FLOORS.get(opt_name, IM2IM_FLOORS["generator"])
+        for key, (before_c, grad_c, _) in want.items():
+            before_g, grad_g, after_g = got[key]
+            if grad_c is None:
+                assert grad_g is None, (opt_name, key)
+                continue
+            role = key[0]
+            floor = share * largest[role]
+            worst[role] = max(worst.get(role, 0.0), float((grad_g - grad_c).abs().max()))
+            torch.testing.assert_close(grad_g, grad_c, rtol=1e-3, atol=floor, msg=lambda m: (
+                f"{opt_name} {key}: |g| max {float(grad_c.abs().max()):.3e}, card-CPU "
+                f"{float((grad_g - grad_c).abs().max()):.3e}, floor {floor:.3e}\n{m}"))
+            adam = _adam_first_step(before_g, grad_g, cfg, weight_decay=decay.get(opt_name, 0.0))
+            torch.testing.assert_close(after_g, adam, rtol=1e-6, atol=1e-7,
+                                       msg=lambda m: f"{key}: {m}")
+        print(f"{name} {opt_name}: card-CPU gradients differ by at most " + ", ".join(
+            f"{role} {worst[role] / largest[role]:.3e}" for role in worst)
+            + f" of the largest; floor {share:.0e}")
+    for role, m in mods_g.items():
+        stats_c = mods_c[role].state_dict()
+        for k, v in m.state_dict().items():
+            if "running" in k:
+                torch.testing.assert_close(v.cpu(), stats_c[k], rtol=1e-4, atol=IM2IM_STATS_ATOL,
+                                           msg=lambda m, k=k: f"{role} {k}: {m}")
+
+
+def test_replayed_began_steps_equal_eager_steps_with_deterministic_cudnn(cuda, monkeypatch):
+    """began at its reference configuration, K = 3, with cuDNN held to
+    deterministic algorithms: the eager runs agree bit for bit, and so must
+    the replay, on every tensor, the equilibrium term k in ``state.aux``
+    (updated in place inside the graph) among them."""
+    import numpy as np
+
+    from tpugan_torch.models import began
+
+    k = 3
+    cfg = began.Config(synthetic_data=True)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    def make():
+        state = began.create_state(cfg, began.build(cfg, cuda), cuda)
+        return state, began.make_step(cfg, state)
+
+    batches = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (3, k, cfg.batch_size, 32, 32, 1), dtype=np.uint8)).to(cuda)
+    (a, b), replay, _ = _fused_against_eager(make, k, batches, n_eager=2)
+    assert "aux.k" in a and float(a["aux.k"]) > 0
+    for name in a:
+        assert torch.equal(b[name], a[name]), f"{name}: the eager runs differ"
+        assert torch.equal(replay[name], a[name]), f"{name}: the replay differs"

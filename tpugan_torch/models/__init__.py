@@ -1,4 +1,4 @@
-"""Trainer registry of the port: 22 of the JAX package's 33 entries so far.
+"""Trainer registry of the port: 29 of the JAX package's 33 entries so far.
 Each trainer module exposes ``Config``, ``build``, ``create_state``, its
 step makers (``make_step`` or ``make_steps``), ``make_loader``, ``run`` and
 ``main``."""
@@ -9,9 +9,10 @@ import importlib
 
 _REGISTRY = {
     name: f"tpugan_torch.models.{name}"
-    for name in ("acgan", "ccgan", "cgan", "cogan", "context_encoder", "cyclegan", "dcgan",
-                 "discogan", "dragan", "dualgan", "gan", "infogan", "lsgan", "munit", "pix2pix",
-                 "pixelda", "sgan", "stargan", "unit", "wgan", "wgan_div", "wgan_gp")
+    for name in ("aae", "acgan", "began", "bgan", "ccgan", "cgan", "cluster_gan", "cogan",
+                 "context_encoder", "cyclegan", "dcgan", "discogan", "dragan", "dualgan", "ebgan",
+                 "gan", "infogan", "lsgan", "munit", "pix2pix", "pixelda", "relativistic_gan",
+                 "sgan", "softmax_gan", "stargan", "unit", "wgan", "wgan_div", "wgan_gp")
 }
 
 

@@ -1,7 +1,8 @@
 """Template-B (DCGAN-style) 1:1 alternating step (``tpugan/models/_template_b.py``),
 shared by dcgan (BCE, dcgan/dcgan.py:143-183), lsgan (MSE,
-lsgan/lsgan.py:140-188) and gan (template A's MLPs, BCE, gan/gan.py:135-161,
-whose discriminator draws no masks).
+lsgan/lsgan.py:140-188), gan (template A's MLPs, BCE, gan/gan.py:135-161,
+whose discriminator draws no masks) and bgan (gan's, with the
+boundary-seeking G loss, bgan/bgan.py:139-165).
 
 G update first on a fresh fake batch, then D update on the real batch and
 the same fakes detached, both Adam. The discriminator's BatchNorm running
@@ -18,7 +19,7 @@ memory and reads no Python value that a CUDA graph would freeze, so
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -36,21 +37,25 @@ def create_state_b(cfg, modules: dict, device) -> TrainState:
     return TrainState(modules, optimizers, draws)
 
 
-def make_step_b(cfg, state: TrainState, adv_loss: Callable):
+def make_step_b(cfg, state: TrainState, adv_loss: Callable,
+                g_loss: Optional[Callable] = None):
     """``step(state, imgs_u8, labels=None, z=None, masks=None) -> (state,
     out)``: one G update, then one D update (``_template_b.py:make_step_b``).
 
     ``adv_loss(d_out, target)`` is the adversarial loss (bce for dcgan, mse
-    for lsgan). ``imgs_u8`` is an NHWC uint8 batch. ``z`` is (B, latent_dim);
-    ``masks`` holds the Dropout2d keep masks of D's three forwards, each a
-    list from ``D.draw_masks``. Both are drawn from ``state.draws``, z first,
-    unless passed in; a discriminator without ``draw_masks`` (template A's)
-    takes none. ``out`` holds ``d_loss`` and ``g_loss`` (0-d tensors) and
-    ``gen_imgs``, the G phase's fakes (NCHW)."""
+    for lsgan); ``g_loss(d_out)``, G's loss on D's output of the fakes, is
+    ``adv_loss(d_out, 1.0)`` unless given (bgan's ``boundary_seeking``,
+    ``tpugan/models/bgan.py:101-108``). ``imgs_u8`` is an NHWC uint8 batch.
+    ``z`` is (B, latent_dim); ``masks`` holds the Dropout2d keep masks of
+    D's three forwards, each a list from ``D.draw_masks``. Both are drawn
+    from ``state.draws``, z first, unless passed in; a discriminator without
+    ``draw_masks`` (template A's) takes none. ``out`` holds ``d_loss`` and
+    ``g_loss`` (0-d tensors) and ``gen_imgs``, the G phase's fakes (NCHW)."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
     uses_masks = hasattr(D, "draw_masks")
+    g_adv = g_loss or (lambda d_out: adv_loss(d_out, 1.0))
     d = lambda x, m: D(x, m) if uses_masks else D(x)
 
     def step(state: TrainState, imgs_u8, labels=None, z=None, masks=None):
@@ -66,7 +71,7 @@ def make_step_b(cfg, state: TrainState, adv_loss: Callable):
         # G phase: only G's parameters take gradients.
         opt_g.zero_grad(set_to_none=True)
         gen = G(z)
-        g_loss = adv_loss(d(gen, masks[0]), 1.0)
+        g_loss = g_adv(d(gen, masks[0]))
         g_loss.backward(inputs=g_params)
         opt_g.step()
 

@@ -120,17 +120,19 @@ class DCGANGenerator(nn.Module):
     as (B, 128, s/4, s/4), then ``conv_blocks`` = [BatchNorm2d(128), Up,
     Conv3x3(128), BN(128, 0.8), LReLU, Up, Conv3x3(64), BN(64, 0.8), LReLU,
     Conv3x3(channels), Tanh]. ``first_bn=False`` drops the first BatchNorm
-    (lsgan/lsgan.py:52-70). The convs and BatchNorms take the reference's
-    ``weights_init_normal`` (init mode ``normal02``); the Linear keeps
+    (lsgan/lsgan.py:52-70). The convs and BatchNorms take ``init_mode``: the
+    reference's ``weights_init_normal`` (``normal02``) by default, or
+    torch's own init (``torch``: kaiming-uniform convs, BatchNorm at scale 1,
+    bias 0; relativistic_gan/relativistic_gan.py:58-73); the Linear keeps
     torch's init."""
 
     def __init__(self, img_size: int, channels: int, latent_dim: int, first_bn: bool = True,
-                 *, generator: Optional[torch.Generator] = None):
+                 *, init_mode: str = "normal02", generator: Optional[torch.Generator] = None):
         super().__init__()
         self.init_size = img_size // 4
         self.l1 = nn.Sequential(Linear(latent_dim, 128 * self.init_size ** 2, generator=generator))
-        conv = lambda i, o: Conv2d(i, o, 3, 1, 1, init_mode="normal02", generator=generator)
-        bn = lambda c, eps: BatchNorm2d(c, eps, init_mode="normal02", generator=generator)
+        conv = lambda i, o: Conv2d(i, o, 3, 1, 1, init_mode=init_mode, generator=generator)
+        bn = lambda c, eps: BatchNorm2d(c, eps, init_mode=init_mode, generator=generator)
         head = [bn(128, 1e-5)] if first_bn else []
         self.conv_blocks = nn.Sequential(
             *head,
@@ -148,19 +150,20 @@ class DCGANTrunk(nn.Sequential):
     """Template B discriminator trunk (``tpugan/nn/blocks.py:DCGANTrunk``,
     dcgan/dcgan.py:74-92): four [Conv3x3 s2 p1, LReLU(0.2), Dropout2d(0.25),
     BatchNorm2d(0.8) but in the first] blocks of 16, 32, 64 and 128 filters,
-    numbered as the reference's ``nn.Sequential``, with ``weights_init_normal``
-    (``normal02``); the output is flattened in torch's ``view(B, -1)`` order.
-    In training ``forward`` takes one Dropout2d keep mask a block, in call
-    order (``draw_masks``)."""
+    numbered as the reference's ``nn.Sequential``, with the convs and
+    BatchNorms in ``init_mode`` (as ``DCGANGenerator``'s); the output is
+    flattened in torch's ``view(B, -1)`` order. In training ``forward`` takes
+    one Dropout2d keep mask a block, in call order (``draw_masks``)."""
 
-    def __init__(self, channels: int, *, generator: Optional[torch.Generator] = None):
+    def __init__(self, channels: int, *, init_mode: str = "normal02",
+                 generator: Optional[torch.Generator] = None):
         layers = []
         fan_in = channels
         for i, f in enumerate((16, 32, 64, 128)):
-            layers += [Conv2d(fan_in, f, 3, 2, 1, init_mode="normal02", generator=generator),
+            layers += [Conv2d(fan_in, f, 3, 2, 1, init_mode=init_mode, generator=generator),
                        LeakyReLU(0.2), Dropout2d(0.25)]
             if i > 0:
-                layers.append(BatchNorm2d(f, 0.8, init_mode="normal02", generator=generator))
+                layers.append(BatchNorm2d(f, 0.8, init_mode=init_mode, generator=generator))
             fan_in = f
         super().__init__(*layers)
 
@@ -180,12 +183,13 @@ class DCGANTrunk(nn.Sequential):
 class DCGANDiscriminator(nn.Module):
     """Template B discriminator (``tpugan/nn/blocks.py:DCGANDiscriminator``,
     dcgan/dcgan.py:74-99): ``model`` = the trunk, ``adv_layer`` =
-    Linear(128 * (s/16)^2 -> 1) [+ Sigmoid; lsgan has none]."""
+    Linear(128 * (s/16)^2 -> 1) [+ Sigmoid; lsgan and relativistic_gan have
+    none]; ``init_mode`` is the trunk's."""
 
     def __init__(self, img_size: int, channels: int, sigmoid: bool = True,
-                 *, generator: Optional[torch.Generator] = None):
+                 *, init_mode: str = "normal02", generator: Optional[torch.Generator] = None):
         super().__init__()
-        self.model = DCGANTrunk(channels, generator=generator)
+        self.model = DCGANTrunk(channels, init_mode=init_mode, generator=generator)
         head = [Linear(128 * (img_size // 2 ** 4) ** 2, 1, generator=generator)]
         if sigmoid:
             head.append(nn.Sigmoid())

@@ -24,7 +24,7 @@ _LAYERS_ITEM = {
     "PixelShuffle": "ROADMAP queue 1, item 7 (SR)",
     "PReLU": "ROADMAP queue 1, item 7 (SR)",
     "he": "ROADMAP queue 1, item 7 (SR: the VGG features)",
-    "init_mode": "ROADMAP queue 1, item 4 (rest of templates A/B)",
+    "init_mode": "ROADMAP queue 1, items 6-7 (bicyclegan, SR)",
 }
 
 
@@ -112,7 +112,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 class Linear(nn.Linear):
     """torch.nn.Linear with an ``init_mode`` of ``tpugan/nn/layers.py:Linear``;
-    the default is torch's own init."""
+    the default is torch's own init; ``normal02zero`` is cluster_gan's
+    ``initialize_weights`` (clustergan.py:106-116)."""
 
     def __init__(
         self,
@@ -123,7 +124,7 @@ class Linear(nn.Linear):
         init_mode: str = "torch",
         generator: Optional[torch.Generator] = None,
     ):
-        _check_init_mode("Linear", init_mode, ("torch", "normal02"))
+        _check_init_mode("Linear", init_mode, ("torch", "normal02", "normal02zero"))
         super().__init__(in_features, out_features, bias=bias)
         _init_weight_bias(self, init_mode, in_features, generator)
 

@@ -45,15 +45,19 @@ def wgan_gp_penalty(
     fake: torch.Tensor,
     alpha: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    norm_eps: float = 0.0,
 ) -> torch.Tensor:
     """mean((|dD/dx_interp| - 1)^2) over samples, x_interp = alpha*real
     + (1-alpha)*fake with one alpha per sample, shape (B, 1, 1, 1): passed
-    in, or drawn U[0, 1) from ``generator``."""
+    in, or drawn U[0, 1) from ``generator``. ``norm_eps`` is added to the
+    sum of squares inside the square root: cluster_gan's 1e-12
+    (``tpugan/ops/penalty.py:42-68``, clustergan.py:95); at 0 the norm is
+    ``_safe_sqrt``'s."""
     if alpha is None:
         shape = (real.shape[0],) + (1,) * (real.dim() - 1)
         alpha = torch.rand(shape, generator=generator, device=real.device, dtype=real.dtype)
     grads = _grad_wrt_input(d_fn, alpha * real + (1.0 - alpha) * fake)
-    norms = _safe_sqrt((grads.reshape(grads.shape[0], -1) ** 2).sum(dim=1))
+    norms = _safe_sqrt((grads.reshape(grads.shape[0], -1) ** 2).sum(dim=1) + norm_eps)
     return ((norms - 1.0) ** 2).mean()
 
 

@@ -13,12 +13,15 @@ class TrainState:
     parameters and BatchNorm running statistics (through the modules), the
     optimizers' moments, and ``draws``, the device generator of the steps'
     random draws. ``step`` counts the steps taken (critic steps in the critic
-    family)."""
+    family). ``aux`` holds a trainer's loop-carried device tensors (began's
+    equilibrium term ``k``, ``tpugan/models/began.py:114-186``), which the
+    step updates in place so that a captured CUDA graph carries them too."""
 
     modules: dict
     optimizers: dict
     draws: torch.Generator
     step: int = 0
+    aux: dict = dataclasses.field(default_factory=dict)
 
 
 def normalize_uint8(x: torch.Tensor, mean: float = 0.5, std: float = 0.5) -> torch.Tensor:
