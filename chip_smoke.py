@@ -151,7 +151,21 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    size, no launch of the port's kernels; then the steady-state schedule
    unit (one full_step, four d_steps): ms a step, device time and busy
    share (``[cluster_gan slice]``).
-21. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
+21. The last four entries, eager, each at its reference configuration on
+   synthetic data: ``bicyclegan.main`` (128px, batch 8, latent 8) for 6
+   batches with a sample sheet and its four checkpoints; ``srgan.main`` (HR
+   256, batch 4, 16 residual blocks, the He-random VGG19 features[:18]) and
+   ``esrgan.main`` (HR 256, batch 4, 23 RRDB blocks, VGG19 features[:35];
+   2 warm-up batches, previews every 2, a checkpoint every 4 batches) for
+   6; each with finite losses, its PNGs by name and size, its checkpoints
+   reloaded and no launch of the port's kernels; then the steady-state
+   step (esrgan's warm-up and full step apart, and the full step's FLOPs
+   and share of the FP32 peak), device time, busy share, kernels and peak
+   memory (``[bicyclegan slice]``, ``[srgan slice]``, ``[esrgan slice]``).
+   ``python -m tpugan_torch test_on_image`` on a 64x64 PNG with the esrgan
+   slice's generator: a 260x260 PNG equal to the loaded generator's
+   forward, quantized (``[test_on_image]``).
+22. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
    of 60 steps replayed), its JSON line printed before a ``[fused summary]``
    line and the last three lines.
 
@@ -2507,11 +2521,12 @@ def _paths_parity(paths, gen):
     return worst, done
 
 
-def _step_report(tag, smi, step_once, n_timed, what, images):
+def _step_report(tag, smi, step_once, n_timed, what, images, n_prof=3, traces=3):
     """Steady state of ``step_once`` (a step, or a unit): host-clock ms over
-    ``n_timed`` after 3 warm-up, synchronized; then 3 under torch.profiler:
-    device time, device kernels and the busy share, and the IN pair's device
-    time. Returns the numbers."""
+    ``n_timed`` after 3 warm-up, synchronized; then ``n_prof`` under
+    torch.profiler, the most complete of ``traces`` traces: device time,
+    device kernels and the busy share, and the IN pair's device time.
+    Returns the numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2523,8 +2538,8 @@ def _step_report(tag, smi, step_once, n_timed, what, images):
         step_once()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n_timed * 1e3
-    n_prof, kernels, prof_ms = 3, [], None
-    for _ in range(3):  # keep the most complete of three traces (device_ms)
+    kernels, prof_ms = [], None
+    for _ in range(traces):  # keep the most complete trace (device_ms)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n_prof):
@@ -2975,6 +2990,227 @@ def phase_two_domain_fused(smi):
     return out
 
 
+# bicyclegan, srgan and esrgan through their mains: batches a run, and the
+# sample and checkpoint intervals (esrgan: warm-up batches too).
+BICYCLE_BATCHES, SR_BATCHES = 6, 6
+
+
+def _steady_memory(tag, report):
+    """``report()`` (``_step_report``s) between a reset of the peak memory
+    and a read of ``max_memory_allocated``; the reports, with the peak in
+    MiB."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = report()
+    torch.cuda.synchronize()
+    out["max_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    log(f"{tag} max_memory_allocated over the steady-state steps {out['max_memory_mib']:.1f} MiB")
+    return out
+
+
+def _slice_main(tag, mod, argv, pngs, grid_wh, ckpts):
+    """``mod.main(argv)``: finite losses at every row, each of ``pngs``
+    (paths under images/) a PNG of ``grid_wh``, each of ``ckpts`` (paths
+    under saved_models/, the module name first) reloaded into a new module,
+    no launch of the port's kernels. Returns the run's output folder."""
+    import torch
+
+    out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_{mod.NAME}_")
+    n = int(argv[argv.index("--max_batches") + 1])
+    wall, launches, _ = _run_main(mod, argv, out_dir)
+    log("")
+    rows = _check_rows(tag, os.path.join(out_dir, "metrics.jsonl"), n)
+    _check_grids(tag, [os.path.join(out_dir, "images", p) for p in pngs], grid_wh)
+    fresh = mod.build(mod.Config(), torch.device("cpu"))
+    for path in ckpts:
+        sd = torch.load(os.path.join(out_dir, "saved_models", path), map_location="cpu",
+                        weights_only=True)
+        if not all(torch.isfinite(v).all() for v in sd.values() if v.is_floating_point()):
+            raise AssertionError(f"{tag} non-finite weights in {path}")
+        fresh[os.path.basename(path).rsplit("_", 1)[0]].load_state_dict(sd)
+    log(f"{tag} main() {n} batches in {wall:.1f} s; losses finite in {len(rows)} rows (last "
+        f"{rows[-1]}); wrote {pngs} ({grid_wh[0]}x{grid_wh[1]}) and {ckpts}, each reloaded into "
+        f"a new module; the port's kernel launches {launches}, expected none")
+    if any(launches.values()):
+        raise AssertionError(f"{tag} launched the port's kernels: {launches}")
+    return out_dir
+
+
+def phase_bicyclegan_slice(smi):
+    """``bicyclegan.main`` at the reference configuration (128px, batch 8,
+    latent 8) for ``BICYCLE_BATCHES`` batches with a sample sheet at batch 0
+    and the four checkpoints, eager; then the steady-state step, its device
+    time, busy share, kernels and peak memory (``[bicyclegan slice]``)."""
+    import numpy as np
+    import torch
+
+    from tpugan_torch.models import bicyclegan
+
+    tag = "[bicyclegan slice]"
+    cfg = bicyclegan.Config(synthetic_data=True)
+    n = BICYCLE_BATCHES
+    sheet = ((cfg.latent_dim + 1) * cfg.img_width + 4, 8 * cfg.img_height + 4)
+    _slice_main(tag, bicyclegan, [
+        "--synthetic_data", "--n_epochs", "1", "--max_batches", str(n), "--sample_interval",
+        str(n), "--checkpoint_interval", "1"], [f"{cfg.dataset_name}/0.png"], sheet,
+        [f"{cfg.dataset_name}/{m}_0.pth" for m in bicyclegan.MODULES])
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(rng.integers(0, 256, (cfg.batch_size, cfg.img_height,
+                                                   cfg.img_width, 3), dtype=np.uint8)).to(dev)
+            for _ in range(2))
+
+    def report():
+        state = bicyclegan.create_state(cfg, bicyclegan.build(cfg, dev), dev)
+        step = bicyclegan.make_step(cfg, state)
+        return _step_report(tag, smi, lambda: step(state, a, b), 10, "step", cfg.batch_size,
+                            n_prof=2, traces=1)
+
+    return _steady_memory(tag, report)
+
+
+def _sr_batch(cfg):
+    import numpy as np
+    import torch
+
+    shape = (cfg.batch_size, cfg.hr_height, cfg.hr_height, cfg.channels)
+    return torch.from_numpy(np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)).cuda()
+
+
+def phase_srgan_slice(smi):
+    """``srgan.main`` at the reference configuration (HR 256, batch 4, 16
+    residual blocks, the He-random VGG19 features[:18]) for ``SR_BATCHES``
+    batches with samples and checkpoints; then the steady-state step
+    (``[srgan slice]``)."""
+    import torch
+
+    from tpugan_torch.models import srgan
+
+    tag = "[srgan slice]"
+    cfg = srgan.Config(synthetic_data=True)
+    interval = SR_BATCHES - 1
+    grid = (2 * (cfg.hr_height + 4), cfg.batch_size * (cfg.hr_height + 2) + 2)
+    _slice_main(tag, srgan, [
+        "--synthetic_data", "--n_epochs", "1", "--max_batches", str(SR_BATCHES),
+        "--sample_interval", str(interval), "--checkpoint_interval", "1"],
+        [f"{i}.png" for i in range(0, SR_BATCHES, interval)], grid,
+        [f"{m}_0.pth" for m in srgan.MODULES])
+    dev = torch.device("cuda")
+    imgs = _sr_batch(cfg)
+
+    def report():
+        state = srgan.create_state(cfg, srgan.build(cfg, dev), dev)
+        step = srgan.make_step(cfg, state)
+        return _step_report(tag, smi, lambda: step(state, imgs), 10, "step", cfg.batch_size,
+                            n_prof=2, traces=1)
+
+    return _steady_memory(tag, report)
+
+
+def phase_esrgan_slice(smi):
+    """``esrgan.main`` at the reference configuration (HR 256, batch 4, 23
+    RRDB blocks, the He-random VGG19 features[:35]) for ``SR_BATCHES``
+    batches, the first 2 warm-up batches, previews every 2 and a checkpoint
+    every 4 batches; then the warm-up and the full step apart, the full
+    step's FLOPs (``torch.utils.flop_counter``), its share of the FP32 peak
+    and the peak memory (``[esrgan slice]``). Returns the numbers and the
+    generator checkpoint."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from tpugan_torch.models import esrgan
+
+    tag = "[esrgan slice]"
+    cfg = esrgan.Config(synthetic_data=True)
+    warm, interval, every = 2, 2, 4
+    grid = (2 * cfg.hr_height + 4, cfg.batch_size * (cfg.hr_height + 2) + 2)
+    out_dir = _slice_main(tag, esrgan, [
+        "--synthetic_data", "--n_epochs", "1", "--max_batches", str(SR_BATCHES),
+        "--warmup_batches", str(warm), "--sample_interval", str(interval),
+        "--checkpoint_interval", str(every)],
+        [f"training/{i}.png" for i in range(warm, SR_BATCHES, interval)], grid,
+        [f"{m}_0.pth" for m in esrgan.MODULES])
+    dev = torch.device("cuda")
+    imgs = _sr_batch(cfg)
+    state = esrgan.create_state(cfg, esrgan.build(cfg, dev), dev)
+    warmup_step, full_step = esrgan.make_steps(cfg, state)
+
+    def report():
+        rw = _step_report(f"{tag} warmup_step", smi, lambda: warmup_step(state, imgs), 5,
+                          "warmup_step", cfg.batch_size, n_prof=1, traces=1)
+        rf = _step_report(f"{tag} full_step", smi, lambda: full_step(state, imgs), 5,
+                          "full_step", cfg.batch_size, n_prof=1, traces=1)
+        return {"warmup_step": rw, "full_step": rf}
+
+    out = _steady_memory(tag, report)
+    with FlopCounterMode(display=False) as counter:
+        full_step(state, imgs)
+    torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    peak = peaks(torch.cuda.get_device_name(0))[0]
+    rf = out["full_step"]
+    rf["tflop"] = flops / 1e12
+    rf["peak_share"] = flops / peak / (rf["ms"] / 1e3)
+    dev_share = flops / peak / (rf["device_ms"] / 1e3) if rf["device_ms"] else None
+    log(f"{tag} full_step: {flops / 1e12:.4f} TFLOP (convolutions and matmuls, forward and "
+        f"backward; torch.utils.flop_counter), {flops / peak * 1e3:.3f} ms at the FP32 peak: "
+        f"{rf['peak_share']:.1%} of it over the step's {rf['ms']:.3f} ms"
+        + (f", {dev_share:.1%} over its device time" if dev_share else ""))
+    out["generator_ckpt"] = os.path.join(out_dir, "saved_models", "generator_0.pth")
+    return out
+
+
+def phase_test_on_image(ckpt):
+    """``python -m tpugan_torch test_on_image`` on a 64x64 RGB PNG written by
+    the port's ``encode_png``, with the esrgan slice's generator checkpoint:
+    the output is 260x260 (4x, and save_image's 2 px border), and its pixels
+    are the loaded generator's forward, denormalized and quantized as
+    torchvision's ``save_image`` does (``[test_on_image]``)."""
+    import numpy as np
+    import torch
+
+    from tpugan_torch.io.images import decode_png, encode_png
+    from tpugan_torch.models import esrgan
+    from tpugan_torch.nn.sr import ESRGANGenerator
+    from tpugan_torch.nn.vgg import imagenet_denormalize, imagenet_normalize
+
+    tag = "[test_on_image]"
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_test_on_image_")
+    img = np.random.default_rng(3).integers(0, 256, (64, 64, 3), dtype=np.uint8)
+    path = os.path.join(out_dir, "face.png")
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpugan_torch", "test_on_image", "--image_path",
+                           path, "--checkpoint_model", ckpt, "--output_dir", out_dir],
+                          cwd=REPO, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with open(os.path.join(out_dir, "images", "outputs", "sr-face.png"), "rb") as f:
+        got = decode_png(f.read())
+    G = ESRGANGenerator(num_res_blocks=esrgan.TestOnImageConfig.residual_blocks)
+    G.load_state_dict(torch.load(ckpt, map_location="cpu", weights_only=True))
+    G = G.cuda().eval()
+    with torch.no_grad():
+        x = torch.from_numpy(img).cuda().permute(2, 0, 1)[None].float() / 255.0
+        sr = imagenet_denormalize(G(imagenet_normalize(x)))[0].permute(1, 2, 0).cpu().numpy()
+    want = np.zeros((260, 260, 3), np.uint8)
+    want[2:-2, 2:-2] = (np.clip(sr, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32)) if got.shape == want.shape else None
+    log(f"{tag} the CLI took {wall:.1f} s (a process of its own); wrote sr-face.png "
+        f"{got.shape[1]}x{got.shape[0]}; against the in-process forward of the loaded generator, "
+        f"quantized: max |diff| "
+        + (f"{int(diff.max())}, {float((diff == 0).mean()):.4%} of the values equal"
+           if diff is not None else "not comparable"))
+    if diff is None or diff.max() > 1:
+        raise AssertionError(f"{tag} output {got.shape} does not hold to the generator's forward")
+    return {"max_diff": int(diff.max()), "equal": float((diff == 0).mean()), "cli_s": wall}
+
+
 def _timed_phase(name, fn):
     """``fn()``, its host seconds logged."""
     t0 = time.perf_counter()
@@ -3017,6 +3253,10 @@ def main() -> int:
     fused.update(two_domain)
     fused.update(_timed_phase("template rest fused", lambda: phase_template_rest_fused(smi)))
     _timed_phase("cluster_gan slice", lambda: phase_cluster_gan_slice(smi))
+    _timed_phase("bicyclegan slice", lambda: phase_bicyclegan_slice(smi))
+    _timed_phase("srgan slice", lambda: phase_srgan_slice(smi))
+    esrgan_out = _timed_phase("esrgan slice", lambda: phase_esrgan_slice(smi))
+    _timed_phase("test_on_image", lambda: phase_test_on_image(esrgan_out["generator_ckpt"]))
     bench_rec = _timed_phase("dcgan bench", phase_dcgan_bench)
     keep = ("eager_ms", "graph_ms", "device_ms", "busy", "capture_s", "instantiate_s",
             "memory_before", "memory_after", "replay_vs_eager")

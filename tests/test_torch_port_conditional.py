@@ -463,14 +463,15 @@ def test_runs_raise_without_cuda(tmp_path, name):
 def test_cli_lists_thirteen_trainers(capsys):
     """The registry as it stands: the thirteen trainers above, the im2im
     ones (pix2pix, discogan, dualgan, context_encoder, ccgan, stargan, unit),
-    the two-domain pair (pixelda, cogan) and the rest of templates A/B
-    (bgan, softmax_gan, relativistic_gan, ebgan, began, aae, cluster_gan)."""
+    the two-domain pair (pixelda, cogan), the rest of templates A/B (bgan,
+    softmax_gan, relativistic_gan, ebgan, began, aae, cluster_gan),
+    bicyclegan, srgan, esrgan and test_on_image: all 33 entries."""
     from tpugan_torch.__main__ import main
 
     assert main(["list"]) == 0
     names = [ln.strip() for ln in capsys.readouterr().out.splitlines()[2:]]
-    assert names == ["aae", "acgan", "began", "bgan", "ccgan", "cgan", "cluster_gan", "cogan",
-                     "context_encoder", "cyclegan", "dcgan", "discogan", "dragan", "dualgan",
-                     "ebgan", "gan", "infogan", "lsgan", "munit", "pix2pix", "pixelda",
-                     "relativistic_gan", "sgan", "softmax_gan", "stargan", "unit", "wgan",
-                     "wgan_div", "wgan_gp"]
+    assert names == ["aae", "acgan", "began", "bgan", "bicyclegan", "ccgan", "cgan",
+                     "cluster_gan", "cogan", "context_encoder", "cyclegan", "dcgan", "discogan",
+                     "dragan", "dualgan", "ebgan", "esrgan", "gan", "infogan", "lsgan", "munit",
+                     "pix2pix", "pixelda", "relativistic_gan", "sgan", "softmax_gan", "srgan",
+                     "stargan", "test_on_image", "unit", "wgan", "wgan_div", "wgan_gp"]

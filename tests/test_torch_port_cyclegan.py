@@ -320,13 +320,14 @@ def test_checkpoint_then_resume_roundtrip(tmp_path):
 
 
 def test_layer_options_not_ported_raise():
-    """A layer option not ported yet raises with its ROADMAP item (the VGG
-    features' ``he`` init). Affine IN (dualgan) and tracked IN (stargan) are
-    ported, and each needs its channel count."""
-    from tpugan_torch.nn.layers import Conv2d, InstanceNorm
+    """A layer option that no trainer uses raises, naming the ROADMAP section
+    that leaves it out (a transposed conv's ``he`` init; Conv2d's is the VGG
+    features'). Affine IN (dualgan) and tracked IN (stargan) are ported, and
+    each needs its channel count."""
+    from tpugan_torch.nn.layers import ConvTranspose2d, InstanceNorm
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Conv2d(4, 4, 3, init_mode="he")
+        ConvTranspose2d(4, 4, 3, init_mode="he")
     with pytest.raises(ValueError, match="num_features"):
         InstanceNorm(track_running_stats=True)
     with pytest.raises(ValueError, match="num_features"):

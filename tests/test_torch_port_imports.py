@@ -31,7 +31,8 @@ def test_every_port_module_imports_without_jax_or_tpugan():
     assert {f"tpugan_torch.models.{name}" for name in (
         "gan", "wgan_div", "dragan", "cgan", "acgan", "sgan", "infogan", "pix2pix", "discogan",
         "dualgan", "context_encoder", "ccgan", "stargan", "unit", "pixelda", "cogan", "bgan",
-        "softmax_gan", "relativistic_gan", "ebgan", "began", "aae", "cluster_gan")} <= set(names)
+        "softmax_gan", "relativistic_gan", "ebgan", "began", "aae", "cluster_gan", "bicyclegan",
+        "srgan", "esrgan", "test_on_image")} <= set(names)
     code = (
         "import importlib, sys\n"
         "for name in sys.argv[1:]:\n"

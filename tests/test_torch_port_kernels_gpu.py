@@ -1142,3 +1142,144 @@ def test_replayed_began_steps_equal_eager_steps_with_deterministic_cudnn(cuda, m
     for name in a:
         assert torch.equal(b[name], a[name]), f"{name}: the eager runs differ"
         assert torch.equal(replay[name], a[name]), f"{name}: the replay differs"
+
+
+# --- bicyclegan, srgan and esrgan: one step ---------------------------------------
+#
+# Each at its reference configuration (bicyclegan 128px, batch 8; srgan and
+# esrgan HR 256, batch 4, 16 and 23 residual blocks), from the same weights,
+# batch and draws (bicyclegan's eps and z) on both devices, as the im2im
+# steps: losses 1e-4 relative; each optimizer's gradients 1e-3 relative plus
+# ``IM2IM_FLOORS`` (5e-3) of its module's largest CPU gradient; Adam's first
+# step of the card's own gradients; running statistics 1e-4 relative and
+# ``IM2IM_STATS_ATOL`` absolute; no kernel of the port launched. The CPU
+# tests found two float32 hazards on these paths, each held there in float64
+# (``tests/test_torch_port_sr.py:_esrgan``,
+# ``tests/test_torch_port_bicyclegan.py:_step``): a BatchNorm channel of
+# esrgan's discriminator with a variance below its eps on the untrained
+# generator's fakes, and bicyclegan's latent loss, read through the
+# encoder after Adam's first step, lr * g / (|g| + eps), which turns the
+# rounding of its near-zero gradients into steps of up to lr (on the card
+# that moved 14 of the generator's first-conv gradients by up to 6.7e-3 of
+# the largest). So the card's bicyclegan step takes the CPU run's updated
+# encoder after recording its own update, which Adam's identity still
+# holds. The test prints each measured card-CPU share.
+
+SR_STEPS = ["bicyclegan", "srgan", "esrgan_warmup", "esrgan_full"]
+
+
+def _take_after_step(state, name, want):
+    """After optimizer ``name``'s own step (recorded), its parameters take the
+    values ``want`` recorded (``_record_updates``: (role, key) -> (before,
+    grad, after)), as the CPU tests' bicyclegan phase 2 takes JAX's updated
+    encoder."""
+    opt, recorded = state.optimizers[name], state.optimizers[name].step
+    module = state.modules[name]
+
+    def step(*a, **kw):
+        out = recorded(*a, **kw)
+        with torch.no_grad():
+            for k, p in module.named_parameters():
+                p.copy_(want[name, k][2])
+        return out
+
+    opt.step = step
+
+
+@pytest.mark.parametrize("name", SR_STEPS)
+def test_one_sr_or_bicyclegan_step_on_the_card_matches_the_cpu(cuda, name):
+    import importlib
+
+    import numpy as np
+
+    mod = importlib.import_module(f"tpugan_torch.models.{name.split('_')[0]}")
+    cfg = mod.Config(synthetic_data=True)
+    rng = np.random.default_rng(0)
+    g = torch.Generator().manual_seed(1)
+    if name == "bicyclegan":
+        shape = (cfg.batch_size, cfg.img_height, cfg.img_width, cfg.channels)
+        batch = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)) for _ in range(2)]
+        kw = {k: torch.randn(cfg.batch_size, cfg.latent_dim, generator=g)
+              for k in ("eps", "sampled_z")}
+    else:
+        shape = (cfg.batch_size, cfg.hr_height, cfg.hr_height, cfg.channels)
+        batch, kw = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))], {}
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    counts = (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches, gp.gp_fwd_launches)
+    runs = []
+    try:
+        for dev in (torch.device("cpu"), cuda):
+            modules = mod.build(cfg, dev)
+            state = mod.create_state(cfg, modules, dev)
+            rec = _record_updates(state)
+            if name == "bicyclegan" and runs:  # phase 2 reads the CPU's updated encoder
+                _take_after_step(state, "encoder", runs[0][1]["encoder"])
+            if name.startswith("esrgan"):
+                step = mod.make_steps(cfg, state)[name.endswith("full")]
+            else:
+                step = mod.make_step(cfg, state)
+            state, out = step(state, *[x.to(dev) for x in batch],
+                              **{k: v.to(dev) for k, v in kw.items()})
+            runs.append((modules, rec, {k: v.cpu() for k, v in out.items() if v.ndim == 0}))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert counts == (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches,
+                      gp.gp_fwd_launches)
+    (mods_c, rec_c, out_c), (mods_g, rec_g, out_g) = runs
+    assert sorted(out_c) == sorted(out_g) and sorted(rec_c) == sorted(rec_g)
+    for k in out_c:
+        torch.testing.assert_close(out_g[k], out_c[k], rtol=1e-4, atol=0, msg=k)
+    share = IM2IM_FLOORS["generator"]
+    for opt_name, want in rec_c.items():
+        got = rec_g[opt_name]
+        largest = {}
+        for (role, _), (_, grad, _) in want.items():
+            if grad is not None:
+                largest[role] = max(largest.get(role, 0.0), float(grad.abs().max()))
+        worst = {}
+        for key, (before_c, grad_c, _) in want.items():
+            before_g, grad_g, after_g = got[key]
+            if grad_c is None:
+                assert grad_g is None, (opt_name, key)
+                continue
+            role = key[0]
+            floor = share * largest[role]
+            worst[role] = max(worst.get(role, 0.0), float((grad_g - grad_c).abs().max()))
+            torch.testing.assert_close(grad_g, grad_c, rtol=1e-3, atol=floor, msg=lambda m: (
+                f"{opt_name} {key}: |g| max {float(grad_c.abs().max()):.3e}, card-CPU "
+                f"{float((grad_g - grad_c).abs().max()):.3e}, floor {floor:.3e}\n{m}"))
+            torch.testing.assert_close(after_g, _adam_first_step(before_g, grad_g, cfg),
+                                       rtol=1e-6, atol=1e-7, msg=lambda m: f"{key}: {m}")
+        print(f"{name} {opt_name}: card-CPU gradients differ by at most " + ", ".join(
+            f"{role} {worst[role] / largest[role]:.3e}" for role in worst)
+            + f" of the largest; floor {share:.0e}")
+    for role, m in mods_g.items():
+        stats_c = mods_c[role].state_dict()
+        for k, v in m.state_dict().items():
+            if "running" in k:
+                torch.testing.assert_close(v.cpu(), stats_c[k], rtol=1e-4, atol=IM2IM_STATS_ATOL,
+                                           msg=lambda m, k=k: f"{role} {k}: {m}")
+
+
+def test_resize_bicubic_on_the_card_matches_the_cpu(cuda):
+    """srgan's LR/HR pair from one uint8 batch at HR 256 (4x down, and the
+    HR resize to its own size) and a 2x enlargement, card against CPU: the
+    antialiased bicubic, 1e-6 absolute on [0, 1] images (the CPU tests hold
+    the CPU's to ``jax.image.resize`` at 1e-6)."""
+    import numpy as np
+
+    from tpugan_torch.models.srgan import prepare_lr_hr
+    from tpugan_torch.ops.image import resize_bicubic
+
+    u8 = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (4, 256, 256, 3),
+                                                            dtype=np.uint8))
+    for got, want in zip(prepare_lr_hr(u8.to(cuda), 256), prepare_lr_hr(u8, 256)):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6 * scale)
+    x = u8.permute(0, 3, 1, 2).float() / 255.0
+    torch.testing.assert_close(resize_bicubic(x.to(cuda), (512, 512)).cpu(),
+                               resize_bicubic(x, (512, 512)), rtol=0, atol=1e-6)
+    assert torch.equal(resize_bicubic(x.to(cuda), (64, 64)).cpu(),
+                       resize_bicubic(x.to(cuda), (64, 64)).cpu())

@@ -434,10 +434,12 @@ def test_run_raises_without_cuda(tmp_path, name):
         TRAINERS[name][1].main(["--synthetic_data", "--output_dir", str(tmp_path)])
 
 
-def test_registry_lists_the_22_ported_trainers(capsys):
+def test_registry_lists_the_ported_trainers(capsys):
     """Every ported name is an entry of the JAX package's registry and
-    imports as its own module; stargan, unit, pixelda, cogan and the rest
-    of templates A/B are among them, and ``list`` prints them all."""
+    imports as its own module; stargan, unit, pixelda, cogan, the rest of
+    templates A/B, bicyclegan, srgan, esrgan and test_on_image are among
+    them, the registry now equals the JAX package's, and ``list`` prints
+    them all."""
     from tpugan.models import registry as registry_j
     from tpugan_torch.__main__ import main
     from tpugan_torch.models import registry
@@ -447,6 +449,8 @@ def test_registry_lists_the_22_ported_trainers(capsys):
     for name in names:
         assert os.path.basename(registry.get(name).__file__) == f"{name}.py"
     assert {"stargan", "unit", "pixelda", "cogan", "bgan", "softmax_gan", "relativistic_gan",
-            "ebgan", "began", "aae", "cluster_gan"} <= set(names)
+            "ebgan", "began", "aae", "cluster_gan", "bicyclegan", "srgan", "esrgan",
+            "test_on_image"} <= set(names)
+    assert names == registry_j.names() and len(names) == 33
     assert main(["list"]) == 0
     assert set(names) <= set(capsys.readouterr().out.split())

@@ -38,7 +38,7 @@ from tpugan_torch.io.interop import load_jax_params
 from tpugan_torch.models import _critic_family as cf_t
 from tpugan_torch.models import wgan_gp as wg_t
 from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
-from tpugan_torch.nn.layers import BatchNorm1d, Conv2d, Linear
+from tpugan_torch.nn.layers import BatchNorm1d, ConvTranspose2d, Linear
 
 CPU = torch.device("cpu")
 B, LATENT = 8, 16
@@ -230,7 +230,7 @@ def test_layer_init_is_seeded_and_other_modes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Linear(4, 4, init_mode="he")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Conv2d(4, 4, 3, init_mode="he")
+        ConvTranspose2d(4, 4, 3, init_mode="he")
 
 
 def test_ten_batch_runs_write_the_same_samples(tmp_path):

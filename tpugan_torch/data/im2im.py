@@ -291,8 +291,10 @@ def celeba_images_or_synthetic(
                     f"val split shrunk to the last {tail} (reference slice "
                     f"would leave an empty train set)"
                 )
-            imgs = imgs[:-tail] if mode == "train" else imgs[-tail:]
-            return imgs, True
+            # ``val_tail`` 0 (srgan, esrgan): every image trains. The JAX
+            # package's ``imgs[:-0]`` leaves none (ROADMAP 3.4).
+            cut = len(imgs) - tail
+            return (imgs[:cut] if mode == "train" else imgs[cut:]), True
     imgs, _ = synthetic_attr_faces(
         synthetic_n, height, width, 5,
         seed=seed + (0 if mode == "train" else 1),

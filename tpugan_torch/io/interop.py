@@ -40,6 +40,7 @@ def _flax_groups(params: Dict) -> Dict[str, List[np.ndarray]]:
     groups: Dict[str, list] = {
         "conv_kernel": [], "conv_bias": [], "linear_kernel": [],
         "linear_bias": [], "norm_scale": [], "norm_bias": [], "embedding": [],
+        "prelu": [],
     }
     leaves = list(_walk(params))
     owner = {}
@@ -55,6 +56,10 @@ def _flax_groups(params: Dict) -> Dict[str, List[np.ndarray]]:
             kind = "norm_bias"
         elif name == "embedding" and nd == 2:
             kind = "embedding"
+        elif name == "alpha" and nd == 0:
+            # PReLU's one slope (``tpugan/nn/layers.py:PReLU``): a lone 1-D
+            # ``weight`` of shape (1,) in torch (``torch_interop.py:84-87``).
+            kind = "prelu"
         elif name == "bias":
             continue
         else:
@@ -93,6 +98,10 @@ def _torch_kind(sd, key: str) -> str:
             # A 2-D weight without a sibling bias is an Embedding's table
             # (``torch_interop.py:77-78,132-134``): not transposed.
             return "embedding"
+        if nd == 1 and (f"{scope}.bias" if scope else "bias") not in sd:
+            # A 1-D weight without a sibling bias is a PReLU slope: every
+            # affine norm of the zoo has its bias.
+            return "prelu"
         return {4: "conv_kernel", 2: "linear_kernel", 1: "norm_scale"}[nd]
     if base == "bias":
         wkey = f"{scope}.weight" if scope else "weight"
@@ -102,11 +111,13 @@ def _torch_kind(sd, key: str) -> str:
 
 def _to_torch(kind: str, a: np.ndarray) -> np.ndarray:
     """flax HWIO conv kernels to OIHW, (in, out) linear kernels to (out, in)
-    (``torch_interop.py:_to_torch``)."""
+    and a PReLU's scalar slope to shape (1,) (``torch_interop.py:_to_torch``)."""
     if kind == "conv_kernel":
         return a.transpose(3, 2, 0, 1)
     if kind == "linear_kernel":
         return a.T
+    if kind == "prelu":
+        return np.reshape(a, (1,))
     return a
 
 
@@ -116,7 +127,13 @@ def load_jax_params(
 ) -> torch.nn.Module:
     """Copy flax ``params`` (and ``batch_stats``, for a module with
     BatchNorm) into ``module`` in place and return it. Raises on any entry
-    without a counterpart and on leaves left over."""
+    without a counterpart and on leaves left over. A module with a
+    ``load_flax_params(params)`` of its own (the VGG features, whose
+    parameters pair by name) loads through it instead."""
+    own = getattr(module, "load_flax_params", None)
+    if own is not None:
+        own(params)
+        return module
     groups = {**_flax_groups(params), **_stat_groups(batch_stats or {})}
     used = {k: [False] * len(v) for k, v in groups.items()}
     sd = module.state_dict()

@@ -73,11 +73,13 @@ def maybe_resume(modules: dict, cfg, names) -> None:
 
 
 def paired_loader(cfg, device, height: int, width: int, split: str = "train",
-                  batch_size=None, prefetch: int = 2):
-    """The paired loader of pix2pix, discogan and dualgan
+                  batch_size=None, prefetch: int = 2, hflip: bool = True):
+    """The paired loader of pix2pix, discogan, dualgan and bicyclegan
     (``tpugan/models/pix2pix.py:make_loader``): A|B pairs from
     ``--data_dir``/``--dataset_name``, or synthetic pairs; the training split
-    shuffled with a joint horizontal flip, the others with seed + 991."""
+    shuffled, with a joint horizontal flip unless ``hflip`` is False
+    (bicyclegan's has none, ``tpugan/models/bicyclegan.py:365-382``), the
+    others with seed + 991."""
     from tpugan_torch.data.im2im import joint_hflip_transform, paired_or_synthetic
     from tpugan_torch.data.loader import DeviceLoader
 
@@ -90,7 +92,7 @@ def paired_loader(cfg, device, height: int, width: int, split: str = "train",
     return DeviceLoader(
         [a, b], batch_size or cfg.batch_size, device, shuffle=True,
         seed=cfg.seed if split == "train" else cfg.seed + 991, prefetch=prefetch,
-        host_transform=joint_hflip_transform(cfg.seed) if split == "train" else None,
+        host_transform=joint_hflip_transform(cfg.seed) if split == "train" and hflip else None,
     )
 
 

@@ -1,10 +1,8 @@
 """Layers with the JAX package's semantics (``tpugan/nn/layers.py``), on NCHW.
 
 Only what the ported trainers (``tpugan_torch/models/__init__.py``) need is
-here.
-Options they do not use raise ``NotImplementedError`` naming the ROADMAP item
-that ports them; ``_LAYERS_ITEM`` also names the items of the layers not
-here yet.
+here. Init modes that no trainer uses raise ``NotImplementedError`` naming
+the ROADMAP section that leaves them out.
 """
 
 from __future__ import annotations
@@ -19,13 +17,13 @@ from torch import nn
 from tpugan_torch.ops.image import reflection_pad, upsample_nearest, zero_pad_lt
 from tpugan_torch.ops.instance_norm import instance_norm_act
 
-# The ROADMAP queue 1 item that ports each layer option not here yet.
-_LAYERS_ITEM = {
-    "PixelShuffle": "ROADMAP queue 1, item 7 (SR)",
-    "PReLU": "ROADMAP queue 1, item 7 (SR)",
-    "he": "ROADMAP queue 1, item 7 (SR: the VGG features)",
-    "init_mode": "ROADMAP queue 1, items 6-7 (bicyclegan, SR)",
-}
+_NOT_PORTED = "no trainer of the JAX package uses it (ROADMAP, Not ported)"
+
+# torch's own layers, which the JAX package reproduces: PixelShuffle (its
+# NHWC version is pinned to torch's channel order, tests/test_sr_family.py)
+# and PReLU (one slope, 0.25 at init; ``tpugan/nn/layers.py:656-664``).
+PixelShuffle = nn.PixelShuffle
+PReLU = nn.PReLU
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
@@ -36,8 +34,7 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
 
 def _check_init_mode(layer: str, init_mode: str, ported: tuple) -> None:
     if init_mode not in ported:
-        item = _LAYERS_ITEM.get(init_mode, _LAYERS_ITEM["init_mode"])
-        raise NotImplementedError(f"{layer}(init_mode={init_mode!r}): {item}")
+        raise NotImplementedError(f"{layer}(init_mode={init_mode!r}): {_NOT_PORTED}")
 
 
 @torch.no_grad()
@@ -46,10 +43,13 @@ def _init_weight_bias(layer, init_mode: str, fan_in: int, generator) -> None:
     kaiming_uniform_(a=sqrt(5)) and bias U(+-1/sqrt(fan_in)); ``normal02``
     is weight N(0, 0.02) with that same bias (the reference's
     ``weights_init_normal``, which leaves biases at torch's default);
-    ``normal02zero`` is weight N(0, 0.02) and bias zero. Draws come from
-    ``generator``, so a seed fixes them."""
+    ``normal02zero`` is weight N(0, 0.02) and bias zero; ``he`` (the
+    random-feature VGG) is weight N(0, sqrt(2 / fan_in)) with the torch
+    bias. Draws come from ``generator``, so a seed fixes them."""
     if init_mode == "torch":
         nn.init.kaiming_uniform_(layer.weight, a=math.sqrt(5), generator=generator)
+    elif init_mode == "he":
+        layer.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
     else:
         layer.weight.normal_(0.0, 0.02, generator=generator)
     if layer.bias is None:
@@ -65,8 +65,9 @@ class Conv2d(nn.Conv2d):
     """torch.nn.Conv2d with an ``init_mode`` of ``tpugan/nn/layers.py:Conv``.
     The default is ``normal02zero``, the reference cyclegan's
     ``weights_init_normal`` (cyclegan/models.py:6-14); munit's is
-    ``normal02``; cogan's convs keep torch's own init, ``torch``
-    (cogan/cogan.py:42-48 matches only Linear and BatchNorm)."""
+    ``normal02``; cogan's and the SR networks' convs keep torch's own init,
+    ``torch`` (cogan/cogan.py:42-48 matches only Linear and BatchNorm); the
+    VGG features' is ``he``."""
 
     def __init__(
         self,
@@ -80,7 +81,7 @@ class Conv2d(nn.Conv2d):
         init_mode: str = "normal02zero",
         generator: Optional[torch.Generator] = None,
     ):
-        _check_init_mode("Conv2d", init_mode, ("normal02zero", "normal02", "torch"))
+        _check_init_mode("Conv2d", init_mode, ("normal02zero", "normal02", "torch", "he"))
         super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=bias)
         _init_weight_bias(self, init_mode, in_channels * kernel_size * kernel_size, generator)
 

@@ -37,3 +37,14 @@ def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
     ``antialias=True``; half-pixel centres (``align_corners=False``)."""
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False,
                          antialias=True)
+
+
+def resize_bicubic(x: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bicubic resize to ``out_hw``: ``jax.image.resize(..., "bicubic")``
+    (``tpugan/models/srgan.py:prepare_lr_hr``), Keys' cubic with a = -0.5
+    on half-pixel centres, its support widened by the scale when it
+    shrinks. ``F.interpolate`` computes that only with ``antialias=True``;
+    without it a 4x shrink samples the cubic at the output's centres alone
+    (off by up to 0.64 on images in [0, 1])."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bicubic", align_corners=False,
+                         antialias=True)
