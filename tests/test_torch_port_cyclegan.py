@@ -253,7 +253,7 @@ def test_normalize_uint8_matches_jax():
 
 @pytest.mark.parametrize(
     "flag", ["--profile_dir=x", "--profile_port=1", "--debug_numerics",
-             "--ragged_last_batch", "--dtype=bfloat16"],
+             "--ragged_last_batch"],
 )
 def test_unported_flags_raise(flag):
     from tpugan_torch.utils.config import config_from_args
@@ -261,6 +261,26 @@ def test_unported_flags_raise(flag):
     cfg = config_from_args(cg_t.Config, [flag])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         reject_unported_flags(cfg)
+
+
+def test_dtype_flag_sets_the_compute_dtype():
+    """``--dtype bfloat16`` sets the layers' compute dtype as the JAX
+    package's flag does (``tests/test_mixed_precision.py::
+    test_dtype_flag_resolves``), and ``--dtype float32`` sets it back; both
+    pass ``reject_unported_flags``."""
+    from tpugan_torch.nn.layers import compute_dtype, resolve_dtype
+    from tpugan_torch.utils.config import config_from_args
+
+    assert resolve_dtype("float32") is None
+    assert resolve_dtype("bfloat16") is torch.bfloat16
+    try:
+        for flag, want in (("bfloat16", torch.bfloat16), ("float32", None)):
+            cfg = config_from_args(cg_t.Config, ["--dtype", flag])
+            reject_unported_flags(cfg)
+            assert compute_dtype() is want
+    finally:
+        config_from_args(cg_t.Config, [])
+    assert compute_dtype() is None
 
 
 def test_run_raises_without_cuda(tmp_path):

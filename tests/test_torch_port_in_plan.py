@@ -28,22 +28,29 @@ SHAPES = sorted(
     | {s for path, units in chip_smoke.IM2IM_IN.items() for unit in units
        for s, _ in chip_smoke.im2im_sites(path, unit)}
 )
+# Every shape the bf16 forms take on the CycleGAN and MUNIT paths.
+BF16_SHAPES = sorted(
+    set(chip_smoke.STEP_SHAPES) | set(chip_smoke.SAMPLE_SHAPES)
+    | {s for s, _ in chip_smoke.MUNIT_IN_STEP} | {s for s, _ in chip_smoke.MUNIT_IN_SAMPLE}
+    | {chip_smoke.ADAIN_STEP_SHAPE, chip_smoke.ADAIN_SAMPLE_SHAPE}
+)
 SMEM_LIMIT = 227 * 1024  # a CTA's shared memory on the H100
 STATIC_SMEM = 512  # the regime-B kernels' own: barriers, sums (256 bytes by ptxas)
 
 
-def _rule(planes, hw, direction):
+def _rule(planes, hw, direction, elem=4):
     """The rule written out once more: (regime, cluster size or planes a
-    CTA)."""
+    CTA), for elements of ``elem`` bytes."""
     if hw <= 256:
         group = 8
         while group > 1 and (planes + group - 1) // group < 132:
             group //= 2
         return "A", group
-    per = 4 if direction == "fwd" else 8
+    per = elem if direction == "fwd" else 2 * elem
+    lanes = 16 // elem
 
     def slice_bytes(c):
-        return -(-(-(-hw // c)) // 4) * 4 * per
+        return -(-(-(-hw // c)) // lanes) * lanes * per
 
     c = next((c for c in (1, 2, 4, 8) if slice_bytes(c) <= 64 * 1024), 8)
     while c < 8 and planes * c < 132 and slice_bytes(2 * c) >= 16 * 1024:
@@ -72,6 +79,40 @@ def test_plan_follows_the_rule(shape, direction):
     assert p.smem + STATIC_SMEM <= SMEM_LIMIT
     assert p.grid == planes * p.group
     assert 64 <= p.threads <= 256 and p.threads % 32 == 0
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_bf16_plan_writes_every_element_once(shape, direction):
+    """The bf16 plans (``elem`` 2) at every shape of the CycleGAN and MUNIT
+    paths: the rule with 2-byte elements; in regime B, slices of whole
+    16-byte vectors (8 bf16) whose ranks cover each element of the plane
+    exactly once, in bounds, in clusters of at most 8 and never more CTAs a
+    plane than the float32 plan; shared memory at 2 bytes an element (4
+    backward) within 64 KB."""
+    b, c, h, w = shape
+    planes, hw = b * c, h * w
+    p = tin.plan(planes, hw, direction, 2)
+    assert (p.regime, p.group) == _rule(planes, hw, direction, 2)
+    assert p.group <= tin.CLUSTER_MAX
+    if p.regime == "A":
+        # A warp's 32 lanes take elements k * 32 + lane, k < 8: each once.
+        assert hw <= 32 * 8 and p.threads == 32 * p.group
+        assert p.grid * p.group >= planes > (p.grid - 1) * p.group
+        return
+    per = 2 if direction == "fwd" else 4
+    seen = np.zeros(hw, np.int64)
+    for rank in range(p.group):
+        lo = rank * p.slice
+        n = min(p.slice, hw - lo)
+        assert 0 < n <= p.slice
+        seen[lo:lo + n] += 1
+    assert (seen == 1).all()
+    assert p.slice % 8 == 0 and p.held % 8 == 0 and p.held <= p.slice
+    assert p.smem == p.held * per <= 64 * 1024
+    assert p.smem + STATIC_SMEM <= SMEM_LIMIT
+    assert p.grid == planes * p.group and 64 <= p.threads <= 256
+    assert p.group <= tin.plan(planes, hw, direction).group
 
 
 @pytest.mark.parametrize("shape,direction,cluster", [
@@ -120,6 +161,8 @@ def test_plan_rejects_what_no_kernel_runs():
         tin.plan(4, 64, "sideways")
     with pytest.raises(ValueError):
         tin.plan(0, 64, "fwd")
+    with pytest.raises(ValueError):
+        tin.plan(4, 64, "fwd", 8)
 
 
 def test_launchers_refuse_cpu_tensors():

@@ -10,6 +10,11 @@ began and one full_step of cluster_gan (``--wass_flag``) on the card against
 the CPU, and began's replayed steps, its equilibrium term k included,
 against eager ones.
 
+The bf16 forms of the IN pair and AdaIN (``--dtype bfloat16``) against
+their plain bf16 versions at the same shapes, within one bf16 ulp plus the
+float32 tolerances (``chip_smoke.py``), and one bf16 CycleGAN step on the
+card against the same bf16 step on the CPU.
+
 These need a CUDA device and skip without one. The fused dispatch: DCGAN
 steps (K = 3) and WGAN-GP schedule units (K = 2) replayed from a CUDA graph
 against the same eager steps, the generator's state after them, the GP
@@ -109,7 +114,7 @@ def test_a_refused_launch_raises_with_its_plan(cuda, monkeypatch):
     # the kernels are allowed, so the card refuses the launch.
     big = tin.Plan("B", 1, 65536, 65536, 512, 2, 4 * 65536)
     monkeypatch.setattr(tin, "_plan_arg",
-                        lambda planes, hw, direction: (big, tin._c_plan(big, planes, hw)))
+                        lambda planes, hw, direction, elem=4: (big, tin._c_plan(big, planes, hw)))
     before = tin.fwd_launches
     with pytest.raises(RuntimeError, match="CUDA error .* Plan"):
         tin.in_act_fwd(x, 1e-5, 0.0)
@@ -398,15 +403,17 @@ def _adam_first_step(p0, g, cfg, eps=1e-8, weight_decay=0.0):
 # --- Fused dispatch: K steps captured in one CUDA graph and replayed ---------
 #
 # Replay against eager: the same state from the same seed, the same batches
-# and draws, run (a) as eager steps twice and (b) through ``graph_steps``:
-# a first call (the eager warm-up), a second (the capture and its replay), a
-# third (batches copied in, a replay), then one eager step after the
-# replays. Where the eager runs agree bit for bit on a tensor, the replay
-# must too. Where they do not (cuDNN's weight gradients at 64px use atomics,
-# and Adam turns their rounding into steps of up to lr), the replay is one
-# more run of the same nondeterministic arithmetic: by module, its
-# difference from the nearest of four eager runs must stay within the
-# largest difference between two of them.
+# and draws, run (a) as eager steps several times and (b) through
+# ``graph_steps``: a first call (the eager warm-up), a second (the capture
+# and its replay), a third (batches copied in, a replay), then one eager
+# step after the replays. Where the eager runs agree bit for bit on a
+# tensor, the replay must too. Where they do not (cuDNN's weight gradients
+# at 64px use atomics, and Adam turns their rounding into steps of up to
+# lr), the replay is one more run of the same nondeterministic arithmetic,
+# held by ``chip_smoke.replay_rule``: by module, its distance to the nearest
+# of ``REPLAY_EAGER`` eager runs within the mean plus ``REPLAY_K`` standard
+# deviations of the eager-eager distances, which a sound replay passes but
+# for at most 1 / 2501 a module (Cantelli's inequality).
 
 
 def _snapshot(state) -> dict:
@@ -422,14 +429,15 @@ def _snapshot(state) -> dict:
     return snap
 
 
-def _fused_against_eager(make, k, batches, n_eager=4):
+def _fused_against_eager(make, k, batches, n_eager=None):
     """``make() -> (state, step)``; ``batches`` (3, k, ...) uint8 on the
     card. Returns the ``n_eager`` eager snapshots, the replayed one, and the
     ``GraphSteps``."""
+    from chip_smoke import REPLAY_EAGER
     from tpugan_torch.train.loop import graph_steps
 
     snaps = []
-    for _ in range(n_eager):
+    for _ in range(n_eager or REPLAY_EAGER):
         state, step = make()
         for chunk in batches:
             for b in chunk:
@@ -449,34 +457,15 @@ def _fused_against_eager(make, k, batches, n_eager=4):
 
 
 def _assert_replay_matches_eager(eager, replay):
-    """Bit for bit on every tensor the eager runs agree on; elsewhere, by
-    module, the replay's difference from the nearest eager run within the
-    largest eager-eager difference. Returns the largest differences by
-    module: (replay-nearest eager, eager-eager)."""
-    import itertools
+    """``chip_smoke.replay_rule``: the generator state, the step and every
+    tensor the eager runs agree on bit for bit equal; by module, the
+    replay's distance to the nearest eager run within the rule's threshold.
+    Returns {module: (replay-nearest eager, largest eager-eager,
+    threshold)}."""
+    from chip_smoke import replay_rule
 
-    a = eager[0]
-    assert torch.equal(replay["draws"], a["draws"])
-    assert int(replay["step"]) == int(a["step"])
-    floats = [n for n, v in a.items() if v.dtype.is_floating_point]
-    for name in set(a) - set(floats):
-        assert all(torch.equal(s[name], a[name]) for s in [replay, *eager]), name
-    pairs = list(itertools.combinations(range(len(eager)), 2))
-    rep, eag = {}, {}
-    for name in floats:
-        role = name.split(".")[0]
-        to_eager = [float((replay[name] - s[name]).abs().max()) for s in eager]
-        spread = max(float((eager[i][name] - eager[j][name]).abs().max()) for i, j in pairs)
-        if spread == 0.0:
-            assert max(to_eager) == 0.0, (f"{name}: the eager runs agree bit for bit, the "
-                                          f"replay by {max(to_eager):.3e}")
-        rep[role] = [max(r, t) for r, t in zip(rep.get(role, [0.0] * len(eager)), to_eager)]
-        eag[role] = max(eag.get(role, 0.0), spread)
-    worst = {role: (min(rep[role]), eag[role]) for role in rep}
-    print("largest differences by module (replay-nearest eager, eager-eager):", worst)
-    for role, (near, spread) in worst.items():
-        assert near <= spread, (f"{role}: replay differs from the nearest eager run by "
-                                f"{near:.3e}, eager runs by up to {spread:.3e}")
+    worst, _ = replay_rule(eager, replay)
+    print("by module (replay-nearest eager, largest eager-eager, threshold):", worst)
     return worst
 
 
@@ -1283,3 +1272,119 @@ def test_resize_bicubic_on_the_card_matches_the_cpu(cuda):
                                resize_bicubic(x, (512, 512)), rtol=0, atol=1e-6)
     assert torch.equal(resize_bicubic(x.to(cuda), (64, 64)).cpu(),
                        resize_bicubic(x.to(cuda), (64, 64)).cpu())
+
+
+# --- --dtype bfloat16: the bf16 forms and a bf16 step --------------------------
+
+
+def _assert_within_bf16(got, want, atol):
+    """Every element within one bf16 ulp of the larger magnitude plus
+    ``atol`` (``chip_smoke._bf16_errors``)."""
+    from chip_smoke import _bf16_errors
+
+    err, share, ok = _bf16_errors(got, want, atol)
+    assert ok, f"max |diff| {err:.3g}: {share:.2f} of the tolerance (one bf16 ulp + {atol:.3g})"
+
+
+@pytest.mark.parametrize("slope", [0.0, 0.2, 1.0])
+@pytest.mark.parametrize("shape", IN_SHAPES + [(2, 8, 30, 30)])
+def test_bf16_kernels_match_plain_version(cuda, shape, slope):
+    """(2, 8, 30, 30): H*W % 8 = 4, the bf16 form's scalar fill where the
+    float32 one loads float4s."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(shape, device=cuda, generator=gen).bfloat16()
+    g = torch.randn(shape, device=cuda, generator=gen).bfloat16()
+    counts = lambda: (tin.fwd_launches, tin.bwd_launches, tin.fwd_launches_bf16,
+                      tin.bwd_launches_bf16)
+    before = counts()
+    y, mean, rstd = tin.in_act_fwd(x, 1e-5, slope)
+    dx = tin.in_act_bwd(g, x, mean, rstd, slope)
+    assert counts() == (before[0], before[1], before[2] + 1, before[3] + 1)
+    assert (y.dtype, dx.dtype) == (torch.bfloat16,) * 2
+    assert (mean.dtype, rstd.dtype) == (torch.float32,) * 2
+    y_r, mean_r, rstd_r = tin.in_act_fwd_ref(x, 1e-5, slope)
+    dx_r = tin.in_act_bwd_ref(g, x, mean, rstd, slope)
+    _assert_within_bf16(y, y_r, 1e-5)
+    torch.testing.assert_close(mean, mean_r, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd_r, rtol=1e-5, atol=0)
+    _assert_within_bf16(dx, dx_r, 1e-4 * float(dx_r.float().abs().max()))
+    assert torch.equal(y, tin.in_act_fwd(x, 1e-5, slope)[0])
+    assert torch.equal(dx, tin.in_act_bwd(g, x, mean, rstd, slope))
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 32, 32), (40, 256, 32, 32), (2, 8, 31, 31),
+                                   (1, 64, 128, 128)])
+def test_bf16_adain_kernels_match_plain_version(cuda, shape):
+    x, w, bias, g = (t.bfloat16() for t in _adain_inputs(shape, cuda))
+    before = (ta.adain_fwd_launches_bf16, ta.adain_bwd_launches_bf16)
+    y, mean, rstd = ta.adain_fwd(x, w, bias, 1e-5)
+    grads = ta.adain_bwd(g, x, w, mean, rstd)
+    assert (ta.adain_fwd_launches_bf16, ta.adain_bwd_launches_bf16) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert {t.dtype for t in (y, *grads)} == {torch.bfloat16}
+    y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w, bias, 1e-5)
+    _assert_within_bf16(y, y_r, 1e-5 * max(1.0, float(w.float().abs().max())))
+    torch.testing.assert_close(mean, mean_r, rtol=0, atol=1e-5)
+    torch.testing.assert_close(rstd, rstd_r, rtol=1e-5, atol=0)
+    for got, want in zip(grads, ta.adain_bwd_ref(g, x, w, mean, rstd)):
+        _assert_within_bf16(got, want, 1e-4 * float(want.float().abs().max()) + 1e-7)
+
+
+def test_bf16_kernels_take_no_mixed_call(cuda):
+    """A bf16 map with a float32 gradient is refused, not widened to reach
+    the float32 kernel."""
+    x = torch.randn(2, 4, 8, 8, device=cuda).bfloat16()
+    _, mean, rstd = tin.in_act_fwd(x, 1e-5, 0.0)
+    with pytest.raises(TypeError):
+        tin.in_act_bwd(torch.ones_like(x, dtype=torch.float32), x, mean, rstd, 0.0)
+    with pytest.raises(TypeError):
+        tin.in_act_bwd(torch.ones_like(x), x, mean.bfloat16(), rstd, 0.0)
+
+
+def test_bf16_cyclegan_step_on_the_card_matches_the_cpu(cuda):
+    """One CycleGAN step under ``--dtype bfloat16`` at 64px with 2 residual
+    blocks from the same weights and batch, on the card and on the CPU, held
+    at the scale of bf16's own rounding, which is large in this step (a bf16
+    and a float32 step on the CPU differ by about a quarter of each
+    generator's gradient norm): each loss within twice its bf16-float32
+    difference on the CPU plus 1e-3 relative, each module's gradient (all of
+    its parameters' as one vector) within twice that difference's norm.
+    Every IN site goes through the bf16 kernels (48 each way: 4 generator
+    forwards of 9 sites and 4 PatchGAN forwards of 3), none through the
+    float32 ones; the parameters stay float32."""
+    import numpy as np
+
+    from tpugan_torch.models import cyclegan
+    from tpugan_torch.nn.layers import set_default_compute_dtype
+
+    cfg = cyclegan.Config(img_height=64, img_width=64, n_residual_blocks=2, synthetic_data=True)
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8))
+            for _ in "ab")
+    cpu = torch.device("cpu")
+    got = {}
+    try:
+        for key, dev, dtype in (("fp32", cpu, None), ("cpu", cpu, torch.bfloat16),
+                                ("cuda", cuda, torch.bfloat16)):
+            set_default_compute_dtype(dtype)
+            modules = cyclegan.build(cfg, dev)
+            state = cyclegan.create_state(cfg, modules, dev)
+            tin.reset_launch_counts()
+            state, out = cyclegan.make_step(cfg, modules, dev)(state, a, b)
+            got[key] = ({k: float(v) for k, v in out.items()},
+                        {name: torch.cat([p.grad.float().cpu().flatten() for p in m.parameters()])
+                         for name, m in modules.items()})
+            assert {p.dtype for m in modules.values() for p in m.parameters()} == {torch.float32}
+    finally:
+        set_default_compute_dtype(None)
+    assert (tin.fwd_launches_bf16, tin.bwd_launches_bf16) == (48, 48)
+    assert (tin.fwd_launches, tin.bwd_launches) == (0, 0)
+    (loss_f, grad_f), (loss_c, grad_c), (loss_g, grad_g) = got["fp32"], got["cpu"], got["cuda"]
+    for k, v in loss_c.items():
+        assert abs(loss_g[k] - v) <= 2 * abs(v - loss_f[k]) + 1e-3 * abs(v), (k, loss_g[k], v)
+    for name in grad_c:
+        diff = float((grad_g[name] - grad_c[name]).norm())
+        scale = float((grad_c[name] - grad_f[name]).norm())
+        print(f"{name}: card-CPU bf16 gradient difference {diff:.3g}, CPU bf16-fp32 {scale:.3g}, "
+              f"norm {float(grad_c[name].norm()):.3g}")
+        assert diff <= 2 * scale, name

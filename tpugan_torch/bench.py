@@ -5,8 +5,11 @@
 The full G+D step of ``tpugan_torch.models.dcgan`` (the entry points a
 trainer calls), fp32 with TF32 off, on uint8 batches already on the card,
 ``STEPS`` = 60 steps a dispatch as the JAX bench fuses them (``bench.py:37``):
-one CUDA graph of the 60 steps, replayed (``train.loop.graph_steps``; bf16
-waits for ROADMAP queue 1, item 8). The first dispatch is the eager warm-up,
+one CUDA graph of the 60 steps, replayed (``train.loop.graph_steps``).
+``TPUGAN_BENCH_DTYPE`` takes the JAX bench's values (``bench.py:45-49``),
+float32 or bfloat16 (``--dtype bfloat16``: bf16 convolutions and linears
+over float32 master weights), but defaults to float32, the port's recorded
+headline; ``measure(..., dtype=)`` takes the same. The first dispatch is the eager warm-up,
 the second captures the graph; then the difference method of
 ``tpugan_torch.utils.benchtime`` times dispatches, each ending in
 ``torch.cuda.synchronize()``. It takes no flags: the shape is the
@@ -22,6 +25,7 @@ CUDA. Nothing is compared with the JAX package's numbers.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import time
 
@@ -51,13 +55,15 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def measure(img_size: int, batch_size: int, steps: int, device=None, seed: int = 0) -> dict:
+def measure(img_size: int, batch_size: int, steps: int, device=None, seed: int = 0,
+            dtype: str = "float32") -> dict:
     """Train DCGAN at ``img_size`` and ``batch_size`` on ``steps`` distinct
-    device-resident batches a ``graph_steps`` dispatch; return what was
-    measured."""
+    device-resident batches a ``graph_steps`` dispatch, in ``dtype``
+    (float32 or bfloat16); return what was measured."""
     from tpugan_torch.utils.benchtime import measure_images_per_sec
 
-    cfg = dcgan.Config(img_size=img_size, batch_size=batch_size, synthetic_data=True, seed=seed)
+    cfg = dcgan.Config(img_size=img_size, batch_size=batch_size, synthetic_data=True, seed=seed,
+                       dtype=dtype)
     device = train_device(cfg, device)
     modules = dcgan.build(cfg, device)
     state = dcgan.create_state(cfg, modules, device)
@@ -86,7 +92,7 @@ def measure(img_size: int, batch_size: int, steps: int, device=None, seed: int =
     return {
         "value": ips,
         "unit": "images/sec/gpu" if device.type == "cuda" else f"images/sec/{device.type}",
-        "dtype": "float32",
+        "dtype": dtype,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else device.type,
         "card": _card(device),
         "img_size": img_size,
@@ -100,7 +106,10 @@ def measure(img_size: int, batch_size: int, steps: int, device=None, seed: int =
 
 
 def main(device=None) -> dict:
-    rec = {"metric": METRIC, **measure(IMG_SIZE, BATCH_SIZE, STEPS, device)}
+    dtype = os.environ.get("TPUGAN_BENCH_DTYPE", "float32")
+    if dtype not in ("float32", "bfloat16"):
+        raise SystemExit(f"TPUGAN_BENCH_DTYPE={dtype!r}: expected float32 or bfloat16")
+    rec = {"metric": METRIC, **measure(IMG_SIZE, BATCH_SIZE, STEPS, device, dtype=dtype)}
     print(json.dumps(rec), flush=True)
     return rec
 

@@ -1,6 +1,6 @@
 // Instance norm followed by a leaky activation or by a per-plane affine
-// (AdaIN), forward and backward, on contiguous NCHW float32: one (sample,
-// channel) plane of H*W values at a time.
+// (AdaIN), forward and backward, on contiguous NCHW float32 or bfloat16: one
+// (sample, channel) plane of H*W values at a time.
 //
 // Replaces four Pallas TPU kernels of tpugan/ops/pallas_kernels.py. Three
 // compute one function: instance_norm_pallas (slope 1), the fused
@@ -22,10 +22,18 @@
 //   The affine dx is (w g - mean(w g) - xh mean(w g xh)) * rstd with w taken
 //   out of the bracket: no division by w, so w = 0 is safe.
 //
-// Bound by memory bandwidth: the least traffic is 8 bytes an element forward
-// (x in, y out) and 12 backward (g and x in, dx out), plus a few floats a
-// plane. Tensor cores have no part here: both directions are reductions at
-// about one operation a byte, far below the card's ridge point. So the design
+// Every kernel is templated on the storage type T of x, y, g and dx: float,
+// or __nv_bfloat16 for --dtype bfloat16, where the convolutions hand the
+// norms bf16 maps. Whatever T, the arithmetic is float32: each value is
+// widened on load, the sums, mean and rstd are float32 (mean and rstd are
+// stored as float32), and each output is rounded once, to nearest even,
+// when it is stored. AdaIN's w and b and its dw and db are float32 too.
+//
+// Bound by memory bandwidth: the least traffic is 2 * sizeof(T) bytes an
+// element forward (x in, y out) and 3 * sizeof(T) backward (g and x in, dx
+// out), plus a few floats a plane: 8 and 12 in float32, 4 and 6 in bf16.
+// Tensor cores have no part here: both directions are reductions at about
+// one operation a byte, far below the card's ridge point. So the design
 // reads each input from device memory once, in one of two regimes that the
 // caller's launch plan (tpugan_torch/ops/instance_norm.py:plan) picks:
 //
@@ -37,9 +45,11 @@
 //     dynamic shared memory (x forward; g and x backward). The slice arrives
 //     by 1D bulk asynchronous copy (cp.async.bulk) in up to kChunks chunks,
 //     each completing on its own mbarrier, so the first sum starts on the
-//     first chunk while the rest arrive. Where H*W % 4 != 0 or a base is not
-//     16-byte aligned, the same kernel fills shared memory with a scalar loop
-//     instead. Every later pass reads shared memory. A plane larger than one
+//     first chunk while the rest arrive, and is read back 16 bytes at a time
+//     (4 floats or 8 bf16). Where H*W is not a multiple of those 4 or 8, or a
+//     base is not 16-byte aligned, the same kernel fills shared memory with a
+//     scalar loop instead. Shared memory holds T, so a bf16 slice takes half
+//     the bytes of a float one. Every later pass reads shared memory. A plane larger than one
 //     CTA's share runs on a thread block cluster of 2, 4 or 8 CTAs: each adds
 //     its slice's partial sums, and after a cluster barrier every CTA reads
 //     all partials through distributed shared memory in rank order 0..c-1,
@@ -55,6 +65,7 @@
 // returns cudaErrorInvalidValue and launches nothing.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -73,6 +84,12 @@ constexpr int kChunks = 4;                 // regime B, bulk copies a slice arri
 constexpr int kChunkBytes = 8192;          // ... and the least bytes a chunk is split down to
 constexpr int kSmemMax = 64 * 1024;        // regime B, dynamic shared memory a CTA takes
 constexpr int kClusterMax = 8;             // the portable cluster size
+
+using bf16 = __nv_bfloat16;
+
+// Elements of T in one 16-byte vector: 4 floats or 8 bf16.
+template <class T>
+constexpr int kLanes = 16 / static_cast<int>(sizeof(T));
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -184,17 +201,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// First float4 of chunk k when nv float4s are cut into nch chunks.
+// First vector of chunk k when nv 16-byte vectors are cut into nch chunks.
 __device__ __forceinline__ int chunk_edge(int k, int nv, int nch) {
   return static_cast<int>(static_cast<int64_t>(k) * nv / nch);
 }
 
-// Thread 0 starts the copy of the first nv float4s of src0 (and of src1,
+// Thread 0 starts the copy of the first nv 16-byte vectors of src0 (and of src1,
 // where it is not null) into dst0 (dst1): up to kChunks bulk copies, chunk k
 // of both tensors completing on bar[k]. Every thread calls it; it returns the
 // number of chunks, each of which a thread waits for before reading it.
-__device__ __forceinline__ int stage_async(const float4* src0, float4* dst0, const float4* src1,
-                                           float4* dst1, int nv, uint64_t* bar) {
+__device__ __forceinline__ int stage_async(const uint4* src0, uint4* dst0, const uint4* src1,
+                                           uint4* dst1, int nv, uint64_t* bar) {
   const int tensors = src1 ? 2 : 1;
   const int nch = min(nv, max(1, min(kChunks, nv * 16 * tensors / kChunkBytes)));
   if (threadIdx.x == 0) {
@@ -212,25 +229,61 @@ __device__ __forceinline__ int stage_async(const float4* src0, float4* dst0, con
   return nch;
 }
 
-// Element-wise helpers over a float or the four lanes of a float4.
-__device__ __forceinline__ float hsum(float v) { return v; }
-__device__ __forceinline__ float hsum(float4 v) { return (v.x + v.y) + (v.z + v.w); }
+// Loads and stores of T through float32. A bf16 is the high half of a float,
+// so widening it is exact; narrowing rounds to nearest even.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f(float v, float& out) { out = v; }
+__device__ __forceinline__ void from_f(float v, bf16& out) { out = __float2bfloat16_rn(v); }
 
-template <class F>
-__device__ __forceinline__ float apply(F f, float a) {
-  return f(a);
+// unpack: one element, or one 16-byte vector of 4 floats or 8 bf16, into
+// floats; pack: the way back, rounding bf16 once. A vector of bf16 holds
+// element 2j in the low half of word j (little-endian).
+__device__ __forceinline__ void unpack(float e, float (&v)[1]) { v[0] = e; }
+__device__ __forceinline__ void unpack(bf16 e, float (&v)[1]) { v[0] = __bfloat162float(e); }
+__device__ __forceinline__ void unpack(uint4 r, float (&v)[4]) {
+  v[0] = __uint_as_float(r.x);
+  v[1] = __uint_as_float(r.y);
+  v[2] = __uint_as_float(r.z);
+  v[3] = __uint_as_float(r.w);
 }
-template <class F>
-__device__ __forceinline__ float4 apply(F f, float4 a) {
-  return make_float4(f(a.x), f(a.y), f(a.z), f(a.w));
+__device__ __forceinline__ void unpack(uint4 r, float (&v)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[2 * j] = __uint_as_float(w[j] << 16);
+    v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
 }
-template <class F>
-__device__ __forceinline__ float apply(F f, float a, float b) {
-  return f(a, b);
+__device__ __forceinline__ void pack(const float (&v)[1], float& out) { out = v[0]; }
+__device__ __forceinline__ void pack(const float (&v)[1], bf16& out) {
+  out = __float2bfloat16_rn(v[0]);
 }
-template <class F>
-__device__ __forceinline__ float4 apply(F f, float4 a, float4 b) {
-  return make_float4(f(a.x, b.x), f(a.y, b.y), f(a.z, b.z), f(a.w, b.w));
+__device__ __forceinline__ void pack(const float (&v)[4], uint4& out) {
+  out = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                   __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+__device__ __forceinline__ void pack(const float (&v)[8], uint4& out) {
+  out = make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]), bf16_pair(v[4], v[5]),
+                   bf16_pair(v[6], v[7]));
+}
+
+// The sum of n values in a fixed pairwise order: ((v0 + v1) + (v2 + v3)) ...
+template <int N>
+__device__ __forceinline__ float tsum(const float (&v)[N]) {
+  float t[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) t[i] = v[i];
+#pragma unroll
+  for (int w = N / 2; w >= 1; w /= 2) {
+#pragma unroll
+    for (int i = 0; i < w; ++i) t[i] = t[2 * i] + t[2 * i + 1];
+  }
+  return t[0];
 }
 
 __device__ __forceinline__ float leaky(float v, float slope) {
@@ -258,22 +311,22 @@ __device__ __forceinline__ float grad_in(float g, float xh, float slope) {
 }
 
 // Regime A, forward: warp w of CTA b owns plane b * per_cta + w, H*W <= 256.
-template <bool kAffine>
+template <class T, bool kAffine>
 __global__ void __launch_bounds__(kWarpCtaMax)
-    in_act_fwd_warp(const float* __restrict__ x, const float* __restrict__ w_in,
-                    const float* __restrict__ b_in, float* __restrict__ y,
+    in_act_fwd_warp(const T* __restrict__ x, const float* __restrict__ w_in,
+                    const float* __restrict__ b_in, T* __restrict__ y,
                     float* __restrict__ mean_out, float* __restrict__ rstd_out, int planes,
                     int hw, int per_cta, float eps, float slope) {
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * per_cta + (threadIdx.x >> 5);
   if (p >= planes) return;
-  const float* xp = x + static_cast<int64_t>(p) * hw;
+  const T* xp = x + static_cast<int64_t>(p) * hw;
   float v[kWarpVals];
   float s = 0.f;
 #pragma unroll
   for (int k = 0; k < kWarpVals; ++k) {
     const int i = k * 32 + lane;
-    v[k] = i < hw ? xp[i] : 0.f;
+    v[k] = i < hw ? to_f(xp[i]) : 0.f;
     s += v[k];
   }
   const float mean = warp_sum(s) / static_cast<float>(hw);
@@ -286,11 +339,11 @@ __global__ void __launch_bounds__(kWarpCtaMax)
   const float rstd = 1.f / sqrtf(warp_sum(q) / static_cast<float>(hw) + eps);
   const float w = kAffine ? w_in[p] : 1.f;
   const float b = kAffine ? b_in[p] : 0.f;
-  float* yp = y + static_cast<int64_t>(p) * hw;
+  T* yp = y + static_cast<int64_t>(p) * hw;
 #pragma unroll
   for (int k = 0; k < kWarpVals; ++k) {
     const int i = k * 32 + lane;
-    if (i < hw) yp[i] = fwd_out<kAffine>((v[k] - mean) * rstd, slope, w, b);
+    if (i < hw) from_f(fwd_out<kAffine>((v[k] - mean) * rstd, slope, w, b), yp[i]);
   }
   if (lane == 0) {
     mean_out[p] = mean;
@@ -300,11 +353,11 @@ __global__ void __launch_bounds__(kWarpCtaMax)
 
 // Regime A, backward. w_in is read, and dw and db written, only when
 // kAffine.
-template <bool kAffine>
+template <class T, bool kAffine>
 __global__ void __launch_bounds__(kWarpCtaMax)
-    in_act_bwd_warp(const float* __restrict__ g, const float* __restrict__ x,
+    in_act_bwd_warp(const T* __restrict__ g, const T* __restrict__ x,
                     const float* __restrict__ w_in, const float* __restrict__ mean_in,
-                    const float* __restrict__ rstd_in, float* __restrict__ dx,
+                    const float* __restrict__ rstd_in, T* __restrict__ dx,
                     float* __restrict__ dw, float* __restrict__ db, int planes, int hw,
                     int per_cta, float slope) {
   const int lane = threadIdx.x & 31;
@@ -319,8 +372,8 @@ __global__ void __launch_bounds__(kWarpCtaMax)
   for (int k = 0; k < kWarpVals; ++k) {
     const int i = k * 32 + lane;
     // Past the plane g = 0 and x = mean, so gh = 0 and h = 0 add nothing.
-    gv[k] = i < hw ? g[base + i] : 0.f;
-    h[k] = ((i < hw ? x[base + i] : mean) - mean) * rstd;
+    gv[k] = i < hw ? to_f(g[base + i]) : 0.f;
+    h[k] = ((i < hw ? to_f(x[base + i]) : mean) - mean) * rstd;
     const float gh = grad_in<kAffine>(gv[k], h[k], slope);
     s += gh;
     t += gh * h[k];
@@ -334,7 +387,9 @@ __global__ void __launch_bounds__(kWarpCtaMax)
 #pragma unroll
   for (int k = 0; k < kWarpVals; ++k) {
     const int i = k * 32 + lane;
-    if (i < hw) dx[base + i] = (grad_in<kAffine>(gv[k], h[k], slope) - m1 - h[k] * m2) * scale;
+    if (i < hw) {
+      from_f((grad_in<kAffine>(gv[k], h[k], slope) - m1 - h[k] * m2) * scale, dx[base + i]);
+    }
   }
   if (kAffine && lane == 0) {
     dw[p] = t;
@@ -342,20 +397,22 @@ __global__ void __launch_bounds__(kWarpCtaMax)
   }
 }
 
-template <bool kVec>
-using Vec = std::conditional_t<kVec, float4, float>;
+// What regime B moves at a time: one 16-byte vector of kLanes<T> elements
+// (kVec), or one element.
+template <class T, bool kVec>
+using Vec = std::conditional_t<kVec, uint4, T>;
 
 // Regime B, forward: the c CTAs blockIdx.x / c of a cluster own plane p, CTA
 // of rank r the elements [r * slice, min((r + 1) * slice, H*W)), of which the
 // first `held` sit in shared memory.
-template <bool kVec, bool kAffine>
+template <class T, bool kVec, bool kAffine>
 __global__ void __launch_bounds__(kMaxThreads)
-    in_act_fwd_slice(const float* __restrict__ x, const float* __restrict__ w_in,
-                     const float* __restrict__ b_in, float* __restrict__ y,
+    in_act_fwd_slice(const T* __restrict__ x, const float* __restrict__ w_in,
+                     const float* __restrict__ b_in, T* __restrict__ y,
                      float* __restrict__ mean_out, float* __restrict__ rstd_out, int64_t hw,
                      int c, int slice, int held, float eps, float slope) {
-  using V = Vec<kVec>;
-  constexpr int kW = kVec ? 4 : 1;
+  using V = Vec<T, kVec>;
+  constexpr int kW = kVec ? kLanes<T> : 1;
   extern __shared__ __align__(128) float4 dyn[];
   __shared__ __align__(8) uint64_t bar[kChunks];
   __shared__ float red[2 * kMaxWarps], part[4], bc[2];
@@ -370,6 +427,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   V* __restrict__ ys = reinterpret_cast<V*>(y + static_cast<int64_t>(p) * hw + lo);
   V* sx = reinterpret_cast<V*>(dyn);
   const int tid = threadIdx.x, nt = blockDim.x;
+  float v[kW];
 
   // Pass 1: the slice into shared memory, and its sum.
   float s = 0.f, none = 0.f;
@@ -378,15 +436,22 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int k = 0; k < nch; ++k) {
       mbar_wait(&bar[k], 0);
       const int end = chunk_edge(k + 1, hv, nch);
-      for (int i = chunk_edge(k, hv, nch) + tid; i < end; i += nt) s += hsum(sx[i]);
+      for (int i = chunk_edge(k, hv, nch) + tid; i < end; i += nt) {
+        unpack(sx[i], v);
+        s += tsum(v);
+      }
     }
-    for (int i = hv + tid; i < nv; i += nt) s += hsum(xs[i]);
+    for (int i = hv + tid; i < nv; i += nt) {
+      unpack(xs[i], v);
+      s += tsum(v);
+    }
   } else {
     // Each thread reads back only what it wrote here: no barrier needed.
     for (int i = tid; i < nv; i += nt) {
-      const float v = xs[i];
-      if (i < hv) sx[i] = v;
-      s += v;
+      const V e = xs[i];
+      if (i < hv) sx[i] = e;
+      unpack(e, v);
+      s += v[0];
     }
   }
   block_sum2(s, none, red);
@@ -394,23 +459,33 @@ __global__ void __launch_bounds__(kMaxThreads)
   const float mean = s / static_cast<float>(hw);
 
   // Pass 2: centred sum of squares.
-  const auto sq = [mean](float e) {
-    const float d = e - mean;
-    return d * d;
-  };
   float q = 0.f;
-  for (int i = tid; i < nv; i += nt) q += hsum(apply(sq, i < hv ? sx[i] : xs[i]));
+  for (int i = tid; i < nv; i += nt) {
+    unpack(i < hv ? sx[i] : xs[i], v);
+#pragma unroll
+    for (int j = 0; j < kW; ++j) {
+      const float d = v[j] - mean;
+      v[j] = d * d;
+    }
+    q += tsum(v);
+  }
   none = 0.f;
   block_sum2(q, none, red);
   if (c > 1) cluster_sum2(q, none, part + 2, bc, c);
   const float rstd = 1.f / sqrtf(q / static_cast<float>(hw) + eps);
   if (c > 1) cluster_arrive();
 
-  // Pass 3: normalise, then activate or apply the affine.
+  // Pass 3: normalise, then activate or apply the affine; one rounding to T.
   const float w = kAffine ? w_in[p] : 1.f;
   const float b = kAffine ? b_in[p] : 0.f;
-  const auto out = [=](float e) { return fwd_out<kAffine>((e - mean) * rstd, slope, w, b); };
-  for (int i = tid; i < nv; i += nt) ys[i] = apply(out, i < hv ? sx[i] : xs[i]);
+  for (int i = tid; i < nv; i += nt) {
+    unpack(i < hv ? sx[i] : xs[i], v);
+#pragma unroll
+    for (int j = 0; j < kW; ++j) v[j] = fwd_out<kAffine>((v[j] - mean) * rstd, slope, w, b);
+    V o;
+    pack(v, o);
+    ys[i] = o;
+  }
   if (rank == 0 && tid == 0) {
     mean_out[p] = mean;
     rstd_out[p] = rstd;
@@ -419,15 +494,15 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // Regime B, backward: the slices as in the forward, g and x both held.
-template <bool kVec, bool kAffine>
+template <class T, bool kVec, bool kAffine>
 __global__ void __launch_bounds__(kMaxThreads)
-    in_act_bwd_slice(const float* __restrict__ g, const float* __restrict__ x,
+    in_act_bwd_slice(const T* __restrict__ g, const T* __restrict__ x,
                      const float* __restrict__ w_in, const float* __restrict__ mean_in,
-                     const float* __restrict__ rstd_in, float* __restrict__ dx,
+                     const float* __restrict__ rstd_in, T* __restrict__ dx,
                      float* __restrict__ dw, float* __restrict__ db, int64_t hw, int c,
                      int slice, int held, float slope) {
-  using V = Vec<kVec>;
-  constexpr int kW = kVec ? 4 : 1;
+  using V = Vec<T, kVec>;
+  constexpr int kW = kVec ? kLanes<T> : 1;
   extern __shared__ __align__(128) float4 dyn[];
   __shared__ __align__(8) uint64_t bar[kChunks];
   __shared__ float red[2 * kMaxWarps], part[2], bc[2];
@@ -449,15 +524,20 @@ __global__ void __launch_bounds__(kMaxThreads)
   const float rstd = rstd_in[p];
 
   // Pass 1: the slices into shared memory, and sum(gh), sum(gh * xh).
-  const auto norm = [=](float e) { return (e - mean) * rstd; };
-  const auto grad = [=](float gv, float h) { return grad_in<kAffine>(gv, h, slope); };
-  const auto mul = [](float a, float b) { return a * b; };
   float s = 0.f, t = 0.f;
-  const auto add = [&](V gv, V xv) {
-    const V h = apply(norm, xv);
-    const V gh = apply(grad, gv, h);
-    s += hsum(gh);
-    t += hsum(apply(mul, gh, h));
+  const auto add = [&](V gr, V xr) {
+    float gv[kW], h[kW];
+    unpack(gr, gv);
+    unpack(xr, h);
+#pragma unroll
+    for (int j = 0; j < kW; ++j) {
+      h[j] = (h[j] - mean) * rstd;
+      gv[j] = grad_in<kAffine>(gv[j], h[j], slope);
+    }
+    s += tsum(gv);
+#pragma unroll
+    for (int j = 0; j < kW; ++j) h[j] *= gv[j];
+    t += tsum(h);
   };
   if constexpr (kVec) {
     const int nch = stage_async(gs, sg, xs, sx, hv, bar);
@@ -469,7 +549,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int i = hv + tid; i < nv; i += nt) add(gs[i], xs[i]);
   } else {
     for (int i = tid; i < nv; i += nt) {
-      const float gv = gs[i], xv = xs[i];
+      const V gv = gs[i], xv = xs[i];
       if (i < hv) {
         sg[i] = gv;
         sx[i] = xv;
@@ -491,12 +571,20 @@ __global__ void __launch_bounds__(kMaxThreads)
     db[p] = s;
   }
 
-  // Pass 2: dx.
-  const auto d = [=](float gv, float e) {
-    const float h = (e - mean) * rstd;
-    return (grad_in<kAffine>(gv, h, slope) - m1 - h * m2) * scale;
-  };
-  for (int i = tid; i < nv; i += nt) ds[i] = i < hv ? apply(d, sg[i], sx[i]) : apply(d, gs[i], xs[i]);
+  // Pass 2: dx, one rounding to T.
+  for (int i = tid; i < nv; i += nt) {
+    float gv[kW], h[kW];
+    unpack(i < hv ? sg[i] : gs[i], gv);
+    unpack(i < hv ? sx[i] : xs[i], h);
+#pragma unroll
+    for (int j = 0; j < kW; ++j) {
+      const float e = (h[j] - mean) * rstd;
+      gv[j] = (grad_in<kAffine>(gv[j], e, slope) - m1 - e * m2) * scale;
+    }
+    V o;
+    pack(gv, o);
+    ds[i] = o;
+  }
   if (c > 1) cluster_wait();
 }
 
@@ -505,7 +593,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 // How a call's planes map onto the card: instance_norm.py:plan computes it,
 // ctypes passes it by pointer. Regime A when slice == 0, `group` planes a CTA;
 // else regime B, `group` CTAs a plane (the cluster size), `slice` elements a
-// CTA, `held` of them in shared memory.
+// CTA, `held` of them in shared memory. The plan is made for one storage
+// type: slices of whole 16-byte vectors of it.
 struct LaunchPlan {
   int64_t planes;
   int64_t hw;
@@ -528,13 +617,13 @@ bool warp_plan_ok(const LaunchPlan& lp) {
 }
 
 // A regime-B plan the kernels can run: a cluster of c = group CTAs, a power
-// of two up to kClusterMax; slices of whole float4s that cover H*W with none
-// empty; no more held than owned. Whether the shared memory fits is the
-// launch's to refuse.
-bool slice_plan_ok(const LaunchPlan& lp) {
+// of two up to kClusterMax; slices of whole vectors of `lanes` elements that
+// cover H*W with none empty; no more held than owned. Whether the shared
+// memory fits is the launch's to refuse.
+bool slice_plan_ok(const LaunchPlan& lp, int lanes) {
   const int c = lp.group;
   return c >= 1 && c <= kClusterMax && (c & (c - 1)) == 0 && lp.slice > 0 &&
-         lp.slice % 4 == 0 && lp.held > 0 && lp.held % 4 == 0 && lp.held <= lp.slice &&
+         lp.slice % lanes == 0 && lp.held > 0 && lp.held % lanes == 0 && lp.held <= lp.slice &&
          static_cast<int64_t>(lp.slice) * c >= lp.hw &&
          static_cast<int64_t>(lp.slice) * (c - 1) < lp.hw && lp.threads >= 32 &&
          lp.threads % 32 == 0 && lp.threads <= kMaxThreads && lp.planes * c <= INT_MAX;
@@ -566,74 +655,107 @@ int launch_slices(const LaunchPlan& lp, size_t smem, cudaStream_t stream, Args..
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-template <bool kAffine>
-int launch_fwd(const float* x, const float* w, const float* b, float* y, float* mean,
-               float* rstd, float eps, float slope, const LaunchPlan& lp, cudaStream_t s) {
+template <class T, bool kAffine>
+int launch_fwd(const T* x, const float* w, const float* b, T* y, float* mean, float* rstd,
+               float eps, float slope, const LaunchPlan& lp, cudaStream_t s) {
   const int64_t planes = lp.planes, hw = lp.hw;
   if (planes <= 0 || hw <= 0 || planes > INT_MAX) return kInvalid;
   const int np = static_cast<int>(planes);
   if (lp.slice == 0) {
     if (!warp_plan_ok(lp)) return kInvalid;
     const unsigned grid = static_cast<unsigned>((planes + lp.group - 1) / lp.group);
-    in_act_fwd_warp<kAffine><<<grid, lp.threads, 0, s>>>(
+    in_act_fwd_warp<T, kAffine><<<grid, lp.threads, 0, s>>>(
         x, w, b, y, mean, rstd, np, static_cast<int>(hw), lp.group, eps, slope);
     return static_cast<int>(cudaGetLastError());
   }
-  if (!slice_plan_ok(lp)) return kInvalid;
-  const size_t smem = static_cast<size_t>(lp.held) * sizeof(float);
-  if (hw % 4 == 0 && aligned16(x) && aligned16(y))
-    return launch_slices<in_act_fwd_slice<true, kAffine>>(lp, smem, s, x, w, b, y, mean, rstd,
-                                                           hw, lp.group, lp.slice, lp.held, eps,
-                                                           slope);
-  return launch_slices<in_act_fwd_slice<false, kAffine>>(lp, smem, s, x, w, b, y, mean, rstd, hw,
-                                                          lp.group, lp.slice, lp.held, eps,
-                                                          slope);
+  if (!slice_plan_ok(lp, kLanes<T>)) return kInvalid;
+  const size_t smem = static_cast<size_t>(lp.held) * sizeof(T);
+  if (hw % kLanes<T> == 0 && aligned16(x) && aligned16(y))
+    return launch_slices<in_act_fwd_slice<T, true, kAffine>>(lp, smem, s, x, w, b, y, mean, rstd,
+                                                              hw, lp.group, lp.slice, lp.held,
+                                                              eps, slope);
+  return launch_slices<in_act_fwd_slice<T, false, kAffine>>(lp, smem, s, x, w, b, y, mean, rstd,
+                                                             hw, lp.group, lp.slice, lp.held, eps,
+                                                             slope);
 }
 
-template <bool kAffine>
-int launch_bwd(const float* g, const float* x, const float* w, const float* mean,
-               const float* rstd, float* dx, float* dw, float* db, float slope,
-               const LaunchPlan& lp, cudaStream_t s) {
+template <class T, bool kAffine>
+int launch_bwd(const T* g, const T* x, const float* w, const float* mean, const float* rstd,
+               T* dx, float* dw, float* db, float slope, const LaunchPlan& lp, cudaStream_t s) {
   const int64_t planes = lp.planes, hw = lp.hw;
   if (planes <= 0 || hw <= 0 || planes > INT_MAX) return kInvalid;
   const int np = static_cast<int>(planes);
   if (lp.slice == 0) {
     if (!warp_plan_ok(lp)) return kInvalid;
     const unsigned grid = static_cast<unsigned>((planes + lp.group - 1) / lp.group);
-    in_act_bwd_warp<kAffine><<<grid, lp.threads, 0, s>>>(
+    in_act_bwd_warp<T, kAffine><<<grid, lp.threads, 0, s>>>(
         g, x, w, mean, rstd, dx, dw, db, np, static_cast<int>(hw), lp.group, slope);
     return static_cast<int>(cudaGetLastError());
   }
-  if (!slice_plan_ok(lp)) return kInvalid;
-  const size_t smem = 2 * static_cast<size_t>(lp.held) * sizeof(float);
-  if (hw % 4 == 0 && aligned16(g) && aligned16(x) && aligned16(dx))
-    return launch_slices<in_act_bwd_slice<true, kAffine>>(lp, smem, s, g, x, w, mean, rstd, dx,
-                                                           dw, db, hw, lp.group, lp.slice,
-                                                           lp.held, slope);
-  return launch_slices<in_act_bwd_slice<false, kAffine>>(lp, smem, s, g, x, w, mean, rstd, dx, dw,
-                                                          db, hw, lp.group, lp.slice, lp.held,
-                                                          slope);
+  if (!slice_plan_ok(lp, kLanes<T>)) return kInvalid;
+  const size_t smem = 2 * static_cast<size_t>(lp.held) * sizeof(T);
+  if (hw % kLanes<T> == 0 && aligned16(g) && aligned16(x) && aligned16(dx))
+    return launch_slices<in_act_bwd_slice<T, true, kAffine>>(lp, smem, s, g, x, w, mean, rstd,
+                                                              dx, dw, db, hw, lp.group, lp.slice,
+                                                              lp.held, slope);
+  return launch_slices<in_act_bwd_slice<T, false, kAffine>>(lp, smem, s, g, x, w, mean, rstd, dx,
+                                                             dw, db, hw, lp.group, lp.slice,
+                                                             lp.held, slope);
+}
+
+// The C entries' bodies, for either storage type. w and b (one float a
+// plane, (B, C) contiguous) select AdaIN, and slope is then unused; null,
+// IN + leaky(slope).
+template <class T>
+int fwd_entry(const void* x, const float* w, const float* b, void* y, float* mean, float* rstd,
+              float eps, float slope, const LaunchPlan* plan, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  if (w) return launch_fwd<T, true>(xt, w, b, yt, mean, rstd, eps, 1.f, *plan, s);
+  return launch_fwd<T, false>(xt, nullptr, nullptr, yt, mean, rstd, eps, slope, *plan, s);
+}
+
+template <class T>
+int bwd_entry(const void* g, const void* x, const float* w, const float* mean, const float* rstd,
+              void* dx, float* dw, float* db, float slope, const LaunchPlan* plan, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* gt = static_cast<const T*>(g);
+  const T* xt = static_cast<const T*>(x);
+  T* dxt = static_cast<T*>(dx);
+  if (w) return launch_bwd<T, true>(gt, xt, w, mean, rstd, dxt, dw, db, 1.f, *plan, s);
+  return launch_bwd<T, false>(gt, xt, nullptr, mean, rstd, dxt, nullptr, nullptr, slope, *plan,
+                              s);
 }
 
 }  // namespace
 
-// Forward. w and b (one float a plane, (B, C) contiguous) select AdaIN, and
-// slope is then unused; null, IN + leaky(slope). mean and rstd get one float
-// a plane.
+// Forward on float32 maps. w and b select AdaIN (see fwd_entry); mean and
+// rstd get one float a plane.
 extern "C" int in_act_fwd(const float* x, const float* w, const float* b, float* y, float* mean,
                           float* rstd, float eps, float slope, const LaunchPlan* plan,
                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w) return launch_fwd<true>(x, w, b, y, mean, rstd, eps, 1.f, *plan, s);
-  return launch_fwd<false>(x, nullptr, nullptr, y, mean, rstd, eps, slope, *plan, s);
+  return fwd_entry<float>(x, w, b, y, mean, rstd, eps, slope, plan, stream);
 }
 
-// Backward. w selects AdaIN, whose dw and dbias go to dw and db (one float a
-// plane); null, IN + leaky(slope), and dw and db are unused.
+// Backward on float32 maps. w selects AdaIN, whose dw and dbias go to dw and
+// db (one float a plane); null, IN + leaky(slope), and dw and db are unused.
 extern "C" int in_act_bwd(const float* g, const float* x, const float* w, const float* mean,
                           const float* rstd, float* dx, float* dw, float* db, float slope,
                           const LaunchPlan* plan, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w) return launch_bwd<true>(g, x, w, mean, rstd, dx, dw, db, 1.f, *plan, s);
-  return launch_bwd<false>(g, x, nullptr, mean, rstd, dx, nullptr, nullptr, slope, *plan, s);
+  return bwd_entry<float>(g, x, w, mean, rstd, dx, dw, db, slope, plan, stream);
+}
+
+// The same on bf16 maps (x, y, g, dx); mean, rstd, w, b, dw and db stay
+// float32. The plan is made for 2-byte elements.
+extern "C" int in_act_fwd_bf16(const void* x, const float* w, const float* b, void* y,
+                               float* mean, float* rstd, float eps, float slope,
+                               const LaunchPlan* plan, void* stream) {
+  return fwd_entry<bf16>(x, w, b, y, mean, rstd, eps, slope, plan, stream);
+}
+
+extern "C" int in_act_bwd_bf16(const void* g, const void* x, const float* w, const float* mean,
+                               const float* rstd, void* dx, float* dw, float* db, float slope,
+                               const LaunchPlan* plan, void* stream) {
+  return bwd_entry<bf16>(g, x, w, mean, rstd, dx, dw, db, slope, plan, stream);
 }

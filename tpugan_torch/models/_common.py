@@ -103,8 +103,9 @@ def sample_noise(cfg, batches_done: int, shape, device) -> torch.Tensor:
 
 
 def save_grid(imgs: torch.Tensor, path: str, nrow: int) -> None:
-    """NCHW images to a normalized PNG grid of ``nrow`` a row."""
-    save_image(imgs.permute(0, 2, 3, 1).cpu().numpy(), path, nrow=nrow, normalize=True)
+    """NCHW images (float32, or bf16 under ``--dtype bfloat16``) to a
+    normalized PNG grid of ``nrow`` a row."""
+    save_image(imgs.permute(0, 2, 3, 1).float().cpu().numpy(), path, nrow=nrow, normalize=True)
 
 
 def grid_sampler(cfg):

@@ -103,7 +103,7 @@ def make_g_step(cfg, modules: dict, opt_g):
     def g_step(state: TrainState, z):
         opt_g.zero_grad(set_to_none=True)
         gen = G(z)
-        g_loss = -D(gen).mean()
+        g_loss = -D(gen).float().mean()
         g_loss.backward(inputs=g_params)
         opt_g.step()
         return state, {"g_loss": g_loss.detach(), "gen_imgs": gen.detach()}

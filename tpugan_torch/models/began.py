@@ -113,7 +113,7 @@ def make_step(cfg: Config, state: TrainState):
         # detached.
         opt_g.zero_grad(set_to_none=True)
         gen = G(z)
-        g_loss = torch.mean(torch.abs(D(gen) - gen))
+        g_loss = torch.mean(torch.abs(D(gen).float() - gen.float()))
         g_loss.backward(inputs=g_params)
         opt_g.step()
 
@@ -121,8 +121,8 @@ def make_step(cfg: Config, state: TrainState):
         # fakes, detached.
         fake = gen.detach()
         opt_d.zero_grad(set_to_none=True)
-        loss_real = torch.mean(torch.abs(D(real) - real))
-        loss_fake = torch.mean(torch.abs(D(fake) - fake))
+        loss_real = torch.mean(torch.abs(D(real).float() - real))
+        loss_fake = torch.mean(torch.abs(D(fake).float() - fake.float()))
         d_loss = loss_real - k * loss_fake
         d_loss.backward()
         opt_d.step()

@@ -253,7 +253,8 @@ def make_step(cfg: Config, state: TrainState):
         mu, logvar = E(real_b)
         fake_b = G(real_a, eps * torch.exp(logvar / 2) + mu)
         loss_pixel = l1(fake_b, real_b)
-        loss_kl = 0.5 * torch.sum(torch.exp(logvar) + mu ** 2 - logvar - 1.0)
+        mu32, logvar32 = mu.float(), logvar.float()
+        loss_kl = 0.5 * torch.sum(torch.exp(logvar32) + mu32 ** 2 - logvar32 - 1.0)
         loss_vae_gan = multi_d_loss(D_VAE(fake_b), 1.0)
         _fake_b = G(real_a, sampled_z)
         loss_lr_gan = multi_d_loss(D_LR(_fake_b), 1.0)

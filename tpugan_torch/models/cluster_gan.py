@@ -237,7 +237,7 @@ def make_steps(cfg: Config, state: TrainState):
     def d_update(real, fake, alpha):
         """D's loss at its current parameters, and its step."""
         opt_d.zero_grad(set_to_none=True)
-        d_gen, d_real = D(fake), D(real)
+        d_gen, d_real = D(fake).float(), D(real).float()
         if cfg.wass_flag:
             gp = wgan_gp_penalty(D, real, fake, alpha, norm_eps=GP_NORM_EPS)
             d_loss = torch.mean(d_real) - torch.mean(d_gen) + GP_LAMBDA * gp
@@ -255,7 +255,7 @@ def make_steps(cfg: Config, state: TrainState):
         # GE phase (clustergan.py:417-451).
         opt_ge.zero_grad(set_to_none=True)
         gen = G(zn, F.one_hot(zc_idx, N_C).float())
-        d_gen = D(gen)
+        d_gen = D(gen).float()
         ge_adv = torch.mean(d_gen) if cfg.wass_flag else bce(d_gen, 1.0)
         enc_zn, _, enc_logits = E(gen)
         ge_loss = (ge_adv + BETA_N * mse(enc_zn, zn)

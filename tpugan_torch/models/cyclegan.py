@@ -13,7 +13,8 @@ discriminator sees [real; replayed fake] in one forward: every norm here is
 per-sample instance norm, so batching changes no value.
 
 The library functions take an explicit ``device``; the tests run them on the
-CPU. ``run`` trains on CUDA and raises when there is none.
+CPU. ``run`` trains on CUDA unless told otherwise, and raises when there is
+none.
 """
 
 from __future__ import annotations
@@ -197,7 +198,7 @@ def make_sampler(cfg: Config, modules: dict, device):
         real_a, real_b = normalize_uint8(a_u8), normalize_uint8(b_u8)
         rows = (real_a, G_AB(real_a), real_b, G_BA(real_b))
         grids = [
-            make_grid(r.permute(0, 2, 3, 1).cpu().numpy(), nrow=5, normalize=True)
+            make_grid(r.permute(0, 2, 3, 1).float().cpu().numpy(), nrow=5, normalize=True)
             for r in rows
         ]
         save_image(
@@ -209,9 +210,11 @@ def make_sampler(cfg: Config, modules: dict, device):
     return sample
 
 
-def run(cfg: Config) -> TrainState:
-    """Train on CUDA. float32 means TF32 off for convolutions and matmuls."""
-    device = train_device(cfg)
+def run(cfg: Config, device=None) -> TrainState:
+    """Train. ``device`` None means CUDA, and raises when there is none; the
+    tests pass the CPU. On CUDA, float32 means TF32 off for convolutions and
+    matmuls."""
+    device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
     state = create_state(cfg, modules, device)
@@ -224,8 +227,8 @@ def run(cfg: Config) -> TrainState:
         modules, MODULES, epoch_end=lambda: [s.step() for s in state.schedulers.values()])
 
 
-def main(argv=None):
-    run(config_from_args(Config, argv))
+def main(argv=None, device=None):
+    return run(config_from_args(Config, argv), device)
 
 
 if __name__ == "__main__":

@@ -123,7 +123,7 @@ def make_steps(cfg: Config, state: TrainState):
     def critic_loss(D, real, fake, alpha):
         with batch_stats_frozen(D):
             gp = wgan_gp_penalty(D, real, fake, alpha)
-        return -torch.mean(D(real)) + torch.mean(D(fake)) + LAMBDA_GP * gp
+        return -torch.mean(D(real).float()) + torch.mean(D(fake).float()) + LAMBDA_GP * gp
 
     def d_step(state: TrainState, a_u8, b_u8, masks=None, alphas=None):
         device = state.draws.device
@@ -158,7 +158,7 @@ def make_steps(cfg: Config, state: TrainState):
         fake_b = G_AB(imgs_a, m[1], state.draws)
         recov_a = G_BA(fake_b, m[2], state.draws)
         recov_b = G_AB(fake_a, m[3], state.draws)
-        g_adv = -torch.mean(D_A(fake_a)) - torch.mean(D_B(fake_b))
+        g_adv = -torch.mean(D_A(fake_a).float()) - torch.mean(D_B(fake_b).float())
         g_cycle = l1(recov_a, imgs_a) + l1(recov_b, imgs_b)
         g_loss = LAMBDA_ADV * g_adv + LAMBDA_CYCLE * g_cycle
         g_loss.backward(inputs=g_params)

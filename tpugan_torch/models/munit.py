@@ -223,7 +223,7 @@ def make_sampler(cfg: Config, modules: dict, device):
         x12 = Dec2(Enc1.content_encoder(x.repeat_interleave(s, dim=0)), codes)
         rows = torch.cat([x[:, None], x12.reshape(n, s, c, h, w)], dim=1)
         sheet = rows.permute(0, 3, 1, 4, 2).reshape(n * h, (s + 1) * w, c)
-        save_image(sheet.cpu().numpy()[None], "%s/%s.png" % (imgdir, batches_done),
+        save_image(sheet.float().cpu().numpy()[None], "%s/%s.png" % (imgdir, batches_done),
                    nrow=1, normalize=True)
 
     return sample

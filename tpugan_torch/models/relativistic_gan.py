@@ -67,6 +67,7 @@ make_loader = _dcgan.make_loader
 def _centered(pred: torch.Tensor, other: torch.Tensor, average: bool) -> torch.Tensor:
     """``pred - other`` (RSGAN), or ``pred - mean(other)`` over the batch
     (RaGAN)."""
+    pred, other = pred.float(), other.float()
     return pred - (torch.mean(other, dim=0, keepdim=True) if average else other)
 
 

@@ -78,7 +78,7 @@ def make_step(cfg: Config, state: TrainState):
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
 
         gen = G(z)
-        d_real, d_fake = D(real), D(gen)
+        d_real, d_fake = D(real).float(), D(gen).float()
         part = _log(torch.sum(torch.exp(-d_real)) + torch.sum(torch.exp(-d_fake)))
         d_loss = (1.0 / b) * torch.sum(d_real) + part
         g_loss = (1.0 / (2 * b)) * (torch.sum(d_real) + torch.sum(d_fake)) + part

@@ -153,7 +153,7 @@ def make_loader(cfg, device, batch_size=None, prefetch: int = 2) -> DeviceLoader
 
 
 def nhwc(x: torch.Tensor) -> np.ndarray:
-    return x.detach().permute(0, 2, 3, 1).cpu().numpy()
+    return x.detach().permute(0, 2, 3, 1).float().cpu().numpy()
 
 
 def save_sr_sample(cfg, out: dict, batches_done: int) -> None:

@@ -226,7 +226,8 @@ def make_steps(cfg: Config, state: TrainState):
         real_validity, pred_cls = D(imgs)
         fake_validity, _ = D(fake)
         gp = wgan_gp_penalty(lambda x: D(x)[0], imgs, fake, alpha)
-        d_adv = -torch.mean(real_validity) + torch.mean(fake_validity) + LAMBDA_GP * gp
+        d_adv = (-torch.mean(real_validity.float()) + torch.mean(fake_validity.float())
+                 + LAMBDA_GP * gp)
         d_cls = criterion_cls(pred_cls, labels)
         d_loss = d_adv + LAMBDA_CLS * d_cls
         d_loss.backward()
@@ -243,7 +244,7 @@ def make_steps(cfg: Config, state: TrainState):
         gen_imgs = G(imgs, sampled_c)
         recov_imgs = G(gen_imgs, labels)
         fake_validity, pred_cls = D(gen_imgs)
-        g_adv = -torch.mean(fake_validity)
+        g_adv = -torch.mean(fake_validity.float())
         g_cls = criterion_cls(pred_cls, sampled_c)
         g_rec = l1(recov_imgs, imgs)
         g_loss = g_adv + LAMBDA_CLS * g_cls + LAMBDA_REC * g_rec
@@ -318,7 +319,7 @@ def make_sampler(cfg: Config, modules: dict, device):
             gen = G(x.repeat_interleave(c_dim, dim=0), translation_labels(labels.float(), c_dim))
         rows = torch.cat([x[:, None], gen.reshape(n, c_dim, c, h, w)], dim=1)
         sheet = rows.permute(0, 3, 1, 4, 2).reshape(n * h, (c_dim + 1) * w, c)
-        save_image(sheet.cpu().numpy()[None], os.path.join(imgdir, "%s.png" % batches_done),
+        save_image(sheet.float().cpu().numpy()[None], os.path.join(imgdir, "%s.png" % batches_done),
                    nrow=1, normalize=True, padding=2)
 
     return sample

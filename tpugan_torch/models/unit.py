@@ -236,12 +236,12 @@ def make_step(cfg: Config, state: UnitState):
         g_loss = (
             L0 * mse(D1(fake_x1), 1.0)
             + L0 * mse(D2(fake_x2), 1.0)
-            + L1_KL * torch.mean(mu1 ** 2)
-            + L1_KL * torch.mean(mu2 ** 2)
+            + L1_KL * torch.mean(mu1.float() ** 2)
+            + L1_KL * torch.mean(mu2.float() ** 2)
             + L2_ID * l1(recon_x1, x1)
             + L2_ID * l1(recon_x2, x2)
-            + L3_KL * torch.mean(mu1_ ** 2)
-            + L3_KL * torch.mean(mu2_ ** 2)
+            + L3_KL * torch.mean(mu1_.float() ** 2)
+            + L3_KL * torch.mean(mu2_.float() ** 2)
             + L4_CYC * l1(cycle_x1, x1)
             + L4_CYC * l1(cycle_x2, x2)
         )

@@ -63,7 +63,7 @@ def create_state(cfg: Config, modules: dict, device):
 def d_loss_fn(D, real, fake, alpha) -> torch.Tensor:
     """Critic loss (wgan.py:132); the d_step's ``alpha`` goes unused."""
     del alpha
-    return -torch.mean(D(real)) + torch.mean(D(fake))
+    return -torch.mean(D(real).float()) + torch.mean(D(fake).float())
 
 
 def make_steps(cfg: Config, state):

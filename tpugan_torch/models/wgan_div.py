@@ -49,7 +49,7 @@ def d_loss_fn(D, real, fake, alpha) -> torch.Tensor:
     """Critic loss (wgan_div.py:148-165); takes no alpha."""
     del alpha
     div = wdiv_penalty(D, real, fake, k=K, p=P)
-    return -torch.mean(D(real)) + torch.mean(D(fake)) + div
+    return -torch.mean(D(real).float()) + torch.mean(D(fake).float()) + div
 
 
 def make_steps(cfg: Config, state):

@@ -76,7 +76,7 @@ def d_loss_fn(D, real, fake, alpha) -> torch.Tensor:
     else:
         interp = alpha * real + (1.0 - alpha) * fake
         gp = mlp_grad_penalty(interp.reshape(interp.shape[0], -1), *leaves)
-    return -torch.mean(D(real)) + torch.mean(D(fake)) + LAMBDA_GP * gp
+    return -torch.mean(D(real).float()) + torch.mean(D(fake).float()) + LAMBDA_GP * gp
 
 
 def make_steps(cfg: Config, state):

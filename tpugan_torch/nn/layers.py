@@ -3,6 +3,17 @@
 Only what the ported trainers (``tpugan_torch/models/__init__.py``) need is
 here. Init modes that no trainer uses raise ``NotImplementedError`` naming
 the ROADMAP section that leaves them out.
+
+Mixed precision (``--dtype bfloat16``) is the JAX package's: a process-wide
+compute dtype (``set_default_compute_dtype``, ``tpugan/nn/layers.py:33-52``)
+that ``Conv2d``, ``ConvTranspose2d`` and ``Linear`` read in ``forward``,
+where they cast their input, weight and bias to it and return its dtype.
+The parameters stay float32 (the master weights: the optimizers and the
+checkpoints see only them), and so do norm statistics and buffers. The
+casts are explicit, layer by layer, not ``torch.autocast``, so the CPU and
+the card, eager and a replayed CUDA graph run the same casts as the JAX
+package. A raw ``nn.Conv2d`` (the ResNet18 trunk's, as flax's raw
+``nn.Conv`` there) reads no compute dtype and stays float32.
 """
 
 from __future__ import annotations
@@ -12,6 +23,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from tpugan_torch.ops.image import reflection_pad, upsample_nearest, zero_pad_lt
@@ -19,11 +31,46 @@ from tpugan_torch.ops.instance_norm import instance_norm_act
 
 _NOT_PORTED = "no trainer of the JAX package uses it (ROADMAP, Not ported)"
 
-# torch's own layers, which the JAX package reproduces: PixelShuffle (its
-# NHWC version is pinned to torch's channel order, tests/test_sr_family.py)
-# and PReLU (one slope, 0.25 at init; ``tpugan/nn/layers.py:656-664``).
+# None is float32; torch.bfloat16 is mixed precision.
+_COMPUTE_DTYPE = [None]
+
+
+def set_default_compute_dtype(dtype) -> None:
+    """Set the process-wide compute dtype of Conv2d, ConvTranspose2d and
+    Linear: None (float32) or torch.bfloat16. Norms keep float32
+    statistics whatever it is."""
+    _COMPUTE_DTYPE[0] = dtype
+
+
+def resolve_dtype(dtype_str: str):
+    """The compute dtype of a ``--dtype`` value: None for float32."""
+    return {"float32": None, "bfloat16": torch.bfloat16}[dtype_str]
+
+
+def compute_dtype():
+    """The process-wide compute dtype (None: float32)."""
+    return _COMPUTE_DTYPE[0]
+
+
+def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
+# torch's own layer PixelShuffle, which the JAX package reproduces (its NHWC
+# version is pinned to torch's channel order, tests/test_sr_family.py).
 PixelShuffle = nn.PixelShuffle
-PReLU = nn.PReLU
+
+
+class PReLU(nn.PReLU):
+    """torch.nn.PReLU: one slope, 0.25 at init (``tpugan/nn/layers.py:
+    656-664``). On a bf16 input it computes the JAX layer's
+    ``where(x >= 0, x, a * x)`` with the float32 slope, which promotes the
+    output to float32 there and here."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return torch.where(x >= 0, x, self.weight * x)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
@@ -85,6 +132,12 @@ class Conv2d(nn.Conv2d):
         super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=bias)
         _init_weight_bias(self, init_mode, in_channels * kernel_size * kernel_size, generator)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _COMPUTE_DTYPE[0]
+        if dt is None:
+            return super().forward(x)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """torch.nn.ConvTranspose2d (``tpugan/nn/layers.py:ConvTranspose``), cuDNN's
@@ -110,6 +163,13 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         super().__init__(in_channels, out_channels, kernel_size, stride, padding, bias=bias)
         _init_weight_bias(self, init_mode, out_channels * kernel_size * kernel_size, generator)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _COMPUTE_DTYPE[0]
+        if dt is None:
+            return super().forward(x)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), _cast(self.bias, dt), self.stride,
+                                  self.padding, self.output_padding, self.groups, self.dilation)
+
 
 class Linear(nn.Linear):
     """torch.nn.Linear with an ``init_mode`` of ``tpugan/nn/layers.py:Linear``;
@@ -129,6 +189,12 @@ class Linear(nn.Linear):
         super().__init__(in_features, out_features, bias=bias)
         _init_weight_bias(self, init_mode, in_features, generator)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _COMPUTE_DTYPE[0]
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
 
 def _init_batch_norm(bn, init_mode: str, generator) -> None:
     """``tpugan/nn/layers.py:BatchNorm``'s init modes: ``torch`` is scale 1,
@@ -146,7 +212,12 @@ class BatchNorm1d(nn.BatchNorm1d):
     """torch.nn.BatchNorm1d, the semantics ``tpugan/nn/layers.py:BatchNorm``
     reproduces in flax: ``eps`` passed verbatim (the reference's 0.8),
     momentum 0.1, the biased batch variance to normalize and the unbiased
-    one folded into ``running_var``. ``init_mode`` as ``_init_batch_norm``."""
+    one folded into ``running_var``. ``init_mode`` as ``_init_batch_norm``.
+    A bf16 input (``tpugan/nn/layers.py:455-509``) keeps the float32
+    parameters and running buffers: torch's batch norm takes the mixed
+    dtypes, computes float32 statistics and the normalize in float32, and
+    rounds the output to bf16 once, where the JAX layer folds the normalize
+    into a bf16 ``x * a + b``."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  *, init_mode: str = "torch", generator: Optional[torch.Generator] = None):
@@ -176,7 +247,7 @@ class MaskedDropout(nn.Module):
         self.p = p
 
     def draw_mask(self, shape, generator: torch.Generator) -> torch.Tensor:
-        """A float 0/1 keep mask of ``shape``, on the generator's device."""
+        """A float32 0/1 keep mask of ``shape``, on the generator's device."""
         keep = torch.full(shape, 1.0 - self.p, device=generator.device)
         return torch.bernoulli(keep, generator=generator)
 
@@ -185,7 +256,8 @@ class MaskedDropout(nn.Module):
             return x
         if mask is None:
             raise ValueError(f"{type(self).__name__} in training needs its keep mask (draw_mask)")
-        return x / (1.0 - self.p) * mask
+        # In x's dtype, as flax's select: the 0/1 mask is exact in bf16.
+        return x / (1.0 - self.p) * mask.to(x.dtype)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
@@ -262,7 +334,12 @@ class InstanceNorm(nn.Module):
     (``batch_stats_frozen``) skips the update. In eval mode the layer
     normalizes by the buffers in plain PyTorch, ``(x - running_mean) *
     rsqrt(running_var + eps)``, as the JAX package does in plain XLA, then
-    applies the affine."""
+    applies the affine.
+
+    A bf16 x (``--dtype bfloat16``) takes the bf16 kernels, whose output is
+    bf16; the float32 ``weight`` and ``bias`` then promote the affine's
+    output to float32, as JAX's type promotion does, and so do the float32
+    buffers in eval mode. The buffers stay float32."""
 
     MOMENTUM = 0.1  # torch's default, the reference's (stargan/models.py:23)
 
@@ -321,7 +398,8 @@ class LayerNormSpatial(nn.Module):
     munit/models.py:304-324): per sample over (C, H, W), divided by the
     unbiased std plus eps (eps on the std, not the variance), then a
     per-channel affine ``gamma`` ~ U(0, 1), ``beta`` = 0, registered under
-    the reference's names."""
+    the reference's names. A bf16 input is normalized in float32; the
+    float32 affine makes the output float32, as in the JAX layer."""
 
     eps = 1e-5
 
@@ -331,6 +409,7 @@ class LayerNormSpatial(nn.Module):
         self.beta = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         flat = x.reshape(x.shape[0], -1)
         mean = flat.mean(dim=1).reshape(-1, 1, 1, 1)
         std = flat.std(dim=1).reshape(-1, 1, 1, 1)

@@ -63,3 +63,10 @@ class ResNet18Trunk(nn.Sequential):
                                         BasicBlock(planes, planes, 1, generator)))
             cin = planes
         super().__init__(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Its convs are raw ``nn.Conv2d``, which read no compute dtype, as
+        # the JAX trunk's raw flax ``nn.Conv`` (``tpugan/nn/resnet.py:21-30``):
+        # flax promotes a bf16 input to the float32 kernel's dtype, so the
+        # trunk runs in float32 under --dtype bfloat16 too.
+        return super().forward(x.to(torch.promote_types(x.dtype, self[0].weight.dtype)))

@@ -111,19 +111,20 @@ class GpPlan(ctypes.Structure):
                 ("prod", GpProduct * 4)]
 
 
-def check_tensors(name: str, dev: int, *ts) -> None:
-    """One pass over the tensors: float32, contiguous, on CUDA device dev."""
+def check_tensors(name: str, dev: int, *ts, dtype: torch.dtype = torch.float32) -> None:
+    """One pass over the tensors: each of ``dtype``, contiguous, on CUDA
+    device dev."""
     for t in ts:
-        if not (t.is_cuda and t.dtype is torch.float32 and t.is_contiguous()
+        if not (t.is_cuda and t.dtype is dtype and t.is_contiguous()
                 and t.get_device() == dev):
-            _refuse(name, dev, t)
+            _refuse(name, dev, t, dtype)
 
 
-def _refuse(name: str, dev: int, t) -> None:
+def _refuse(name: str, dev: int, t, dtype: torch.dtype) -> None:
     if not t.is_cuda or t.get_device() != dev:
         raise ValueError(f"{name}: a tensor on {t.device}, expected all on cuda:{dev}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32 only")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype} here")
     raise ValueError(f"{name}: non-contiguous input of shape {tuple(t.shape)}")
 
 
@@ -134,6 +135,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.in_act_fwd.restype = ctypes.c_int
     lib.in_act_bwd.argtypes = [p] * 8 + [f32, plan, p]
     lib.in_act_bwd.restype = ctypes.c_int
+    lib.in_act_fwd_bf16.argtypes = lib.in_act_fwd.argtypes
+    lib.in_act_fwd_bf16.restype = ctypes.c_int
+    lib.in_act_bwd_bf16.argtypes = lib.in_act_bwd.argtypes
+    lib.in_act_bwd_bf16.restype = ctypes.c_int
     gp_plan = ctypes.POINTER(GpPlan)
     lib.mlp_gp_fwd.argtypes = [p] * 11 + [gp_plan, p]
     lib.mlp_gp_fwd.restype = ctypes.c_int

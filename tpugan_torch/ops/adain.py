@@ -7,17 +7,23 @@ Replaces the Pallas TPU kernel ``adain_pallas`` of
 then ``y = xh * w[b, c] + bias[b, c]`` with w and bias of shape (B, C)
 predicted from a style code (munit/models.py:268-301). The kernels are the
 affine variant (``kAffine``) of the instance-norm pair in
-``tpugan_torch/csrc/instance_norm.cu``, on contiguous NCHW float32, with the
+``tpugan_torch/csrc/instance_norm.cu``, on contiguous NCHW float32 or
+bfloat16 (MUNIT under ``--dtype bfloat16``, where x comes from a bf16
+convolution and w and bias from the bf16 style MLP), with the
 same launch plan (``instance_norm.plan``): a warp a plane up to 16x16 planes,
 else each CTA's slice of the plane held in shared memory, on a thread block
 cluster of 2, 4 or 8 CTAs where a plane exceeds one CTA's 64 KB. Bound by
-memory bandwidth: 8 bytes an element forward and 12 backward, each input
-read once. The backward gives dx, dw = sum(g * xh) and dbias = sum(g) per
-plane, with w outside the bracket of dx, so w = 0 needs no special case.
+memory bandwidth: 8 bytes an element forward and 12 backward (4 and 6 in
+bf16), each input read once. The backward gives dx, dw = sum(g * xh) and
+dbias = sum(g) per plane, with w outside the bracket of dx, so w = 0 needs
+no special case. The kernels take w and bias in float32: the wrappers widen
+bf16 ones (B*C values) and give dw and dbias back in w's dtype; y and dx
+are in x's.
 
-Dispatch is by device and nothing else: a CPU tensor takes the plain version,
-a CUDA tensor launches the kernel or raises. ``adain_fwd_launches`` and
-``adain_bwd_launches`` count kernel launches, and only those.
+Dispatch is by device and dtype: a CPU tensor takes the plain version, a
+CUDA tensor launches the kernel of x's dtype or raises. ``adain_fwd_launches``
+and ``adain_bwd_launches`` count float32 kernel launches, and only those,
+``adain_fwd_launches_bf16`` and ``adain_bwd_launches_bf16`` bf16 ones.
 """
 
 from __future__ import annotations
@@ -28,17 +34,24 @@ from tpugan_torch.ops.instance_norm import _launch_bwd, _launch_fwd, _planes
 
 adain_fwd_launches = 0
 adain_bwd_launches = 0
+adain_fwd_launches_bf16 = 0
+adain_bwd_launches_bf16 = 0
 
 
 def reset_launch_counts() -> None:
     global adain_fwd_launches, adain_bwd_launches
-    adain_fwd_launches = 0
-    adain_bwd_launches = 0
+    global adain_fwd_launches_bf16, adain_bwd_launches_bf16
+    adain_fwd_launches = adain_bwd_launches = 0
+    adain_fwd_launches_bf16 = adain_bwd_launches_bf16 = 0
 
 
 def adain_fwd_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
     """Plain version of the forward kernel: (y, mean, rstd), the statistics
-    of shape (B*C,). The variance is centred (two passes), as ``jnp.var``."""
+    of shape (B*C,). The variance is centred (two passes), as ``jnp.var``.
+    bf16 inputs are widened to float32, and y is rounded to x's dtype once."""
+    if torch.bfloat16 in (x.dtype, w.dtype):
+        y, mean, rstd = adain_fwd_ref(x.float(), w.float(), b.float(), eps)
+        return y.to(x.dtype), mean, rstd
     planes, hw = _planes(x)
     x2 = x.reshape(planes, hw)
     mean = x2.mean(dim=1)
@@ -50,7 +63,11 @@ def adain_fwd_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float)
 
 def adain_bwd_ref(g, x, w, mean, rstd):
     """Plain version of the backward kernel: (dx, dw, dbias), dw and dbias
-    of shape (B, C)."""
+    of shape (B, C). bf16 inputs are widened to float32; dx is rounded to
+    x's dtype once, dw and dbias to w's."""
+    if torch.bfloat16 in (x.dtype, w.dtype):
+        dx, dw, db = adain_bwd_ref(g.float(), x.float(), w.float(), mean, rstd)
+        return dx.to(x.dtype), dw.to(w.dtype), db.to(w.dtype)
     planes, hw = _planes(x)
     xh = (x.reshape(planes, hw) - mean[:, None]) * rstd[:, None]
     g2 = g.reshape(planes, hw)
@@ -63,24 +80,33 @@ def adain_bwd_ref(g, x, w, mean, rstd):
 
 def adain_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
     """Forward wrapper: (y, mean, rstd). CPU tensors take the plain version;
-    CUDA tensors launch the affine forward of ``instance_norm.cu``."""
-    global adain_fwd_launches
+    CUDA tensors launch the affine forward of ``instance_norm.cu`` for x's
+    dtype, with w and b widened to float32."""
+    global adain_fwd_launches, adain_fwd_launches_bf16
     if x.is_cpu:
         return adain_fwd_ref(x, w, b, eps)
-    out = _launch_fwd("adain_fwd", x, eps, 1.0, w, b)
-    adain_fwd_launches += 1
+    out = _launch_fwd("adain_fwd", x, eps, 1.0, w.float(), b.float())
+    if x.dtype is torch.bfloat16:
+        adain_fwd_launches_bf16 += 1
+    else:
+        adain_fwd_launches += 1
     return out
 
 
 def adain_bwd(g, x, w, mean, rstd):
     """Backward wrapper: (dx, dw, dbias). CPU tensors take the plain
-    version; CUDA tensors launch the affine backward of ``instance_norm.cu``."""
-    global adain_bwd_launches
+    version; CUDA tensors launch the affine backward of ``instance_norm.cu``
+    for x's dtype, with w widened to float32; dw and dbias come back in w's
+    dtype."""
+    global adain_bwd_launches, adain_bwd_launches_bf16
     if x.is_cpu:
         return adain_bwd_ref(g, x, w, mean, rstd)
-    out = _launch_bwd("adain_bwd", g, x, mean, rstd, 1.0, w)
-    adain_bwd_launches += 1
-    return out
+    dx, dw, db = _launch_bwd("adain_bwd", g, x, mean, rstd, 1.0, w.float())
+    if x.dtype is torch.bfloat16:
+        adain_bwd_launches_bf16 += 1
+    else:
+        adain_bwd_launches += 1
+    return dx, dw.to(w.dtype), db.to(w.dtype)
 
 
 class AdaIN(torch.autograd.Function):

@@ -7,19 +7,25 @@ compute one function: ``instance_norm_pallas`` (:114, plain IN),
 ``instance_norm_act_tiled`` (:597, the same for maps above the TPU's VMEM
 envelope). ``slope`` selects the activation: 1.0 is identity, 0.0 ReLU,
 0.2 LeakyReLU(0.2). The kernels are ``tpugan_torch/csrc/instance_norm.cu``
-on contiguous NCHW float32, bound by memory bandwidth: 8 bytes an element
-forward (x in, y out) and 12 backward (g and x in, dx out), which they reach
-by reading each input once. :func:`plan` picks one of two regimes a call: A,
-H*W <= 256, a warp a plane with the values in registers; B, every larger
+on contiguous NCHW float32 or bfloat16 (``--dtype bfloat16``, where the
+convolutions hand the norms bf16 maps), bound by memory bandwidth: 8 bytes
+an element forward (x in, y out) and 12 backward (g and x in, dx out) in
+float32, 4 and 6 in bf16, which they reach by reading each input once. A
+bf16 map keeps float32 statistics: mean and rstd are float32, the sums and
+the normalize run in float32, and each output is rounded to bf16 once, as
+the plain bf16 version here computes. :func:`plan` picks one of two regimes
+a call: A, H*W <= 256, a warp a plane with the values in registers; B, every larger
 plane, each CTA holding its slice of the plane in shared memory, and a
 plane larger than one CTA's share (64 KB) split over a thread block cluster
 of 2, 4 or 8 CTAs that add their partial sums in a fixed rank order.
 
-Dispatch is by device and nothing else: a CPU tensor takes the plain version,
-a CUDA tensor launches the kernel or raises. ``fwd_launches`` and
-``bwd_launches`` count wrapper calls that launched, and only those;
-``fwd_captured`` and ``bwd_captured`` count those of them made while the
-current stream was capturing a CUDA graph. A captured call counts once
+Dispatch is by device and dtype: a CPU tensor takes the plain version, a
+CUDA tensor launches the kernel of its dtype or raises; nothing converts a
+map to reach the other kernel. ``fwd_launches`` and ``bwd_launches`` count
+float32 wrapper calls that launched, and only those, ``fwd_launches_bf16``
+and ``bwd_launches_bf16`` bf16 ones; ``fwd_captured`` and ``bwd_captured``
+(and their ``_bf16`` twins) count those of them made while the current
+stream was capturing a CUDA graph. A captured call counts once
 however often its graph is replayed: the kernels that ran on the device are
 the calls not captured plus each captured call times its graph's replays.
 """
@@ -38,6 +44,13 @@ fwd_launches = 0
 bwd_launches = 0
 fwd_captured = 0
 bwd_captured = 0
+fwd_launches_bf16 = 0
+bwd_launches_bf16 = 0
+fwd_captured_bf16 = 0
+bwd_captured_bf16 = 0
+
+# The map dtypes the kernels take, and each one's element size in bytes.
+KERNEL_DTYPES = {torch.float32: 4, torch.bfloat16: 2}
 
 # The launch plan's constants (see ``plan``).
 SMS = 132  # streaming multiprocessors of the H100 SXM
@@ -49,7 +62,9 @@ CLUSTER_MAX = 8  # the portable thread block cluster size
 
 def reset_launch_counts() -> None:
     global fwd_launches, bwd_launches, fwd_captured, bwd_captured
+    global fwd_launches_bf16, bwd_launches_bf16, fwd_captured_bf16, bwd_captured_bf16
     fwd_launches = bwd_launches = fwd_captured = bwd_captured = 0
+    fwd_launches_bf16 = bwd_launches_bf16 = fwd_captured_bf16 = bwd_captured_bf16 = 0
 
 
 class Plan(NamedTuple):
@@ -57,33 +72,38 @@ class Plan(NamedTuple):
 
     regime: str  # "A": a warp a plane; "B": slices of a plane in shared memory
     group: int  # A: planes a CTA; B: CTAs a plane, the cluster size
-    slice: int  # B: elements of the plane a CTA owns (a multiple of 4); A: 0
+    slice: int  # B: elements of the plane a CTA owns (whole 16-byte vectors); A: 0
     held: int  # B: elements of the slice held in shared memory; A: 0
     threads: int  # a CTA
     grid: int  # CTAs
     smem: int  # dynamic shared memory a CTA, bytes
 
 
-def _slice(hw: int, c: int) -> int:
-    """H*W over c CTAs: ceil(hw / c), rounded up to whole float4s."""
-    return (-(-hw // c) + 3) // 4 * 4
+def _slice(hw: int, c: int, lanes: int = 4) -> int:
+    """H*W over c CTAs: ceil(hw / c), rounded up to whole 16-byte vectors of
+    ``lanes`` elements (4 floats, 8 bf16)."""
+    return (-(-hw // c) + lanes - 1) // lanes * lanes
 
 
 @functools.lru_cache(maxsize=1024)
-def plan(planes: int, hw: int, direction: str) -> Plan:
-    """The launch plan for ``planes`` planes of ``hw`` elements, ``"fwd"`` or
-    ``"bwd"``.
+def plan(planes: int, hw: int, direction: str, elem: int = 4) -> Plan:
+    """The launch plan for ``planes`` planes of ``hw`` elements of ``elem``
+    bytes (4 float32, 2 bf16), ``"fwd"`` or ``"bwd"``.
 
     Regime A (hw <= 256): 8 planes a CTA, halved down to 1 while that gives
     fewer CTAs than SMs. Regime B: c is the smallest power of two up to 8
-    whose slice takes at most 64 KB of shared memory (4 bytes an element
-    forward, 8 backward: g and x); then c doubles, up to 8, while
-    planes * c < 132 SMs and the slice stays at least 16 KB. A slice beyond
-    64 KB even at c = 8 holds its first 64 KB in shared memory. Threads: 16
-    elements each, from 64 to 256 (512 was no faster on the H100 at any
-    CycleGAN or MUNIT shape: ``scripts/sweep_in_plan.py``)."""
+    whose slice takes at most 64 KB of shared memory (``elem`` bytes an
+    element forward, twice that backward: g and x); then c doubles, up to 8,
+    while planes * c < 132 SMs and the slice stays at least 16 KB. A slice
+    beyond 64 KB even at c = 8 holds its first 64 KB in shared memory.
+    Slices are whole 16-byte vectors. A bf16 plane never takes a larger
+    cluster than the float32 plan's, often half. Threads: 16 elements each, from 64 to 256
+    (512 was no faster on the H100 at any CycleGAN or MUNIT shape:
+    ``scripts/sweep_in_plan.py``)."""
     if direction not in ("fwd", "bwd"):
         raise ValueError(f"direction {direction!r}, expected 'fwd' or 'bwd'")
+    if elem not in KERNEL_DTYPES.values():
+        raise ValueError(f"element size {elem}, expected one of {set(KERNEL_DTYPES.values())}")
     if planes <= 0 or hw <= 0:
         raise ValueError(f"no work: {planes} planes of {hw} elements")
     if hw <= WARP_HW_MAX:
@@ -92,14 +112,15 @@ def plan(planes: int, hw: int, direction: str) -> Plan:
             group //= 2
         grid = -(-planes // group)
         return Plan("A", group, 0, 0, 32 * group, grid, 0)
-    per = 4 if direction == "fwd" else 8
+    per = elem if direction == "fwd" else 2 * elem
+    lanes = 16 // elem
     c = 1
-    while c < CLUSTER_MAX and _slice(hw, c) * per > SLICE_BYTES_MAX:
+    while c < CLUSTER_MAX and _slice(hw, c, lanes) * per > SLICE_BYTES_MAX:
         c *= 2
     while (c < CLUSTER_MAX and planes * c < SMS
-           and _slice(hw, 2 * c) * per >= SLICE_BYTES_MIN):
+           and _slice(hw, 2 * c, lanes) * per >= SLICE_BYTES_MIN):
         c *= 2
-    size = _slice(hw, c)
+    size = _slice(hw, c, lanes)
     held = min(size, SLICE_BYTES_MAX // per)
     threads = 64
     while threads < 256 and threads * 16 < size:
@@ -115,7 +136,12 @@ def _planes(x: torch.Tensor):
 def in_act_fwd_ref(x: torch.Tensor, eps: float, slope: float):
     """Plain version of the forward kernel: (y, mean, rstd), the statistics
     of shape (B*C,). The variance is centred (two passes), as
-    ``instance_norm_xla``'s ``jnp.var``."""
+    ``instance_norm_xla``'s ``jnp.var``. A bf16 x is widened to float32,
+    takes the float32 math and float32 statistics, and y is rounded to bf16
+    once."""
+    if x.dtype is torch.bfloat16:
+        y, mean, rstd = in_act_fwd_ref(x.float(), eps, slope)
+        return y.to(x.dtype), mean, rstd
     planes, hw = _planes(x)
     x2 = x.reshape(planes, hw)
     mean = x2.mean(dim=1)
@@ -128,7 +154,10 @@ def in_act_fwd_ref(x: torch.Tensor, eps: float, slope: float):
 
 def in_act_bwd_ref(g, x, mean, rstd, slope: float):
     """Plain version of the backward kernel: dx. The activation's gradient
-    is 1 where xh >= 0 (so 1 at exactly 0, as JAX's ``where`` gives)."""
+    is 1 where xh >= 0 (so 1 at exactly 0, as JAX's ``where`` gives). bf16 g
+    and x are widened, and dx is rounded to bf16 once."""
+    if x.dtype is torch.bfloat16:
+        return in_act_bwd_ref(g.float(), x.float(), mean, rstd, slope).to(x.dtype)
     planes, hw = _planes(x)
     xh = (x.reshape(planes, hw) - mean[:, None]) * rstd[:, None]
     gh = g.reshape(planes, hw) * torch.where(xh >= 0, 1.0, slope)
@@ -137,9 +166,9 @@ def in_act_bwd_ref(g, x, mean, rstd, slope: float):
 
 
 @functools.lru_cache(maxsize=1024)
-def _plan_arg(planes: int, hw: int, direction: str):
+def _plan_arg(planes: int, hw: int, direction: str, elem: int = 4):
     """The plan for a launch and the C struct ctypes passes for it."""
-    p = plan(planes, hw, direction)
+    p = plan(planes, hw, direction, elem)
     return p, _c_plan(p, planes, hw)
 
 
@@ -147,9 +176,9 @@ def _c_plan(p: Plan, planes: int, hw: int):
     return ctypes.byref(LaunchPlan(planes, hw, p.group, p.slice, p.held, p.threads))
 
 
-# The C entry points, the raw-stream reader and the capture query
-# (``torch.cuda.is_current_stream_capturing`` without its checks), bound at
-# the first launch.
+# The float32 C entry points, the raw-stream reader, the capture query
+# (``torch.cuda.is_current_stream_capturing`` without its checks) and the
+# bf16 entry points, bound at the first launch.
 _bound = None
 
 
@@ -159,8 +188,18 @@ def _bind():
     # The value of torch.cuda.current_stream(index).cuda_stream, without
     # building a Stream object (CUDA builds of torch only).
     _bound = (lib.in_act_fwd, lib.in_act_bwd, torch._C._cuda_getCurrentRawStream,
-              torch._C._cuda_isCurrentStreamCapturing)
+              torch._C._cuda_isCurrentStreamCapturing, lib.in_act_fwd_bf16,
+              lib.in_act_bwd_bf16)
     return _bound
+
+
+def _map_dtype(name: str, dev: int, *maps) -> torch.dtype:
+    """The kernel dtype of a call: the first map's, which every map must
+    share (``check_tensors`` raises otherwise); float32 is what a map of
+    another dtype is refused against."""
+    dtype = maps[0].dtype if maps[0].dtype in KERNEL_DTYPES else torch.float32
+    check_tensors(name, dev, *maps, dtype=dtype)
+    return dtype
 
 
 def raw_stream(index: int) -> int:
@@ -176,13 +215,12 @@ def _raise_on(rc: int, name: str, p: Plan, planes: int, hw: int) -> None:
 
 def _launch_fwd(name: str, x, eps: float, slope: float, w=None, b=None):
     """Checks a CUDA input and launches the forward of ``instance_norm.cu``
-    at ``slope``, or AdaIN given the per-plane w and b of shape (B, C).
-    Returns (y, mean, rstd)."""
+    for x's dtype at ``slope``, or AdaIN given the float32 per-plane w and b
+    of shape (B, C). Returns (y, mean, rstd), the statistics float32."""
     dev = x.get_device()
-    if w is None:
-        check_tensors(name, dev, x)
-    else:
-        check_tensors(name, dev, x, w, b)
+    dtype = _map_dtype(name, dev, x)
+    if w is not None:
+        check_tensors(name, dev, w, b)
     shape = x.shape
     if len(shape) != 4 or 0 in shape:
         raise ValueError(f"{name}: expected a non-empty NCHW tensor, got {tuple(shape)}")
@@ -191,10 +229,11 @@ def _launch_fwd(name: str, x, eps: float, slope: float, w=None, b=None):
         raise ValueError(f"{name}: per-plane tensors {tuple(w.shape)}, {tuple(b.shape)}, "
                          f"expected {(n, c)}")
     planes, hw = n * c, h * wd
-    p, cp = _plan_arg(planes, hw, "fwd")
-    fwd, _, stream, _ = _bound or _bind()
+    p, cp = _plan_arg(planes, hw, "fwd", KERNEL_DTYPES[dtype])
+    bound = _bound or _bind()
+    fwd, stream = bound[0 if dtype is torch.float32 else 4], bound[2]
     y = torch.empty_like(x)
-    mean = x.new_empty(planes)
+    mean = x.new_empty(planes, dtype=torch.float32)
     rstd = torch.empty_like(mean)
     rc = fwd(x.data_ptr(), None if w is None else w.data_ptr(),
              None if b is None else b.data_ptr(), y.data_ptr(), mean.data_ptr(),
@@ -205,13 +244,11 @@ def _launch_fwd(name: str, x, eps: float, slope: float, w=None, b=None):
 
 def _launch_bwd(name: str, g, x, mean, rstd, slope: float, w=None):
     """Checks CUDA inputs and launches the backward of ``instance_norm.cu``
-    at ``slope``, returning dx, or AdaIN's given w, returning (dx, dw,
-    dbias)."""
+    for x's dtype (g's too) at ``slope``, returning dx, or AdaIN's given the
+    float32 w, returning (dx, dw, dbias), dw and dbias float32."""
     dev = x.get_device()
-    if w is None:
-        check_tensors(name, dev, g, x, mean, rstd)
-    else:
-        check_tensors(name, dev, g, x, mean, rstd, w)
+    dtype = _map_dtype(name, dev, x, g)
+    check_tensors(name, dev, mean, rstd, *(() if w is None else (w,)))
     shape = x.shape
     if len(shape) != 4 or 0 in shape:
         raise ValueError(f"{name}: expected a non-empty NCHW tensor, got {tuple(shape)}")
@@ -223,8 +260,9 @@ def _launch_bwd(name: str, g, x, mean, rstd, slope: float, w=None):
             f"{name}: shapes g {tuple(g.shape)}, x {tuple(shape)}, mean {tuple(mean.shape)}, "
             f"rstd {tuple(rstd.shape)}{'' if w is None else f', w {tuple(w.shape)}'} do not agree"
         )
-    p, cp = _plan_arg(planes, hw, "bwd")
-    _, bwd, stream, _ = _bound or _bind()
+    p, cp = _plan_arg(planes, hw, "bwd", KERNEL_DTYPES[dtype])
+    bound = _bound or _bind()
+    bwd, stream = bound[1 if dtype is torch.float32 else 5], bound[2]
     dx = torch.empty_like(x)
     if w is None:
         rc = bwd(g.data_ptr(), x.data_ptr(), None, mean.data_ptr(), rstd.data_ptr(),
@@ -241,25 +279,35 @@ def _launch_bwd(name: str, g, x, mean, rstd, slope: float, w=None):
 
 def in_act_fwd(x: torch.Tensor, eps: float, slope: float):
     """Forward wrapper: (y, mean, rstd). CPU tensors take the plain version;
-    CUDA tensors launch ``in_act_fwd`` of ``instance_norm.cu``."""
-    global fwd_launches, fwd_captured
+    CUDA tensors launch ``in_act_fwd`` (float32) or ``in_act_fwd_bf16`` of
+    ``instance_norm.cu``."""
+    global fwd_launches, fwd_captured, fwd_launches_bf16, fwd_captured_bf16
     if x.is_cpu:
         return in_act_fwd_ref(x, eps, slope)
     out = _launch_fwd("in_act_fwd", x, eps, slope)
-    fwd_launches += 1
-    fwd_captured += _bound[3]()
+    if x.dtype is torch.bfloat16:
+        fwd_launches_bf16 += 1
+        fwd_captured_bf16 += _bound[3]()
+    else:
+        fwd_launches += 1
+        fwd_captured += _bound[3]()
     return out
 
 
 def in_act_bwd(g, x, mean, rstd, slope: float):
     """Backward wrapper: dx. CPU tensors take the plain version; CUDA
-    tensors launch ``in_act_bwd`` of ``instance_norm.cu``."""
-    global bwd_launches, bwd_captured
+    tensors launch ``in_act_bwd`` (float32) or ``in_act_bwd_bf16`` of
+    ``instance_norm.cu``."""
+    global bwd_launches, bwd_captured, bwd_launches_bf16, bwd_captured_bf16
     if x.is_cpu:
         return in_act_bwd_ref(g, x, mean, rstd, slope)
     dx = _launch_bwd("in_act_bwd", g, x, mean, rstd, slope)
-    bwd_launches += 1
-    bwd_captured += _bound[3]()
+    if x.dtype is torch.bfloat16:
+        bwd_launches_bf16 += 1
+        bwd_captured_bf16 += _bound[3]()
+    else:
+        bwd_launches += 1
+        bwd_captured += _bound[3]()
     return dx
 
 

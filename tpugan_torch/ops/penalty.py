@@ -95,9 +95,10 @@ def wdiv_penalty(
 ) -> torch.Tensor:
     """The Wasserstein-divergence penalty (``penalty.py:96-111``):
     mean(|dD/dx_real|^p + |dD/dx_fake|^p) * k / 2, the p-th power taken as
-    (sum of squares)^(p/2) per sample. No random draw."""
+    (sum of squares)^(p/2) per sample, in float32 whatever the gradient's
+    dtype (a bf16 fake gives bf16 gradients). No random draw."""
     powers = [
-        (_grad_wrt_input(d_fn, x).reshape(x.shape[0], -1) ** 2).sum(dim=1) ** (p / 2)
+        (_grad_wrt_input(d_fn, x).float().reshape(x.shape[0], -1) ** 2).sum(dim=1) ** (p / 2)
         for x in (real, fake)
     ]
     return (powers[0] + powers[1]).mean() * k / 2.0

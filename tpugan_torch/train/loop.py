@@ -19,13 +19,14 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from tpugan_torch.utils.config import set_compute_dtype
+
 _UNPORTED = {
     "profile_dir": "ROADMAP queue 1, item 10 (metrics, IO, CLI: torch.profiler)",
     "profile_port": "ROADMAP queue 1, item 10 (metrics, IO, CLI: torch.profiler)",
     "debug_numerics": "ROADMAP queue 1, item 10 (metrics, IO, CLI)",
     "ragged_last_batch": "ROADMAP queue 1, item 10 (metrics, IO, CLI)",
 }
-_BF16_ITEM = "ROADMAP queue 1, item 8 (bf16)"
 
 # The capture's error mode: "thread_local" leaves the loader's thread free
 # to pin and copy the next batches while the main thread captures.
@@ -47,21 +48,23 @@ def reject_unported_flags(cfg) -> None:
     for name, item in _UNPORTED.items():
         if getattr(cfg, name, None):
             raise NotImplementedError(f"--{name} is not ported yet: {item}")
-    if getattr(cfg, "dtype", "float32") != "float32":
-        raise NotImplementedError(f"--dtype {cfg.dtype} is not ported yet: {_BF16_ITEM}")
 
 
 def train_device(cfg, device=None) -> torch.device:
     """The device a trainer's ``run`` trains on: CUDA when ``device`` is
     None, raising when there is none (the tests pass the CPU). Refuses the
-    unported flags. On CUDA, float32 means TF32 off for convolutions and
-    matmuls."""
+    unported flags and sets the compute dtype of ``cfg.dtype`` (a config
+    built in code has not been through ``config_from_args``). On CUDA,
+    float32 means TF32 off for convolutions and matmuls, whatever the
+    compute dtype: under bfloat16 the layers that stay float32 (norm
+    statistics, the ResNet18 trunk, the GP) stay exact float32."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("tpugan_torch trains on CUDA and found no CUDA device")
         device = torch.device("cuda")
     device = torch.device(device)
     reject_unported_flags(cfg)
+    set_compute_dtype(cfg)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False

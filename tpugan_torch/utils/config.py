@@ -1,8 +1,9 @@
 """Config dataclasses and flags: the port's own copy of
 ``tpugan/utils/config.py`` (``flag``, ``BaseConfig``, ``add_config_args``),
-with a ``config_from_args`` that only parses. The JAX package's version also
-wires ``--dtype``, ``--debug_numerics`` and ``--ragged_last_batch`` into
-JAX-side modules; the port refuses those flags instead
+with a ``config_from_args`` that parses and wires ``--dtype`` into the
+layers, as the JAX package's does. That version also wires
+``--debug_numerics`` and ``--ragged_last_batch`` into JAX-side modules; the
+port refuses those two flags instead
 (``tpugan_torch.train.loop.reject_unported_flags``).
 
 Each trainer declares a ``Config`` dataclass whose field names, types and
@@ -132,6 +133,19 @@ def add_config_args(parser: argparse.ArgumentParser, cls: type) -> None:
 
 
 def config_from_args(cls: type, argv: Optional[Sequence[str]] = None):
+    """The config of ``argv``; ``--dtype`` also sets the process-wide compute
+    dtype (``set_compute_dtype``), as ``tpugan/utils/config.py:135-140``."""
     parser = argparse.ArgumentParser(prog=getattr(cls, "prog", cls.__name__))
     add_config_args(parser, cls)
-    return cls(**vars(parser.parse_args(argv)))
+    cfg = cls(**vars(parser.parse_args(argv)))
+    set_compute_dtype(cfg)
+    return cfg
+
+
+def set_compute_dtype(cfg) -> None:
+    """Wire ``cfg.dtype`` into the layers (``tpugan_torch.nn.layers``):
+    bfloat16 runs the convolutions and linears in bf16 over float32 master
+    weights, float32 (the default) runs everything in float32."""
+    from tpugan_torch.nn.layers import resolve_dtype, set_default_compute_dtype
+
+    set_default_compute_dtype(resolve_dtype(getattr(cfg, "dtype", "float32")))
