@@ -39,14 +39,19 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    configuration (batch 64, 28x28x1, latent 100, n_critic 5) for 50 batches;
    checks finite losses, the sample PNGs and exactly one GP forward and one
    backward launch per critic step; then the steady-state schedule unit.
-7. AdaIN parity and time: the AdaIN pair against its plain version on the
-   card, forward and backward, at the MUNIT slice's shapes and at a ragged
-   H*W, 1x1 planes, a large offset, w with zeros and negatives, and w and
-   bias as strided slices through ``adain()``; both directions must repeat
-   bit for bit. Then the kernels' times at the slice's two shapes beside the
-   plain version, the bound and ``F.instance_norm`` (forward) or
-   ``native_batch_norm_backward`` (backward) on the (1, B*C, H, W) view,
-   CUDA events and device time.
+7. AdaIN parity, time and launches: the AdaIN pair against its plain
+   version on the card, forward and backward, at the MUNIT slice's shapes
+   and at a ragged H*W, 1x1 planes, a large offset, w with zeros and
+   negatives, and w and bias as column slices of a (B, 4C x 3) tensor, read in
+   place, directly and through ``adain()`` with autograd (the bits of
+   contiguous copies); both directions must repeat bit for bit. Then the
+   kernels' times at the slice's two shapes beside the plain version, the
+   bound and ``F.instance_norm`` (forward) or ``native_batch_norm_backward``
+   (backward) on the (1, B*C, H, W) view, CUDA events and device time, and
+   ``adain()`` forward and backward on the slices beside
+   ``F.instance_norm``'s through autograd (``[adain time]``); then the
+   device kernels of one call each way, which must be one, in float32 and
+   bf16, on contiguous and strided w/bias (``[adain launches]``).
 8. MUNIT IN parity and time: the instance-norm pair against its plain
    version at every (shape, slope) site of the MUNIT path, the step's and the
    sample grid's, down to the discriminator's 2x2 planes; then the times at
@@ -56,8 +61,8 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    with samples and checkpoints; checks finite losses, the sample sheets and
    checkpoints, and the exact AdaIN and IN launch counts; then the
    steady-state step time, the step's FLOPs and operations bound, the
-   device's busy share and the step's largest device kernels
-   (torch.profiler).
+   device's busy share, its kernels (those of autograd's SliceBackward0
+   apart) and the step's largest device kernels (torch.profiler).
 10. im2im IN parity and time: the instance-norm pair against its plain
    version at every (shape, slope) site of the five im2im paths (pix2pix,
    discogan, dualgan, context_encoder, ccgan: ``IM2IM_IN``), their steps'
@@ -173,7 +178,8 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    tolerances and bit-repeatable, then its times beside the plain version,
    ``F.instance_norm`` on bf16, the float32 kernels and the bound at 4 and 6
    bytes an element; ``[adain bf16 parity]``/``[adain bf16 time]`` likewise
-   for AdaIN; ``[cyclegan bf16 slice]`` and ``[munit bf16 slice]``, each
+   for AdaIN, with the strided w/bias of phase 7 and the library calls'
+   device time; ``[cyclegan bf16 slice]`` and ``[munit bf16 slice]``, each
    main with ``--dtype bfloat16`` at its reference configuration for 4
    steps (exact bf16 launches, no float32 one, float32 checkpoints), the
    step in float32 and bf16 in turns, the bf16 step's largest kernels, and
@@ -553,6 +559,71 @@ def device_ms(fn, reps: int):
     return None
 
 
+def call_kernels(fn, calls: int, want=None, traces: int = 3) -> list:
+    """The names of the device kernels of ``calls`` calls of ``fn``
+    (torch.profiler, after one call of warm-up), from the fullest of up to
+    ``traces`` traces, since the profiler drops events in some sessions; a
+    trace of ``want`` kernels ends the search."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in device_kernels(prof)]
+        if len(names) > len(best):
+            best = names
+        if len(best) == want:
+            break
+    return best
+
+
+def _affine(name: str) -> bool:
+    """Whether an ``instance_norm.cu`` kernel's name is its AdaIN instance:
+    the last template argument, kAffine, is true."""
+    return name.split("<")[1].split(">")[0].endswith("true")
+
+
+def one_affine_kernel_a_call(names, calls: int, direction: str) -> bool:
+    """Whether ``calls`` calls of an AdaIN wrapper in ``direction`` ("fwd"
+    or "bwd") launched one kernel each, read off a torch.profiler trace of
+    them (``call_kernels``): every traced kernel is the affine instance of
+    ``instance_norm.cu``'s kernel in that direction, at least one and at
+    most one a call. The profiler drops a few events in some sessions (the
+    first three of each trace in one whole-script run), so fewer than
+    ``calls`` may come back; a second kernel in a call (a cast, a copy)
+    shows by its name, a second launch of the kernel by the count."""
+    return 0 < len(names) <= calls and all(
+        f"in_act_{direction}_" in n and _affine(n) for n in names)
+
+
+def _kernel_mix(names, calls: int) -> str:
+    """The kernels of ``calls`` calls by name (cut to 60 characters), a call's
+    count of each."""
+    counts = {}
+    for name in names:
+        counts[name[:60]] = counts.get(name[:60], 0) + 1
+    return "; ".join(f"{n / calls:g} x {name}" for name, n in
+                     sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def slice_backward_kernels(prof) -> int:
+    """The device kernels of a torch.profiler run launched inside autograd's
+    SliceBackward0 nodes: the fills and copies that route a slice's gradient
+    into a gradient of the sliced tensor's shape, and the sums that add it to
+    the other slices' (counted through the profiler's tree of CPU events)."""
+    def below(e):
+        return len(e.kernels) + sum(below(ch) for ch in e.cpu_children)
+
+    return sum(below(e) for e in prof.events()
+               if e.name == "autograd::engine::evaluate_function: SliceBackward0")
+
+
 def graph_ms(fn, calls: int = 20, replays: int = 20) -> float:
     """Time per call in ms of ``calls`` calls captured in one CUDA graph and
     replayed ``replays`` times (CUDA events): the device's time including the
@@ -675,9 +746,10 @@ def phase_launch_cost(smi):
     stats = x.new_empty((2, planes))
     ptrs = (g.data_ptr(), x.data_ptr(), w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             dx.data_ptr(), dw.data_ptr(), db.data_ptr())
-    args = (*ptrs, 1.0, plan_arg, tin.raw_stream(dev))
+    args = (*ptrs, 1.0, c, c, plan_arg, tin.raw_stream(dev))
     # A plan of no planes: the C entry returns before any CUDA call.
-    no_launch = (*ptrs, 1.0, ctypes.byref(_build.LaunchPlan(0, hw, 1, 0, 0, 32)), args[-1])
+    no_launch = (*ptrs, 1.0, c, c, ctypes.byref(_build.LaunchPlan(0, hw, 1, 0, 0, 32)),
+                 args[-1])
     xg, wg, bg = (t.clone().requires_grad_() for t in (x, w, bias))
     x1, g1 = x.view(1, planes, h, wd), g.view(1, planes, h, wd)
     w1, b1 = w.flatten(), bias.flatten()
@@ -706,8 +778,10 @@ def phase_launch_cost(smi):
         ("one allocation instead: x.new_empty((2, B*C))", lambda: x.new_empty((2, planes))),
         ("  and the unbind of its two rows", stats.unbind),
         ("raw stream (torch._C)", lambda: tin.raw_stream(dev)),
-        ("checks, one pass over 5 tensors", lambda: _build.check_tensors(
-            "adain_bwd", dev, g, x, mean, rstd, w)),
+        ("checks, one pass over 4 tensors", lambda: _build.check_tensors(
+            "adain_bwd", dev, g, x, mean, rstd)),
+        ("  and w's dtype, shape and row stride (per_plane_strides)",
+         lambda: tin.per_plane_strides("adain_bwd", x, w, dev=dev)),
         ("plan and its C struct from their cache", lambda: tin._plan_arg(planes, hw, "bwd")),
         ("before: import and library() lookup", lookup_before),
         ("before: torch.empty(B*C) twice", lambda: (torch.empty(planes, device=x.device),
@@ -1391,172 +1465,352 @@ def _adain_inputs(shape, offset, w_kind, gen):
     return x, w, bias, g
 
 
+def _out_error(got, want, tol):
+    """(largest |got - want|, its share of the tolerance): ``tol``, plus one
+    bf16 ulp at the larger magnitude where ``got`` is bf16."""
+    import torch
+
+    if got.dtype is torch.bfloat16:
+        err, share, _ = _bf16_errors(got, want, tol)
+        return err, share
+    err = float((got - want).abs().max())
+    return err, err / tol
+
+
 def _adain_errors(got, want, offset, w):
-    """Largest errors of (y, mean, rstd, dx, dw, db), kernel against plain;
-    raises past the tolerances of ``ADAIN_CASES``."""
+    """Largest errors of (y, mean, rstd, dx, dw, db), kernel against plain,
+    each one's share of its tolerance, and those past it: the tolerances of
+    ``ADAIN_CASES``, plus one bf16 ulp at the larger magnitude on bf16
+    outputs (the statistics stay float32)."""
+    import torch
+
     y_k, mean_k, rstd_k, *grads_k = got
     y_r, mean_r, rstd_r, *grads_r = want
-    y_tol = Y_ATOL * (1.0 + abs(offset)) * max(1.0, float(w.abs().max()))
-    errs = {
-        "y": float((y_k - y_r).abs().max()),
-        "mean": float((mean_k - mean_r).abs().max()),
-        "rstd": float(((rstd_k - rstd_r).abs() / rstd_r).max()),
-    }
-    tols = {"y": y_tol, "mean": Y_ATOL * (1.0 + abs(offset)), "rstd": Y_ATOL}
+    errs = {"mean": float((mean_k - mean_r).abs().max()),
+            "rstd": float(((rstd_k - rstd_r).abs() / rstd_r).max())}
+    share = {"mean": errs["mean"] / (Y_ATOL * (1.0 + abs(offset))), "rstd": errs["rstd"] / Y_ATOL}
+    outs = {"y": (y_k, y_r, Y_ATOL * (1.0 + abs(offset)) * max(1.0, float(w.float().abs().max())))}
     for name, a, b in zip(("dx", "dw", "db"), grads_k, grads_r):
-        errs[name] = float((a - b).abs().max())
-        tols[name] = DX_RTOL * float(b.abs().max()) + 1e-7
-    bad = {k: (errs[k], tols[k]) for k in errs if not errs[k] <= tols[k]}
-    return errs, bad
+        outs[name] = (a, b, DX_RTOL * float(b.float().abs().max()) + 1e-7)
+    for k, (a, b, tol) in outs.items():
+        errs[k], share[k] = _out_error(a, b, tol)
+    bad = {k: (errs[k], share[k]) for k in errs if not share[k] <= 1.0}
+    return errs, share, bad
+
+
+def _adain_case(tag, shape, offset, w_kind, gen, dtype):
+    """One ``ADAIN_CASES`` case in ``dtype``: both directions against the
+    plain version, each repeating bit for bit, dw and dbias in w's dtype.
+    Returns the errors and their shares of the tolerance."""
+    import torch
+
+    from tpugan_torch.ops import adain as ta
+
+    x, w, bias, g = (t.to(dtype) for t in _adain_inputs(shape, offset, w_kind, gen))
+    fwd, fwd_again = ta.adain_fwd(x, w, bias, EPS), ta.adain_fwd(x, w, bias, EPS)
+    y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w, bias, EPS)
+    bwd = ta.adain_bwd(g, x, w, mean_r, rstd_r)
+    bwd_again = ta.adain_bwd(g, x, w, mean_r, rstd_r)
+    bwd_r = ta.adain_bwd_ref(g, x, w, mean_r, rstd_r)
+    torch.cuda.synchronize()
+    for name, a, b in (("forward", fwd, fwd_again), ("backward", bwd, bwd_again)):
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            raise AssertionError(f"{tag} {name} at {shape} does not repeat bit for bit")
+    if [t.dtype for t in (fwd[0], *bwd)] != [dtype] * 4:
+        raise AssertionError(f"{tag} y, dx, dw, dbias dtypes {[t.dtype for t in (fwd[0], *bwd)]}")
+    errs, share, bad = _adain_errors((*fwd, *bwd), (y_r, mean_r, rstd_r, *bwd_r), offset, w)
+    if bad:
+        raise AssertionError(f"{tag} disagrees at {shape} offset {offset} w {w_kind}: {bad} "
+                             "(error, share of its tolerance)")
+    log(f"{tag} {str(shape):18s} offset {offset:<5g} w {w_kind:6s} | "
+        + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " | share of tol "
+        + " ".join(f"{k} {v:.2f}" for k, v in share.items()) + " | bit-repeatable")
+    return errs, share
+
+
+def _style_params(b, c, dtype, gen):
+    """The style MLP's output as MUNIT's decoder takes it at C channels: (B,
+    4C) a residual block, 3 blocks; entries about 0.5 +- 0.5."""
+    import torch
+
+    return (0.5 + 0.5 * torch.randn((b, 12 * c), device="cuda", generator=gen)).to(dtype)
+
+
+def _adain_strided(tag, dtype, gen):
+    """w and bias as column slices of a (B, 4C x 3) tensor of ``dtype``, as the
+    AdaIN residual block takes them from the style MLP ([bias1, weight1,
+    ...]; rows 12C apart), at the MUNIT step and sample shapes. Directly
+    through ``adain_fwd``/``adain_bwd``: the bits of the same calls on
+    contiguous copies (the kernels read the same values in place), the plain
+    version within the tolerances of ``ADAIN_CASES``, bit-repeatable, dw and
+    dbias contiguous (B, C) in w's dtype. Then through ``adain()`` with
+    autograd, twice: y, dx and the (B, 4C x 3) tensor's gradient against the
+    plain version, bit for bit between the two. Returns the errors and their
+    shares of the tolerance, the largest of each."""
+    import torch
+
+    from tpugan_torch.ops import adain as ta
+
+    out = {}
+    for shape in (ADAIN_STEP_SHAPE, ADAIN_SAMPLE_SHAPE):
+        b, c = shape[:2]
+        x, _, _, g = (t.to(dtype) for t in _adain_inputs(shape, 0.0, "normal", gen))
+        params = _style_params(b, c, dtype, gen)
+        w_s, b_s = params[:, c:2 * c], params[:, :c]
+        w_c, b_c = w_s.contiguous(), b_s.contiguous()
+        if (w_s.stride(0), b_s.stride(0)) != (12 * c, 12 * c):
+            raise AssertionError(f"{tag} the slices' row strides are {w_s.stride()}, "
+                                 f"{b_s.stride()}")
+        fwd = ta.adain_fwd(x, w_s, b_s, EPS)
+        bwd = ta.adain_bwd(g, x, w_s, fwd[1], fwd[2])
+        again = (*ta.adain_fwd(x, w_s, b_s, EPS), *ta.adain_bwd(g, x, w_s, fwd[1], fwd[2]))
+        contiguous = (*ta.adain_fwd(x, w_c, b_c, EPS), *ta.adain_bwd(g, x, w_c, fwd[1], fwd[2]))
+        y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w_c, b_c, EPS)
+        bwd_r = ta.adain_bwd_ref(g, x, w_c, fwd[1], fwd[2])
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip((*fwd, *bwd), again)):
+            raise AssertionError(f"{tag} strided w/bias at {shape} does not repeat bit for bit")
+        if not all(torch.equal(u, v) for u, v in zip((*fwd, *bwd), contiguous)):
+            raise AssertionError(f"{tag} strided w/bias at {shape} differ from contiguous copies")
+        if [(t.dtype, t.is_contiguous(), tuple(t.shape)) for t in bwd[1:]] != [(dtype, True,
+                                                                                 (b, c))] * 2:
+            raise AssertionError(f"{tag} dw, dbias {[(t.dtype, t.stride()) for t in bwd[1:]]}")
+        errs, share, bad = _adain_errors((*fwd, *bwd), (y_r, mean_r, rstd_r, *bwd_r), 0.0, w_c)
+        if bad:
+            raise AssertionError(f"{tag} strided w/bias at {shape} disagree: {bad} (error, share "
+                                 "of its tolerance)")
+
+        # Through the autograd Function, as the residual block calls it.
+        params.requires_grad_()
+        xg = x.clone().requires_grad_()
+        runs = []
+        for _ in range(2):
+            y = ta.adain(xg, params[:, c:2 * c], params[:, :c], EPS)
+            runs.append((y.detach(), *torch.autograd.grad(y, (xg, params), g)))
+        torch.cuda.synchronize()
+        if not all(torch.equal(u, v) for u, v in zip(*runs)):
+            raise AssertionError(f"{tag} adain() on strided slices at {shape} does not repeat")
+        dp_r = torch.zeros_like(params)
+        dp_r[:, :c], dp_r[:, c:2 * c] = bwd_r[2], bwd_r[1]
+        y, dx, dp = runs[0]
+        auto = {"y": (y, y_r, Y_ATOL * max(1.0, float(w_c.float().abs().max()))),
+                "dx": (dx, bwd_r[0], DX_RTOL * float(bwd_r[0].float().abs().max())),
+                "dparams": (dp, dp_r, DX_RTOL * float(dp_r.float().abs().max()))}
+        for k, (got, want, tol) in auto.items():
+            err, sh = _out_error(got, want, tol)
+            errs[f"adain() {k}"], share[f"adain() {k}"] = err, sh
+            if not sh <= 1.0:
+                raise AssertionError(f"{tag} adain() on strided slices at {shape}: {k} {err:.3g} "
+                                     f"({sh:.2f} of its tolerance {tol:.3g})")
+        log(f"{tag} strided w/bias, (B, 4C x 3) = {tuple(params.shape)}, rows {12 * c} apart, at "
+            f"{shape}: the bits of contiguous copies, bit-repeatable, dw and dbias contiguous "
+            f"{dtype}; " + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " | share of tol "
+            + " ".join(f"{k} {v:.2f}" for k, v in share.items()))
+        for k, v in errs.items():
+            key = "fwd" if k in ("y", "adain() y") else "bwd" if k not in ("mean", "rstd") else None
+            if key:
+                out[key] = max(out.get(key, 0.0), v)
+                out[f"{key}_share"] = max(out.get(f"{key}_share", 0.0), share[k])
+    return out
 
 
 def phase_adain_parity():
     import torch
 
-    from tpugan_torch.ops import adain as ta
-
     gen = torch.Generator(device="cuda").manual_seed(3)
     worst = {"fwd": 0.0, "bwd": 0.0}
     for shape, offset, w_kind in ADAIN_CASES:
-        x, w, bias, g = _adain_inputs(shape, offset, w_kind, gen)
-        fwd = ta.adain_fwd(x, w, bias, EPS)
-        fwd_again = ta.adain_fwd(x, w, bias, EPS)
-        y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w, bias, EPS)
-        bwd = ta.adain_bwd(g, x, w, mean_r, rstd_r)
-        bwd_again = ta.adain_bwd(g, x, w, mean_r, rstd_r)
-        bwd_r = ta.adain_bwd_ref(g, x, w, mean_r, rstd_r)
-        torch.cuda.synchronize()
-        for name, a, b in (("forward", fwd, fwd_again), ("backward", bwd, bwd_again)):
-            if not all(torch.equal(u, v) for u, v in zip(a, b)):
-                raise AssertionError(f"adain {name} at {shape} does not repeat bit for bit")
-        errs, bad = _adain_errors((*fwd, *bwd), (y_r, mean_r, rstd_r, *bwd_r), offset, w)
-        if bad:
-            raise AssertionError(f"adain disagrees at {shape} offset {offset} w {w_kind}: "
-                                 f"{bad} (error, tolerance)")
+        errs, _ = _adain_case("[adain parity]", shape, offset, w_kind, gen, torch.float32)
         worst["fwd"] = max(worst["fwd"], errs["y"])
         worst["bwd"] = max(worst["bwd"], errs["dx"], errs["dw"], errs["db"])
-        log(f"[adain parity] {str(shape):18s} offset {offset:<5g} w {w_kind:6s} | "
-            + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " | bit-repeatable")
-
-    # w and bias as strided slices of the style MLP's output, through the
-    # autograd Function, as the AdaIN residual block takes them.
-    b, c = ADAIN_SAMPLE_SHAPE[:2]
-    x, _, _, g = _adain_inputs(ADAIN_SAMPLE_SHAPE, 0.0, "normal", gen)
-    params = 0.5 + 0.5 * torch.randn((b, 4 * c), device="cuda", generator=gen)
-    params.requires_grad_()
-    xg = x.clone().requires_grad_()
-    w_s, b_s = params[:, c:2 * c], params[:, :c]
-    if w_s.is_contiguous() or b_s.is_contiguous():
-        raise AssertionError("the strided case's slices are contiguous")
-    y = ta.adain(xg, w_s, b_s, EPS)
-    y.backward(g)
-    w_c, b_c = w_s.detach().contiguous(), b_s.detach().contiguous()
-    y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w_c, b_c, EPS)
-    dx_r, dw_r, db_r = ta.adain_bwd_ref(g, x, w_c, mean_r, rstd_r)
-    dp_r = torch.zeros_like(params)
-    dp_r[:, :c], dp_r[:, c:2 * c] = db_r, dw_r
-    torch.cuda.synchronize()
-    errs = {"y": float((y.detach() - y_r).abs().max()),
-            "dx": float((xg.grad - dx_r).abs().max()),
-            "dparams": float((params.grad - dp_r).abs().max())}
-    tols = {"y": Y_ATOL * max(1.0, float(w_c.abs().max())),
-            "dx": DX_RTOL * float(dx_r.abs().max()), "dparams": DX_RTOL * float(dp_r.abs().max())}
-    bad = {k: (errs[k], tols[k]) for k in errs if not errs[k] <= tols[k]}
-    if bad:
-        raise AssertionError(f"adain() on strided w/bias slices disagrees: {bad}")
-    worst["fwd"] = max(worst["fwd"], errs["y"])
-    worst["bwd"] = max(worst["bwd"], errs["dx"], errs["dparams"])
-    log(f"[adain parity] strided w/bias slices of a {tuple(params.shape)} tensor through "
-        f"adain(): y {errs['y']:.2e} dx {errs['dx']:.2e} dparams {errs['dparams']:.2e}")
-    log(f"[adain parity] {len(ADAIN_CASES) + 1} cases pass: max |dy| {worst['fwd']:.3g}, max "
-        f"|d(dx, dw, db)| {worst['bwd']:.3g}")
+    strided = _adain_strided("[adain parity]", torch.float32, gen)
+    worst["fwd"] = max(worst["fwd"], strided["fwd"])
+    worst["bwd"] = max(worst["bwd"], strided["bwd"])
+    log(f"[adain parity] {len(ADAIN_CASES)} cases and strided w/bias at 2 shapes pass: max |dy| "
+        f"{worst['fwd']:.3g}, max |d(dx, dw, db)| {worst['bwd']:.3g}")
     return worst
 
 
-def phase_adain_time(smi):
-    """At the slice's two shapes: kernel, plain version, bound and the
-    PyTorch call that computes the same function on the (1, B*C, H, W) view,
-    forward and backward, CUDA events; then forward + backward through
-    autograd beside ``F.instance_norm``'s. The step's sums are over its 24
+def _adain_times(tag, smi, dtype, gen):
+    """At the MUNIT step and sample shapes, in ``dtype``: the kernels beside
+    the plain version, the bound and the PyTorch call that computes the same
+    function on the (1, B*C, H, W) view (``F.instance_norm`` forward,
+    ``native_batch_norm_backward`` backward, held to the plain version
+    first), by CUDA events and by device time (``device_ms``); in bf16 also
+    the float32 kernels on the same values widened. Then forward + backward
+    through ``adain()`` with w and bias as column slices of a (B, 4C x 3) tensor,
+    sliced in the call as the residual block does, beside ``F.instance_norm``
+    through autograd. Returns one step's sums over its ``ADAIN_PER_STEP``
     launches at ``ADAIN_STEP_SHAPE``."""
     import torch
     import torch.nn.functional as F
 
     from tpugan_torch.ops import adain as ta
 
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    out = {}
+    bf16 = dtype is torch.bfloat16
+    elem = 2 if bf16 else 4
+    out, both = {}, {}
     for shape in (ADAIN_STEP_SHAPE, ADAIN_SAMPLE_SHAPE):
-        x, w, bias, g = _adain_inputs(shape, 0.0, "normal", gen)
+        x, w, bias, g = (t.to(dtype) for t in _adain_inputs(shape, 0.0, "normal", gen))
         b, c, h, wd = shape
         planes, n = b * c, x.numel()
         _, mean, rstd = ta.adain_fwd_ref(x, w, bias, EPS)
         x1, g1 = x.view(1, planes, h, wd), g.view(1, planes, h, wd)
         w1, b1 = w.flatten(), bias.flatten()
+        w1f = w1.float()  # native_batch_norm_backward's weight, converted outside the clock
 
         def lib_fwd():
             return F.instance_norm(x1, weight=w1, bias=b1, eps=EPS)
 
         def lib_bwd():
             return torch.ops.aten.native_batch_norm_backward(
-                g1, x1, w1, None, None, mean, rstd, True, EPS, [True, True, True])
+                g1, x1, w1f, None, None, mean, rstd, True, EPS, [True, True, True])
 
         # The yardsticks must compute the same function: held to the plain
-        # version as the kernels are.
-        lib = (lib_fwd(), *lib_bwd())
+        # version as the kernels are (bf16: within two bf16 ulps).
         plain = (ta.adain_fwd_ref(x, w, bias, EPS)[0], *ta.adain_bwd_ref(g, x, w, mean, rstd))
-        lib_err = max(float((a.reshape(r.shape) - r).abs().max()) / max(1.0, float(r.abs().max()))
-                      for a, r in zip(lib, plain))
-        if lib_err > DX_RTOL:
-            raise AssertionError(f"the library calls differ from AdaIN at {shape}: {lib_err:.3g}")
+        lib_err = max(float((a.reshape(r.shape).float() - r.float()).abs().max())
+                      / max(1.0, float(r.float().abs().max()))
+                      for a, r in zip((lib_fwd(), *lib_bwd()), plain))
+        if lib_err > (2 * BF16_ULP if bf16 else DX_RTOL):
+            raise AssertionError(f"{tag} the library calls differ from AdaIN at {shape}: "
+                                 f"{lib_err:.3g}")
         reps = max(20, min(200, int(2e8 / n)))
-        t = {
-            "fwd": {"ms": cuda_ms(lambda: ta.adain_fwd(x, w, bias, EPS), reps),
-                    "plain_ms": cuda_ms(lambda: ta.adain_fwd_ref(x, w, bias, EPS), reps),
-                    "library_ms": cuda_ms(lib_fwd, reps)},
-            "bwd": {"ms": cuda_ms(lambda: ta.adain_bwd(g, x, w, mean, rstd), reps),
-                    "plain_ms": cuda_ms(lambda: ta.adain_bwd_ref(g, x, w, mean, rstd), reps),
-                    "library_ms": cuda_ms(lib_bwd, reps)},
-        }
-        for k, kern, lib in (("fwd", lambda: ta.adain_fwd(x, w, bias, EPS), lib_fwd),
-                             ("bwd", lambda: ta.adain_bwd(g, x, w, mean, rstd), lib_bwd)):
-            t[k]["device_ms"] = device_ms(kern, reps)
-            t[k]["library_device_ms"] = device_ms(lib, reps)
-        # Bytes: x in and y out, w and bias in and mean and rstd out per plane;
-        # g and x in and dx out, w, mean and rstd in and dw and dbias out.
-        # Operations: 8 a forward element (sum; centred square; normalise and
-        # affine), 9 a backward element (xh; the two sums; dx).
-        for k, nbytes, flops in (("fwd", 8 * n + 16 * planes, 8 * n),
-                                 ("bwd", 12 * n + 20 * planes, 9 * n)):
+        fns = {"fwd": (lambda: ta.adain_fwd(x, w, bias, EPS),
+                       lambda: ta.adain_fwd_ref(x, w, bias, EPS), lib_fwd),
+               "bwd": (lambda: ta.adain_bwd(g, x, w, mean, rstd),
+                       lambda: ta.adain_bwd_ref(g, x, w, mean, rstd), lib_bwd)}
+        if bf16:
+            x32, w32, b32, g32 = (t.float() for t in (x, w, bias, g))
+            fp32 = {"fwd": lambda: ta.adain_fwd(x32, w32, b32, EPS),
+                    "bwd": lambda: ta.adain_bwd(g32, x32, w32, mean, rstd)}
+        # Bytes: x in and y out, w and bias in and mean and rstd (float32)
+        # out per plane; g and x in and dx out, w in, mean and rstd in, dw
+        # and dbias out. Operations: 8 a forward element (sum; centred
+        # square; normalise and affine), 9 a backward element (xh; the two
+        # sums; dx).
+        t = {}
+        for k, nbytes, flops in (("fwd", 2 * elem * n + (2 * elem + 8) * planes, 8 * n),
+                                 ("bwd", 3 * elem * n + (3 * elem + 8) * planes, 9 * n)):
+            kern, ref, lib = fns[k]
+            t[k] = {"ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(ref, reps),
+                    "library_ms": cuda_ms(lib, reps), "device_ms": device_ms(kern, reps),
+                    "library_device_ms": device_ms(lib, reps)}
+            if bf16:
+                t[k]["fp32_ms"] = cuda_ms(fp32[k], reps)
             t[k]["bound_ms"], t[k]["bound_by"] = bound_ms(flops, nbytes)
-
-        xg = x.clone().requires_grad_()
-        wg, bg = w.clone().requires_grad_(), bias.clone().requires_grad_()
-        x1g = x1.clone().requires_grad_()
-        w1g, b1g = w1.clone().requires_grad_(), b1.clone().requires_grad_()
-        both = cuda_ms(lambda: ta.adain(xg, wg, bg, EPS).backward(g), reps)
-        both_lib = cuda_ms(
-            lambda: F.instance_norm(x1g, weight=w1g, bias=b1g, eps=EPS).backward(g1), reps)
-        out[shape] = t
-        for k in ("fwd", "bwd"):
             o = t[k]
-            log(f"[adain time] {k} {str(shape):18s} kernel {o['ms']:.4f} ms, plain "
-                f"{o['plain_ms']:.4f}, bound {o['bound_ms']:.4f} ({o['bound_by']}), library "
-                f"{o['library_ms']:.4f} ({o['bound_ms'] / o['ms']:.1%} of bound); device time "
-                f"kernel {fmt_ms(o['device_ms'], 0)}, library {fmt_ms(o['library_device_ms'], 0)}")
-        log(f"[adain time] fwd+bwd {str(shape):14s} through autograd: adain() {both:.4f} ms, "
-            f"F.instance_norm {both_lib:.4f} ms")
+            log(f"{tag} {k} {str(shape):18s} kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f}, "
+                f"bound {o['bound_ms']:.4f} ({o['bound_by']}), library {o['library_ms']:.4f}"
+                + (f", fp32 kernel {o['fp32_ms']:.4f}" if bf16 else "")
+                + f" ({o['bound_ms'] / o['ms']:.1%} of bound); device time kernel "
+                f"{fmt_ms(o['device_ms'], 0)}, library {fmt_ms(o['library_device_ms'], 0)}")
+        out[shape] = t
+
+        params = _style_params(b, c, dtype, gen)
+        params.requires_grad_()
+        xg, x1g = x.clone().requires_grad_(), x1.clone().requires_grad_()
+        w1g, b1g = w1.clone().requires_grad_(), b1.clone().requires_grad_()
+        both[shape] = {
+            "adain_ms": cuda_ms(lambda: torch.autograd.grad(
+                ta.adain(xg, params[:, c:2 * c], params[:, :c], EPS), (xg, params), g), reps),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(
+                F.instance_norm(x1g, weight=w1g, bias=b1g, eps=EPS), (x1g, w1g, b1g), g1), reps)}
+        log(f"{tag} fwd+bwd {str(shape):14s} through autograd: adain() on column slices of a "
+            f"(B, 4C x 3) tensor {both[shape]['adain_ms']:.4f} ms, F.instance_norm "
+            f"{both[shape]['library_ms']:.4f} ms")
     step = {k: {key: add_ms(0.0, ADAIN_PER_STEP, v) for key, v in out[ADAIN_STEP_SHAPE][k].items()
                 if key != "bound_by"} for k in ("fwd", "bwd")}
-    for k in ("fwd", "bwd"):
+    for k, lib in (("fwd", "F.instance_norm"), ("bwd", "native_batch_norm_backward")):
         step[k]["bound_by"] = out[ADAIN_STEP_SHAPE][k]["bound_by"]
         o = step[k]
-        log(f"[adain time] one step's {ADAIN_PER_STEP} {k} launches: kernel {o['ms']:.3f} ms, "
-            f"plain {o['plain_ms']:.3f}, bound {o['bound_ms']:.3f}, library {o['library_ms']:.3f}"
-            f"; device time kernel {fmt_ms(o['device_ms'], 0)}, library "
-            f"{fmt_ms(o['library_device_ms'], 0)}")
-    log(f"[adain time] on {torch.cuda.get_device_name(0)} ({smi})")
+        log(f"{tag} one step's {ADAIN_PER_STEP} {k} launches: kernel {o['ms']:.3f} ms, plain "
+            f"{o['plain_ms']:.3f}, bound {o['bound_ms']:.3f}, {lib} {o['library_ms']:.3f}"
+            + (f", fp32 kernel {o['fp32_ms']:.3f}" if bf16 else "")
+            + f"; device time kernel {fmt_ms(o['device_ms'], 0)}, {lib} "
+            f"{fmt_ms(o['library_device_ms'], 0)}; kernel/library by events "
+            f"{o['ms'] / o['library_ms']:.2f}")
+    step["autograd"] = {key: ADAIN_PER_STEP * v for key, v in both[ADAIN_STEP_SHAPE].items()}
+    log(f"{tag} one step's {ADAIN_PER_STEP} calls through autograd, fwd+bwd: adain() on strided "
+        f"slices {step['autograd']['adain_ms']:.3f} ms, F.instance_norm "
+        f"{step['autograd']['library_ms']:.3f} ms")
+    log(f"{tag} on {torch.cuda.get_device_name(0)} ({smi})")
     return step
+
+
+def phase_adain_time(smi):
+    """``[adain time]``: ``_adain_times`` in float32."""
+    import torch
+
+    return _adain_times("[adain time]", smi, torch.float32,
+                        torch.Generator(device="cuda").manual_seed(4))
+
+
+def adain_kernel_counts(dtype, shape, gen, calls: int = 20) -> dict:
+    """The device kernels (torch.profiler, ``call_kernels``) of ``calls``
+    calls each, in ``dtype`` at ``shape``: of ``adain_fwd`` and of
+    ``adain_bwd`` with w and bias contiguous and as column slices of a
+    (B, 4C x 3) tensor, and of ``adain()`` on the slices, forward alone and
+    forward and backward through autograd (the backward's kernels include
+    autograd's routing of dw and dbias into the (B, 4C x 3) gradient)."""
+    import torch
+
+    from tpugan_torch.ops import adain as ta
+
+    b, c = shape[:2]
+    x, w, bias, g = (t.to(dtype) for t in _adain_inputs(shape, 0.0, "normal", gen))
+    params = _style_params(b, c, dtype, gen)
+    _, mean, rstd = ta.adain_fwd_ref(x, w, bias, EPS)
+    out = {}
+    for layout, (wl, bl) in (("contiguous", (w, bias)),
+                             ("strided", (params[:, c:2 * c], params[:, :c]))):
+        out[f"adain_fwd {layout}"] = call_kernels(lambda: ta.adain_fwd(x, wl, bl, EPS), calls,
+                                                  calls)
+        out[f"adain_bwd {layout}"] = call_kernels(lambda: ta.adain_bwd(g, x, wl, mean, rstd),
+                                                  calls, calls)
+    pg = params.clone().requires_grad_()
+    xg = x.clone().requires_grad_()
+
+    def block():
+        return ta.adain(xg, pg[:, c:2 * c], pg[:, :c], EPS)
+
+    out["adain() fwd"] = call_kernels(block, calls)
+    out["adain() fwd+bwd"] = call_kernels(lambda: torch.autograd.grad(block(), (xg, pg), g),
+                                          calls)
+    log(f"[adain launches] {str(dtype):14s} {str(shape):18s} kernels a call: " + ", ".join(
+        f"{k} {len(v) / calls:g}" for k, v in out.items())
+        + f"; adain() fwd+bwd: {_kernel_mix(out['adain() fwd+bwd'], calls)}")
+    return out
+
+
+def phase_adain_launches():
+    """``[adain launches]``: ``adain_kernel_counts`` in float32 and bf16 at
+    the MUNIT step and sample shapes. Each ``adain_fwd`` and ``adain_bwd``
+    call, on contiguous and on strided w/bias, must be exactly one kernel,
+    the affine instance of ``instance_norm.cu``'s pair in that direction.
+    Returns, for every count, the traced kernels a call and the distinct
+    kernels (by name) a call made."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    calls = 20
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in (ADAIN_STEP_SHAPE, ADAIN_SAMPLE_SHAPE):
+            counts = adain_kernel_counts(dtype, shape, gen, calls)
+            for key, names in counts.items():
+                out[f"{dtype} {shape} {key}"] = {"traced_a_call": len(names) / calls,
+                                                 "distinct": len(set(names))}
+                if key.startswith("adain()"):
+                    continue
+                if not one_affine_kernel_a_call(names, calls, key[6:9]):
+                    raise AssertionError(
+                        f"[adain launches] {key} in {dtype} at {shape}: {len(names)} kernels "
+                        f"traced in {calls} calls, expected one in_act_{key[6:9]}_*<..., true> "
+                        f"a call: {sorted(set(names))[:6]}")
+    log(f"[adain launches] every adain_fwd and adain_bwd call is one kernel, in float32 and "
+        f"bf16, on contiguous and strided w/bias, at {ADAIN_STEP_SHAPE} and {ADAIN_SAMPLE_SHAPE}")
+    return out
 
 
 def phase_munit_in():
@@ -1700,7 +1954,9 @@ def phase_munit_slice(smi):
         by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
     log(f"[munit slice] profiled {n_prof} steps: {len(kernels) / n_prof:.0f} device kernels and "
         f"{busy_ms / n_prof:.3f} ms of device time per step, in {prof_ms / n_prof:.3f} ms of host "
-        f"time (profiler on): device busy {busy_ms / prof_ms:.1%}")
+        f"time (profiler on): device busy {busy_ms / prof_ms:.1%}; kernels a step "
+        f"{len(kernels) / n_prof:.1f}, of them {slice_backward_kernels(prof) / n_prof:.1f} in "
+        f"autograd's SliceBackward0 (the style parameters' slices)")
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"[munit slice]   {tot / n_prof:9.3f} ms/step  x{cnt / n_prof:5.0f}  {name[:110]}")
     # The port's own kernels: in_act_{fwd,bwd}_warp<kAffine> (regime A) and
@@ -1709,7 +1965,7 @@ def phase_munit_slice(smi):
     for name, (tot, cnt) in by_name.items():
         for k in ("fwd", "bwd"):
             if f"in_act_{k}_warp<" in name or f"in_act_{k}_slice<" in name:
-                key = ("adain_" if name.split("<")[1].split(">")[0].endswith("true") else "in_") + k
+                key = ("adain_" if _affine(name) else "in_") + k
                 t, c = ours.get(key, (0.0, 0))
                 ours[key] = (t + tot / n_prof, c + cnt // n_prof)
     log("[munit slice] the port's kernels, device time per step: " + ", ".join(
@@ -3443,111 +3699,28 @@ def _library_or_none(tag, fn):
 
 def phase_adain_bf16(smi):
     """``[adain bf16 parity]``: the bf16 AdaIN pair (bf16 x, w, bias and g)
-    against its plain bf16 version at ``ADAIN_CASES``, both directions, each
-    repeating bit for bit, within one bf16 ulp plus the float32 tolerances;
-    ``[adain bf16 time]``: at the MUNIT step and sample shapes, the kernels
-    beside the plain bf16 version, ``F.instance_norm`` on bf16 (forward) or
-    ``native_batch_norm_backward`` (backward), the float32 kernels and the
-    bytes bound. Returns the worst errors and one step's sums."""
+    against its plain bf16 version at ``ADAIN_CASES`` and on strided w/bias
+    (``_adain_strided``), both directions, each repeating bit for bit,
+    within one bf16 ulp plus the float32 tolerances; ``[adain bf16 time]``:
+    ``_adain_times`` in bf16. Returns the worst errors and one step's
+    sums."""
     import torch
-    import torch.nn.functional as F
-
-    from tpugan_torch.ops import adain as ta
 
     tag = "[adain bf16 parity]"
     gen = torch.Generator(device="cuda").manual_seed(8)
     worst = {"fwd": 0.0, "bwd": 0.0, "fwd_share": 0.0, "bwd_share": 0.0}
     for shape, offset, w_kind in ADAIN_CASES:
-        x, w, bias, g = (t.bfloat16() for t in _adain_inputs(shape, offset, w_kind, gen))
-        fwd, fwd_again = ta.adain_fwd(x, w, bias, EPS), ta.adain_fwd(x, w, bias, EPS)
-        y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w, bias, EPS)
-        bwd = ta.adain_bwd(g, x, w, mean_r, rstd_r)
-        bwd_again = ta.adain_bwd(g, x, w, mean_r, rstd_r)
-        bwd_r = ta.adain_bwd_ref(g, x, w, mean_r, rstd_r)
-        torch.cuda.synchronize()
-        for name, a, b in (("forward", fwd, fwd_again), ("backward", bwd, bwd_again)):
-            if not all(torch.equal(u, v) for u, v in zip(a, b)):
-                raise AssertionError(f"{tag} {name} at {shape} does not repeat bit for bit")
-        if {t.dtype for t in (fwd[0], *bwd)} != {torch.bfloat16}:
-            raise AssertionError(f"{tag} y, dx, dw, dbias dtypes "
-                                 f"{[t.dtype for t in (fwd[0], *bwd)]}")
-        errs, share, bad = {}, {}, {}
-        y_tol = Y_ATOL * (1.0 + abs(offset)) * max(1.0, float(w.float().abs().max()))
-        errs["y"], share["y"], ok = _bf16_errors(fwd[0], y_r, y_tol)
-        if not ok:
-            bad["y"] = (errs["y"], share["y"])
-        for name, a, b in zip(("dx", "dw", "db"), bwd, bwd_r):
-            errs[name], share[name], ok = _bf16_errors(a, b, DX_RTOL * float(b.float().abs().max())
-                                                      + 1e-7)
-            if not ok:
-                bad[name] = (errs[name], share[name])
-        stat_tol = Y_ATOL * (1.0 + abs(offset))
-        errs["mean"] = float((fwd[1] - mean_r).abs().max())
-        errs["rstd"] = float(((fwd[2] - rstd_r).abs() / rstd_r).max())
-        if errs["mean"] > stat_tol or errs["rstd"] > Y_ATOL:
-            bad["stats"] = (errs["mean"], errs["rstd"])
-        if bad:
-            raise AssertionError(f"{tag} disagrees at {shape} offset {offset} w {w_kind}: {bad} "
-                                 "(error, share of its tolerance)")
+        errs, share = _adain_case(tag, shape, offset, w_kind, gen, torch.bfloat16)
         worst["fwd"], worst["fwd_share"] = max(worst["fwd"], errs["y"]), max(worst["fwd_share"],
                                                                           share["y"])
         worst["bwd"] = max(worst["bwd"], errs["dx"], errs["dw"], errs["db"])
         worst["bwd_share"] = max(worst["bwd_share"], share["dx"], share["dw"], share["db"])
-        log(f"{tag} {str(shape):18s} offset {offset:<5g} w {w_kind:6s} | "
-            + " ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " | share of tol "
-            + " ".join(f"{k} {v:.2f}" for k, v in share.items()) + " | bit-repeatable")
-    log(f"{tag} {len(ADAIN_CASES)} cases pass: max |dy| {worst['fwd']:.3g} "
-        f"({worst['fwd_share']:.2f} of its tolerance), max |d(dx, dw, db)| {worst['bwd']:.3g} "
-        f"({worst['bwd_share']:.2f}); tol one bf16 ulp plus the float32 ones")
-
-    tag = "[adain bf16 time]"
-    out = {}
-    for shape in (ADAIN_STEP_SHAPE, ADAIN_SAMPLE_SHAPE):
-        x, w, bias, g = (t.bfloat16() for t in _adain_inputs(shape, 0.0, "normal", gen))
-        x32, w32, b32, g32 = (t.float() for t in (x, w, bias, g))
-        b, c, h, wd = shape
-        planes, n = b * c, x.numel()
-        _, mean, rstd = ta.adain_fwd_ref(x, w, bias, EPS)
-        x1, g1 = x.view(1, planes, h, wd), g.view(1, planes, h, wd)
-        w1, b1 = w.flatten(), bias.flatten()
-        lib = {"fwd": _library_or_none(tag, lambda: F.instance_norm(x1, weight=w1, bias=b1,
-                                                                    eps=EPS)),
-               "bwd": _library_or_none(tag, lambda: torch.ops.aten.native_batch_norm_backward(
-                   g1, x1, w1.float(), None, None, mean, rstd, True, EPS, [True, True, True]))}
-        reps = max(20, min(200, int(2e8 / n)))
-        kern = {"fwd": lambda: ta.adain_fwd(x, w, bias, EPS),
-                "bwd": lambda: ta.adain_bwd(g, x, w, mean, rstd)}
-        plain = {"fwd": lambda: ta.adain_fwd_ref(x, w, bias, EPS),
-                 "bwd": lambda: ta.adain_bwd_ref(g, x, w, mean, rstd)}
-        fp32 = {"fwd": lambda: ta.adain_fwd(x32, w32, b32, EPS),
-                "bwd": lambda: ta.adain_bwd(g32, x32, w32, mean, rstd)}
-        # Bytes: bf16 x in and y out, bf16 w and bias in and float32 mean
-        # and rstd out per plane; bf16 g and x in and dx out, w in, mean and
-        # rstd in, dw and dbias out. Operations as phase_adain_time's.
-        t = {}
-        for k, nbytes, flops in (("fwd", 4 * n + 12 * planes, 8 * n),
-                                 ("bwd", 6 * n + 14 * planes, 9 * n)):
-            t[k] = {"ms": cuda_ms(kern[k], reps), "plain_ms": cuda_ms(plain[k], reps),
-                    "library_ms": cuda_ms(lib[k], reps) if lib[k] else None,
-                    "fp32_ms": cuda_ms(fp32[k], reps), "device_ms": device_ms(kern[k], reps)}
-            t[k]["bound_ms"], t[k]["bound_by"] = bound_ms(flops, nbytes)
-            o = t[k]
-            log(f"{tag} {k} {str(shape):18s} kernel {o['ms']:.4f} ms, plain {o['plain_ms']:.4f}, "
-                f"bound {o['bound_ms']:.4f} ({o['bound_by']}), library {fmt_ms(o['library_ms'], 0)}"
-                f", fp32 kernel {o['fp32_ms']:.4f} ({o['bound_ms'] / o['ms']:.1%} of bound); "
-                f"device time {fmt_ms(o['device_ms'], 0)}")
-        out[shape] = t
-    step = {k: {key: add_ms(0.0, ADAIN_PER_STEP, v)
-                for key, v in out[ADAIN_STEP_SHAPE][k].items() if key != "bound_by"}
-            for k in ("fwd", "bwd")}
-    for k in ("fwd", "bwd"):
-        step[k]["bound_by"] = out[ADAIN_STEP_SHAPE][k]["bound_by"]
-        o = step[k]
-        log(f"{tag} one step's {ADAIN_PER_STEP} {k} launches: kernel {o['ms']:.3f} ms, plain "
-            f"{o['plain_ms']:.3f}, bound {o['bound_ms']:.3f}, library {fmt_ms(o['library_ms'], 0)}"
-            f", fp32 kernel {o['fp32_ms']:.3f}")
-    log(f"{tag} on {torch.cuda.get_device_name(0)} ({smi})")
-    return worst, step
+    strided = _adain_strided(tag, torch.bfloat16, gen)
+    worst = {k: max(v, strided[k]) for k, v in worst.items()}
+    log(f"{tag} {len(ADAIN_CASES)} cases and strided w/bias at 2 shapes pass: max |dy| "
+        f"{worst['fwd']:.3g} ({worst['fwd_share']:.2f} of its tolerance), max |d(dx, dw, db)| "
+        f"{worst['bwd']:.3g} ({worst['bwd_share']:.2f}); tol one bf16 ulp plus the float32 ones")
+    return worst, _adain_times("[adain bf16 time]", smi, torch.bfloat16, gen)
 
 
 def _dtype_turns(tag, smi, make, what, images):
@@ -3593,7 +3766,7 @@ def _top_kernels(tag, once, n_prof=2, top=12, traces=3):
 
     once()
     torch.cuda.synchronize()
-    kernels = []
+    kernels, sliced = [], 0
     for _ in range(traces):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(n_prof):
@@ -3601,13 +3774,15 @@ def _top_kernels(tag, once, n_prof=2, top=12, traces=3):
             torch.cuda.synchronize()
         got = device_kernels(prof)
         if len(got) > len(kernels):
-            kernels = got
+            kernels, sliced = got, slice_backward_kernels(prof)
     by_name = {}
     for e in kernels:
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.elapsed_us() / 1e3, cnt + 1)
     total = sum(tot for tot, _ in by_name.values()) / n_prof
-    log(f"{tag} device time {total:.3f} ms a call over {n_prof} (torch.profiler); largest kernels:")
+    log(f"{tag} device time {total:.3f} ms a call over {n_prof} (torch.profiler); kernels a call "
+        f"{len(kernels) / n_prof:.1f}, of them {sliced / n_prof:.1f} in autograd's SliceBackward0; "
+        f"largest kernels:")
     for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         fft = "  [FFT]" if "fft" in name.lower() else ""
         log(f"{tag}   {tot / n_prof:9.3f} ms  x{cnt / n_prof:4.0f}  {name[:110]}{fft}")
@@ -3875,6 +4050,7 @@ def main() -> int:
     gp_launches = _timed_phase("wgan_gp slice", lambda: phase_wgan_slice(smi))
     adain_worst = _timed_phase("adain parity", phase_adain_parity)
     adain_time = _timed_phase("adain time", lambda: phase_adain_time(smi))
+    adain_calls = _timed_phase("adain launches", phase_adain_launches)
     munit_in_worst, munit_in_time = _timed_phase("munit in", phase_munit_in)
     munit_launches = _timed_phase("munit slice", lambda: phase_munit_slice(smi))
     im2im_worst, im2im_time = _timed_phase("im2im in", phase_im2im_in)
@@ -4006,7 +4182,11 @@ def main() -> int:
             "replaces": replaces[f"adain_{k}"], "launches": munit_launches[f"adain_{k}"],
             "max_abs_err": adain_worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "device_ms": t["device_ms"], "times_of": f"one munit step, {ADAIN_PER_STEP} launches",
+            "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"],
+            "kernels_a_call": adain_calls[
+                f"torch.float32 {ADAIN_STEP_SHAPE} adain_{k} strided"]["distinct"],
+            "autograd_fwd_bwd": adain_time["autograd"],
+            "times_of": f"one munit step, {ADAIN_PER_STEP} launches",
         })
     # The bf16 forms: the IN pair runs on the CycleGAN and MUNIT bf16
     # slices, its times one bf16 CycleGAN step's; AdaIN on the MUNIT one.
@@ -4035,7 +4215,10 @@ def main() -> int:
             "max_abs_err": adain_bf16_worst[k], "tolerance_used": adain_bf16_worst[f"{k}_share"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "device_ms": t["device_ms"],
-            "fp32_ms": t["fp32_ms"],
+            "library_device_ms": t["library_device_ms"], "fp32_ms": t["fp32_ms"],
+            "kernels_a_call": adain_calls[
+                f"torch.bfloat16 {ADAIN_STEP_SHAPE} adain_{k} strided"]["distinct"],
+            "autograd_fwd_bwd": adain_bf16_time["autograd"],
             "times_of": f"one bf16 munit step, {ADAIN_PER_STEP} launches",
         })
     log(f"[script seconds] {time.perf_counter() - t_start:.1f} s")

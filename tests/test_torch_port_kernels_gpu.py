@@ -288,20 +288,112 @@ def test_adain_kernels_match_plain_version(cuda, shape):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()) + 1e-7)
 
 
-def test_adain_kernels_reject_what_they_do_not_take(cuda):
+def _refused_adain_call(case, x, w, bias, g, mean, rstd):
+    """One call the AdaIN wrappers refuse, and the error it raises."""
+    column = torch.randn(w.shape[::-1], device=w.device).t()  # (B, C), column stride B
+    return {
+        "float64 map": (TypeError, lambda: ta.adain_fwd(x.double(), w, bias, 1e-5)),
+        "transposed map": (ValueError, lambda: ta.adain_fwd(x.transpose(2, 3), w, bias, 1e-5)),
+        "column-strided w": (ValueError, lambda: ta.adain_fwd(x, column, bias, 1e-5)),
+        "column-strided bias": (ValueError, lambda: ta.adain_fwd(x, w, column, 1e-5)),
+        "bf16 map, float32 w": (TypeError, lambda: ta.adain_fwd(x.bfloat16(), w, bias.bfloat16(),
+                                                               1e-5)),
+        "float32 map, bf16 w": (TypeError, lambda: ta.adain_fwd(x, w.bfloat16(), bias, 1e-5)),
+        "float64 gradient": (TypeError, lambda: ta.adain_bwd(g.double(), x, w, mean, rstd)),
+        "backward, column-strided w": (ValueError, lambda: ta.adain_bwd(g, x, column, mean, rstd)),
+        "backward, bf16 map, float32 w": (TypeError, lambda: ta.adain_bwd(
+            g.bfloat16(), x.bfloat16(), w, mean, rstd)),
+        "backward, float32 map, bf16 w": (TypeError, lambda: ta.adain_bwd(
+            g, x, w.bfloat16(), mean, rstd)),
+    }[case]
+
+
+REFUSED_ADAIN = ["float64 map", "transposed map", "column-strided w", "column-strided bias",
+                 "bf16 map, float32 w", "float32 map, bf16 w", "float64 gradient",
+                 "backward, column-strided w", "backward, bf16 map, float32 w",
+                 "backward, float32 map, bf16 w"]
+
+
+@pytest.mark.parametrize("case", REFUSED_ADAIN)
+def test_adain_kernels_reject_what_they_do_not_take(cuda, case):
+    """A map of another dtype or layout, w or bias whose entries of a row are
+    not adjacent, and a mixed bf16/float32 call raise and launch nothing;
+    nothing converts or copies to reach a kernel. A row-strided w or bias is
+    taken (``test_adain_kernels_take_row_strided_slices``)."""
     x, w, bias, g = _adain_inputs((2, 4, 8, 8), cuda)
-    with pytest.raises(TypeError):
-        ta.adain_fwd(x.double(), w, bias, 1e-5)
-    with pytest.raises(ValueError):
-        ta.adain_fwd(x.transpose(2, 3), w, bias, 1e-5)
-    wide = torch.randn(2, 16, device=cuda)
-    with pytest.raises(ValueError):
-        ta.adain_fwd(x, wide[:, 4:8], bias, 1e-5)  # a strided slice: adain() copies it first
     _, mean, rstd = ta.adain_fwd(x, w, bias, 1e-5)
-    with pytest.raises(TypeError):
-        ta.adain_bwd(g.double(), x, w, mean, rstd)
-    with pytest.raises(ValueError):
-        ta.adain_bwd(g, x, wide[:, 4:8], mean, rstd)
+    error, call = _refused_adain_call(case, x, w, bias, g, mean, rstd)
+    counts = lambda: (ta.adain_fwd_launches, ta.adain_bwd_launches, ta.adain_fwd_launches_bf16,
+                      ta.adain_bwd_launches_bf16)
+    before = counts()
+    with pytest.raises(error):
+        call()
+    assert counts() == before
+
+
+def _assert_adain_close(got, want, atol):
+    """Within ``atol``, plus one bf16 ulp where ``got`` is bf16."""
+    if got.dtype is torch.bfloat16:
+        _assert_within_bf16(got, want, atol)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 256, 32, 32), (40, 256, 32, 32), (2, 8, 31, 31),
+                                   (1, 64, 128, 128)])
+def test_adain_kernels_take_row_strided_slices(cuda, shape, dtype):
+    """w and bias as column slices of a (B, 4C) tensor, rows 4C apart, as the
+    AdaIN residual block takes them: read in place, the bits of the same
+    calls on contiguous copies, and the plain version's values; dw and dbias
+    contiguous (B, C) in w's dtype. Through ``adain()``, the (B, 4C)
+    gradient is the plain version's dw and dbias in their columns."""
+    x, _, _, g = (t.to(dtype) for t in _adain_inputs(shape, cuda))
+    b, c = shape[:2]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    params = (0.5 + 0.5 * torch.randn((b, 4 * c), device=cuda, generator=gen)).to(dtype)
+    w_s, b_s = params[:, c:2 * c], params[:, :c]
+    w_c, b_c = w_s.contiguous(), b_s.contiguous()
+    fwd = ta.adain_fwd(x, w_s, b_s, 1e-5)
+    bwd = ta.adain_bwd(g, x, w_s, fwd[1], fwd[2])
+    assert all(torch.equal(u, v) for u, v in zip((*fwd, *bwd), (
+        *ta.adain_fwd(x, w_c, b_c, 1e-5), *ta.adain_bwd(g, x, w_c, fwd[1], fwd[2]))))
+    assert [(t.dtype, t.shape, t.is_contiguous()) for t in bwd[1:]] == [(dtype, (b, c), True)] * 2
+    y_r, _, _ = ta.adain_fwd_ref(x, w_c, b_c, 1e-5)
+    dx_r, dw_r, db_r = ta.adain_bwd_ref(g, x, w_c, fwd[1], fwd[2])
+    _assert_adain_close(fwd[0], y_r, 1e-5 * max(1.0, float(w_c.float().abs().max())))
+    for got, want in zip(bwd, (dx_r, dw_r, db_r)):
+        _assert_adain_close(got, want, 1e-4 * float(want.float().abs().max()) + 1e-7)
+    params.requires_grad_()
+    y = ta.adain(x, params[:, c:2 * c], params[:, :c], 1e-5)
+    (dp,) = torch.autograd.grad(y, params, g)
+    assert torch.equal(y, fwd[0])
+    assert torch.equal(dp[:, :c], bwd[2]) and torch.equal(dp[:, c:2 * c], bwd[1])
+    assert not dp[:, 2 * c:].any()
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adain_call_is_one_kernel(cuda, dtype, layout):
+    """One ``adain_fwd`` and one ``adain_bwd`` call launch exactly one device
+    kernel each, the affine instance of ``instance_norm.cu``'s pair
+    (torch.profiler, ``chip_smoke.one_affine_kernel_a_call``), in float32
+    and bf16, on contiguous and on strided w/bias at the MUNIT step shape;
+    dw and dbias come back in w's dtype."""
+    from chip_smoke import call_kernels, one_affine_kernel_a_call
+
+    shape = (1, 256, 32, 32)
+    x, w, bias, g = (t.to(dtype) for t in _adain_inputs(shape, cuda))
+    if layout == "strided":
+        params = torch.cat([bias, w, bias, w], dim=1)
+        w, bias = params[:, 256:512], params[:, :256]
+        assert w.stride(0) == 1024
+    _, mean, rstd = ta.adain_fwd(x, w, bias, 1e-5)
+    for k, fn in (("fwd", lambda: ta.adain_fwd(x, w, bias, 1e-5)),
+                  ("bwd", lambda: ta.adain_bwd(g, x, w, mean, rstd))):
+        names = call_kernels(fn, 10, 10)
+        assert one_affine_kernel_a_call(names, 10, k), names
+    assert {t.dtype for t in ta.adain_bwd(g, x, w, mean, rstd)} == {dtype}
 
 
 def test_one_munit_step_launches_every_site_through_the_kernels(cuda):

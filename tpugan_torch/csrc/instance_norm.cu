@@ -14,11 +14,11 @@
 //             E[x^2] - mean^2 cancellation at large offsets),
 //             rstd = 1/sqrt(var + eps), xh = (x - mean) * rstd,
 //             y = xh >= 0 ? xh : slope * xh       (leaky)
-//             y = xh * w[p] + b[p]                 (affine, p = n * C + c)
+//             y = xh * w[n, c] + b[n, c]           (affine, plane p = n * C + c)
 //   backward: gh = g * (xh >= 0 ? 1 : slope)      (leaky; gh = g when affine),
 //             s = sum(gh), t = sum(gh * xh),
 //             dx = (gh - s/HW - xh * t/HW) * rstd * a,  a = 1 or w[p];
-//             affine also db[p] = s, dw[p] = t.
+//             affine also db[n, c] = s, dw[n, c] = t.
 //   The affine dx is (w g - mean(w g) - xh mean(w g xh)) * rstd with w taken
 //   out of the bracket: no division by w, so w = 0 is safe.
 //
@@ -27,7 +27,12 @@
 // norms bf16 maps. Whatever T, the arithmetic is float32: each value is
 // widened on load, the sums, mean and rstd are float32 (mean and rstd are
 // stored as float32), and each output is rounded once, to nearest even,
-// when it is stored. AdaIN's w and b and its dw and db are float32 too.
+// when it is stored. AdaIN's w and b are T too, read where they lie: (B, C)
+// tensors whose rows may lie further apart than C (a column slice of the
+// style MLP's (B, 4C x blocks) output, as MUNIT hands them), each widened in a
+// register; dw and db are contiguous (B, C) tensors of T, each rounded once
+// from its float32 sum. So an AdaIN call is one launch each way, in either
+// dtype, with no conversion or copy around it.
 //
 // Bound by memory bandwidth: the least traffic is 2 * sizeof(T) bytes an
 // element forward (x in, y out) and 3 * sizeof(T) backward (g and x in, dx
@@ -310,13 +315,28 @@ __device__ __forceinline__ float grad_in(float g, float xh, float slope) {
   }
 }
 
+// Where AdaIN's w and b lie: (B, C) tensors, each row's C entries adjacent,
+// rows ldw (ldb) entries apart. Unused without kAffine.
+struct PerPlane {
+  int ch;      // C
+  int64_t ldw;  // C when contiguous; 4C x blocks for a slice of MUNIT's style params
+  int64_t ldb;
+};
+
+// Plane p = n * C + c's entry v[n * ld + c], widened to float.
+template <class T>
+__device__ __forceinline__ float per_plane(const T* __restrict__ v, int p, int ch, int64_t ld) {
+  const int n = p / ch;
+  return to_f(v[static_cast<int64_t>(n) * ld + (p - n * ch)]);
+}
+
 // Regime A, forward: warp w of CTA b owns plane b * per_cta + w, H*W <= 256.
 template <class T, bool kAffine>
 __global__ void __launch_bounds__(kWarpCtaMax)
-    in_act_fwd_warp(const T* __restrict__ x, const float* __restrict__ w_in,
-                    const float* __restrict__ b_in, T* __restrict__ y,
+    in_act_fwd_warp(const T* __restrict__ x, const T* __restrict__ w_in,
+                    const T* __restrict__ b_in, T* __restrict__ y,
                     float* __restrict__ mean_out, float* __restrict__ rstd_out, int planes,
-                    int hw, int per_cta, float eps, float slope) {
+                    int hw, int per_cta, float eps, float slope, PerPlane pp) {
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * per_cta + (threadIdx.x >> 5);
   if (p >= planes) return;
@@ -337,8 +357,8 @@ __global__ void __launch_bounds__(kWarpCtaMax)
     if (k * 32 + lane < hw) q += d * d;
   }
   const float rstd = 1.f / sqrtf(warp_sum(q) / static_cast<float>(hw) + eps);
-  const float w = kAffine ? w_in[p] : 1.f;
-  const float b = kAffine ? b_in[p] : 0.f;
+  const float w = kAffine ? per_plane(w_in, p, pp.ch, pp.ldw) : 1.f;
+  const float b = kAffine ? per_plane(b_in, p, pp.ch, pp.ldb) : 0.f;
   T* yp = y + static_cast<int64_t>(p) * hw;
 #pragma unroll
   for (int k = 0; k < kWarpVals; ++k) {
@@ -351,15 +371,15 @@ __global__ void __launch_bounds__(kWarpCtaMax)
   }
 }
 
-// Regime A, backward. w_in is read, and dw and db written, only when
-// kAffine.
+// Regime A, backward. w_in is read, and dw and db (contiguous (B, C))
+// written, only when kAffine.
 template <class T, bool kAffine>
 __global__ void __launch_bounds__(kWarpCtaMax)
     in_act_bwd_warp(const T* __restrict__ g, const T* __restrict__ x,
-                    const float* __restrict__ w_in, const float* __restrict__ mean_in,
-                    const float* __restrict__ rstd_in, T* __restrict__ dx,
-                    float* __restrict__ dw, float* __restrict__ db, int planes, int hw,
-                    int per_cta, float slope) {
+                    const T* __restrict__ w_in, const float* __restrict__ mean_in,
+                    const float* __restrict__ rstd_in, T* __restrict__ dx, T* __restrict__ dw,
+                    T* __restrict__ db, int planes, int hw, int per_cta, float slope,
+                    PerPlane pp) {
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * per_cta + (threadIdx.x >> 5);
   if (p >= planes) return;
@@ -383,7 +403,7 @@ __global__ void __launch_bounds__(kWarpCtaMax)
   const float inv_hw = 1.f / static_cast<float>(hw);
   const float m1 = s * inv_hw;
   const float m2 = t * inv_hw;
-  const float scale = kAffine ? w_in[p] * rstd : rstd;
+  const float scale = kAffine ? per_plane(w_in, p, pp.ch, pp.ldw) * rstd : rstd;
 #pragma unroll
   for (int k = 0; k < kWarpVals; ++k) {
     const int i = k * 32 + lane;
@@ -392,8 +412,8 @@ __global__ void __launch_bounds__(kWarpCtaMax)
     }
   }
   if (kAffine && lane == 0) {
-    dw[p] = t;
-    db[p] = s;
+    from_f(t, dw[p]);
+    from_f(s, db[p]);
   }
 }
 
@@ -407,10 +427,10 @@ using Vec = std::conditional_t<kVec, uint4, T>;
 // first `held` sit in shared memory.
 template <class T, bool kVec, bool kAffine>
 __global__ void __launch_bounds__(kMaxThreads)
-    in_act_fwd_slice(const T* __restrict__ x, const float* __restrict__ w_in,
-                     const float* __restrict__ b_in, T* __restrict__ y,
+    in_act_fwd_slice(const T* __restrict__ x, const T* __restrict__ w_in,
+                     const T* __restrict__ b_in, T* __restrict__ y,
                      float* __restrict__ mean_out, float* __restrict__ rstd_out, int64_t hw,
-                     int c, int slice, int held, float eps, float slope) {
+                     int c, int slice, int held, float eps, float slope, PerPlane pp) {
   using V = Vec<T, kVec>;
   constexpr int kW = kVec ? kLanes<T> : 1;
   extern __shared__ __align__(128) float4 dyn[];
@@ -476,8 +496,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (c > 1) cluster_arrive();
 
   // Pass 3: normalise, then activate or apply the affine; one rounding to T.
-  const float w = kAffine ? w_in[p] : 1.f;
-  const float b = kAffine ? b_in[p] : 0.f;
+  const float w = kAffine ? per_plane(w_in, p, pp.ch, pp.ldw) : 1.f;
+  const float b = kAffine ? per_plane(b_in, p, pp.ch, pp.ldb) : 0.f;
   for (int i = tid; i < nv; i += nt) {
     unpack(i < hv ? sx[i] : xs[i], v);
 #pragma unroll
@@ -497,10 +517,10 @@ __global__ void __launch_bounds__(kMaxThreads)
 template <class T, bool kVec, bool kAffine>
 __global__ void __launch_bounds__(kMaxThreads)
     in_act_bwd_slice(const T* __restrict__ g, const T* __restrict__ x,
-                     const float* __restrict__ w_in, const float* __restrict__ mean_in,
-                     const float* __restrict__ rstd_in, T* __restrict__ dx,
-                     float* __restrict__ dw, float* __restrict__ db, int64_t hw, int c,
-                     int slice, int held, float slope) {
+                     const T* __restrict__ w_in, const float* __restrict__ mean_in,
+                     const float* __restrict__ rstd_in, T* __restrict__ dx, T* __restrict__ dw,
+                     T* __restrict__ db, int64_t hw, int c, int slice, int held, float slope,
+                     PerPlane pp) {
   using V = Vec<T, kVec>;
   constexpr int kW = kVec ? kLanes<T> : 1;
   extern __shared__ __align__(128) float4 dyn[];
@@ -565,10 +585,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   const float inv_hw = 1.f / static_cast<float>(hw);
   const float m1 = s * inv_hw;
   const float m2 = t * inv_hw;
-  const float scale = kAffine ? w_in[p] * rstd : rstd;
+  const float scale = kAffine ? per_plane(w_in, p, pp.ch, pp.ldw) * rstd : rstd;
   if (kAffine && rank == 0 && tid == 0) {
-    dw[p] = t;
-    db[p] = s;
+    from_f(t, dw[p]);
+    from_f(s, db[p]);
   }
 
   // Pass 2: dx, one rounding to T.
@@ -656,8 +676,8 @@ int launch_slices(const LaunchPlan& lp, size_t smem, cudaStream_t stream, Args..
 }
 
 template <class T, bool kAffine>
-int launch_fwd(const T* x, const float* w, const float* b, T* y, float* mean, float* rstd,
-               float eps, float slope, const LaunchPlan& lp, cudaStream_t s) {
+int launch_fwd(const T* x, const T* w, const T* b, T* y, float* mean, float* rstd, float eps,
+               float slope, PerPlane pp, const LaunchPlan& lp, cudaStream_t s) {
   const int64_t planes = lp.planes, hw = lp.hw;
   if (planes <= 0 || hw <= 0 || planes > INT_MAX) return kInvalid;
   const int np = static_cast<int>(planes);
@@ -665,7 +685,7 @@ int launch_fwd(const T* x, const float* w, const float* b, T* y, float* mean, fl
     if (!warp_plan_ok(lp)) return kInvalid;
     const unsigned grid = static_cast<unsigned>((planes + lp.group - 1) / lp.group);
     in_act_fwd_warp<T, kAffine><<<grid, lp.threads, 0, s>>>(
-        x, w, b, y, mean, rstd, np, static_cast<int>(hw), lp.group, eps, slope);
+        x, w, b, y, mean, rstd, np, static_cast<int>(hw), lp.group, eps, slope, pp);
     return static_cast<int>(cudaGetLastError());
   }
   if (!slice_plan_ok(lp, kLanes<T>)) return kInvalid;
@@ -673,15 +693,15 @@ int launch_fwd(const T* x, const float* w, const float* b, T* y, float* mean, fl
   if (hw % kLanes<T> == 0 && aligned16(x) && aligned16(y))
     return launch_slices<in_act_fwd_slice<T, true, kAffine>>(lp, smem, s, x, w, b, y, mean, rstd,
                                                               hw, lp.group, lp.slice, lp.held,
-                                                              eps, slope);
+                                                              eps, slope, pp);
   return launch_slices<in_act_fwd_slice<T, false, kAffine>>(lp, smem, s, x, w, b, y, mean, rstd,
                                                              hw, lp.group, lp.slice, lp.held, eps,
-                                                             slope);
+                                                             slope, pp);
 }
 
 template <class T, bool kAffine>
-int launch_bwd(const T* g, const T* x, const float* w, const float* mean, const float* rstd,
-               T* dx, float* dw, float* db, float slope, const LaunchPlan& lp, cudaStream_t s) {
+int launch_bwd(const T* g, const T* x, const T* w, const float* mean, const float* rstd, T* dx,
+               T* dw, T* db, float slope, PerPlane pp, const LaunchPlan& lp, cudaStream_t s) {
   const int64_t planes = lp.planes, hw = lp.hw;
   if (planes <= 0 || hw <= 0 || planes > INT_MAX) return kInvalid;
   const int np = static_cast<int>(planes);
@@ -689,7 +709,7 @@ int launch_bwd(const T* g, const T* x, const float* w, const float* mean, const 
     if (!warp_plan_ok(lp)) return kInvalid;
     const unsigned grid = static_cast<unsigned>((planes + lp.group - 1) / lp.group);
     in_act_bwd_warp<T, kAffine><<<grid, lp.threads, 0, s>>>(
-        g, x, w, mean, rstd, dx, dw, db, np, static_cast<int>(hw), lp.group, slope);
+        g, x, w, mean, rstd, dx, dw, db, np, static_cast<int>(hw), lp.group, slope, pp);
     return static_cast<int>(cudaGetLastError());
   }
   if (!slice_plan_ok(lp, kLanes<T>)) return kInvalid;
@@ -697,35 +717,53 @@ int launch_bwd(const T* g, const T* x, const float* w, const float* mean, const 
   if (hw % kLanes<T> == 0 && aligned16(g) && aligned16(x) && aligned16(dx))
     return launch_slices<in_act_bwd_slice<T, true, kAffine>>(lp, smem, s, g, x, w, mean, rstd,
                                                               dx, dw, db, hw, lp.group, lp.slice,
-                                                              lp.held, slope);
+                                                              lp.held, slope, pp);
   return launch_slices<in_act_bwd_slice<T, false, kAffine>>(lp, smem, s, g, x, w, mean, rstd, dx,
                                                              dw, db, hw, lp.group, lp.slice,
-                                                             lp.held, slope);
+                                                             lp.held, slope, pp);
 }
 
-// The C entries' bodies, for either storage type. w and b (one float a
-// plane, (B, C) contiguous) select AdaIN, and slope is then unused; null,
-// IN + leaky(slope).
+// The C entries' bodies, for either storage type. w and b select AdaIN,
+// and slope is then unused: (B, C) tensors of T with C = ch, rows ldw and ldb
+// entries apart, every plane's row inside them (the caller's check). Null,
+// IN + leaky(slope), and ch, ldw and ldb are unused.
+bool per_plane_ok(const LaunchPlan* plan, int64_t ch, int64_t ldw, int64_t ldb) {
+  return ch >= 1 && ch <= INT_MAX && plan->planes % ch == 0 && ldw >= 0 && ldb >= 0;
+}
+
 template <class T>
-int fwd_entry(const void* x, const float* w, const float* b, void* y, float* mean, float* rstd,
-              float eps, float slope, const LaunchPlan* plan, void* stream) {
+int fwd_entry(const void* x, const void* w, const void* b, void* y, float* mean, float* rstd,
+              float eps, float slope, int64_t ch, int64_t ldw, int64_t ldb,
+              const LaunchPlan* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
-  if (w) return launch_fwd<T, true>(xt, w, b, yt, mean, rstd, eps, 1.f, *plan, s);
-  return launch_fwd<T, false>(xt, nullptr, nullptr, yt, mean, rstd, eps, slope, *plan, s);
+  if (!w) {
+    return launch_fwd<T, false>(xt, nullptr, nullptr, yt, mean, rstd, eps, slope,
+                                PerPlane{1, 0, 0}, *plan, s);
+  }
+  if (!b || !per_plane_ok(plan, ch, ldw, ldb)) return kInvalid;
+  return launch_fwd<T, true>(xt, static_cast<const T*>(w), static_cast<const T*>(b), yt, mean,
+                             rstd, eps, 1.f, PerPlane{static_cast<int>(ch), ldw, ldb}, *plan, s);
 }
 
+// dw and db: contiguous (B, C) of T.
 template <class T>
-int bwd_entry(const void* g, const void* x, const float* w, const float* mean, const float* rstd,
-              void* dx, float* dw, float* db, float slope, const LaunchPlan* plan, void* stream) {
+int bwd_entry(const void* g, const void* x, const void* w, const float* mean, const float* rstd,
+              void* dx, void* dw, void* db, float slope, int64_t ch, int64_t ldw,
+              const LaunchPlan* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* gt = static_cast<const T*>(g);
   const T* xt = static_cast<const T*>(x);
   T* dxt = static_cast<T*>(dx);
-  if (w) return launch_bwd<T, true>(gt, xt, w, mean, rstd, dxt, dw, db, 1.f, *plan, s);
-  return launch_bwd<T, false>(gt, xt, nullptr, mean, rstd, dxt, nullptr, nullptr, slope, *plan,
-                              s);
+  if (!w) {
+    return launch_bwd<T, false>(gt, xt, nullptr, mean, rstd, dxt, nullptr, nullptr, slope,
+                                PerPlane{1, 0, 0}, *plan, s);
+  }
+  if (!dw || !db || !per_plane_ok(plan, ch, ldw, 0)) return kInvalid;
+  return launch_bwd<T, true>(gt, xt, static_cast<const T*>(w), mean, rstd, dxt,
+                             static_cast<T*>(dw), static_cast<T*>(db), 1.f,
+                             PerPlane{static_cast<int>(ch), ldw, 0}, *plan, s);
 }
 
 }  // namespace
@@ -733,29 +771,29 @@ int bwd_entry(const void* g, const void* x, const float* w, const float* mean, c
 // Forward on float32 maps. w and b select AdaIN (see fwd_entry); mean and
 // rstd get one float a plane.
 extern "C" int in_act_fwd(const float* x, const float* w, const float* b, float* y, float* mean,
-                          float* rstd, float eps, float slope, const LaunchPlan* plan,
-                          void* stream) {
-  return fwd_entry<float>(x, w, b, y, mean, rstd, eps, slope, plan, stream);
+                          float* rstd, float eps, float slope, int64_t ch, int64_t ldw,
+                          int64_t ldb, const LaunchPlan* plan, void* stream) {
+  return fwd_entry<float>(x, w, b, y, mean, rstd, eps, slope, ch, ldw, ldb, plan, stream);
 }
 
 // Backward on float32 maps. w selects AdaIN, whose dw and dbias go to dw and
-// db (one float a plane); null, IN + leaky(slope), and dw and db are unused.
+// db; null, IN + leaky(slope), and dw, db, ch and ldw are unused.
 extern "C" int in_act_bwd(const float* g, const float* x, const float* w, const float* mean,
                           const float* rstd, float* dx, float* dw, float* db, float slope,
-                          const LaunchPlan* plan, void* stream) {
-  return bwd_entry<float>(g, x, w, mean, rstd, dx, dw, db, slope, plan, stream);
+                          int64_t ch, int64_t ldw, const LaunchPlan* plan, void* stream) {
+  return bwd_entry<float>(g, x, w, mean, rstd, dx, dw, db, slope, ch, ldw, plan, stream);
 }
 
-// The same on bf16 maps (x, y, g, dx); mean, rstd, w, b, dw and db stay
-// float32. The plan is made for 2-byte elements.
-extern "C" int in_act_fwd_bf16(const void* x, const float* w, const float* b, void* y,
-                               float* mean, float* rstd, float eps, float slope,
-                               const LaunchPlan* plan, void* stream) {
-  return fwd_entry<bf16>(x, w, b, y, mean, rstd, eps, slope, plan, stream);
+// The same on bf16 maps: x, y, g, dx, and AdaIN's w, b, dw and db are bf16;
+// mean and rstd stay float32. The plan is made for 2-byte elements.
+extern "C" int in_act_fwd_bf16(const void* x, const void* w, const void* b, void* y, float* mean,
+                               float* rstd, float eps, float slope, int64_t ch, int64_t ldw,
+                               int64_t ldb, const LaunchPlan* plan, void* stream) {
+  return fwd_entry<bf16>(x, w, b, y, mean, rstd, eps, slope, ch, ldw, ldb, plan, stream);
 }
 
-extern "C" int in_act_bwd_bf16(const void* g, const void* x, const float* w, const float* mean,
-                               const float* rstd, void* dx, float* dw, float* db, float slope,
-                               const LaunchPlan* plan, void* stream) {
-  return bwd_entry<bf16>(g, x, w, mean, rstd, dx, dw, db, slope, plan, stream);
+extern "C" int in_act_bwd_bf16(const void* g, const void* x, const void* w, const float* mean,
+                               const float* rstd, void* dx, void* dw, void* db, float slope,
+                               int64_t ch, int64_t ldw, const LaunchPlan* plan, void* stream) {
+  return bwd_entry<bf16>(g, x, w, mean, rstd, dx, dw, db, slope, ch, ldw, plan, stream);
 }

@@ -129,11 +129,13 @@ def _refuse(name: str, dev: int, t, dtype: torch.dtype) -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, f32 = ctypes.c_void_p, ctypes.c_float
+    p, f32, i64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int64
     plan = ctypes.POINTER(LaunchPlan)
-    lib.in_act_fwd.argtypes = [p] * 6 + [f32, f32, plan, p]
+    # (x, w, b, y, mean, rstd, eps, slope, C, ldw, ldb, plan, stream)
+    lib.in_act_fwd.argtypes = [p] * 6 + [f32, f32, i64, i64, i64, plan, p]
     lib.in_act_fwd.restype = ctypes.c_int
-    lib.in_act_bwd.argtypes = [p] * 8 + [f32, plan, p]
+    # (g, x, w, mean, rstd, dx, dw, db, slope, C, ldw, plan, stream)
+    lib.in_act_bwd.argtypes = [p] * 8 + [f32, i64, i64, plan, p]
     lib.in_act_bwd.restype = ctypes.c_int
     lib.in_act_fwd_bf16.argtypes = lib.in_act_fwd.argtypes
     lib.in_act_fwd_bf16.restype = ctypes.c_int

@@ -16,14 +16,19 @@ cluster of 2, 4 or 8 CTAs where a plane exceeds one CTA's 64 KB. Bound by
 memory bandwidth: 8 bytes an element forward and 12 backward (4 and 6 in
 bf16), each input read once. The backward gives dx, dw = sum(g * xh) and
 dbias = sum(g) per plane, with w outside the bracket of dx, so w = 0 needs
-no special case. The kernels take w and bias in float32: the wrappers widen
-bf16 ones (B*C values) and give dw and dbias back in w's dtype; y and dx
-are in x's.
+no special case. The kernels read w and bias in x's dtype where they lie:
+(B, C) views whose rows may lie any stride apart, as the column slices of
+the style MLP's (B, 4C x blocks) output that MUNIT hands them
+(``instance_norm.per_plane_strides`` says what is taken), and write dw and
+dbias as contiguous (B, C) tensors in that dtype, each rounded once from its
+float32 sum. Nothing is converted or copied around a call: one launch each
+way, in float32 and in bf16.
 
 Dispatch is by device and dtype: a CPU tensor takes the plain version, a
-CUDA tensor launches the kernel of x's dtype or raises. ``adain_fwd_launches``
-and ``adain_bwd_launches`` count float32 kernel launches, and only those,
-``adain_fwd_launches_bf16`` and ``adain_bwd_launches_bf16`` bf16 ones.
+CUDA tensor launches the kernel of x's dtype or raises (a mixed call, bf16
+with float32, included). ``adain_fwd_launches`` and ``adain_bwd_launches``
+count float32 kernel launches, and only those, ``adain_fwd_launches_bf16``
+and ``adain_bwd_launches_bf16`` bf16 ones.
 """
 
 from __future__ import annotations
@@ -81,11 +86,11 @@ def adain_bwd_ref(g, x, w, mean, rstd):
 def adain_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
     """Forward wrapper: (y, mean, rstd). CPU tensors take the plain version;
     CUDA tensors launch the affine forward of ``instance_norm.cu`` for x's
-    dtype, with w and b widened to float32."""
+    dtype, which reads w and b in place."""
     global adain_fwd_launches, adain_fwd_launches_bf16
     if x.is_cpu:
         return adain_fwd_ref(x, w, b, eps)
-    out = _launch_fwd("adain_fwd", x, eps, 1.0, w.float(), b.float())
+    out = _launch_fwd("adain_fwd", x, eps, 1.0, w, b)
     if x.dtype is torch.bfloat16:
         adain_fwd_launches_bf16 += 1
     else:
@@ -96,31 +101,30 @@ def adain_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
 def adain_bwd(g, x, w, mean, rstd):
     """Backward wrapper: (dx, dw, dbias). CPU tensors take the plain
     version; CUDA tensors launch the affine backward of ``instance_norm.cu``
-    for x's dtype, with w widened to float32; dw and dbias come back in w's
-    dtype."""
+    for x's dtype, which reads w in place and writes dw and dbias as
+    contiguous (B, C) tensors in w's dtype."""
     global adain_bwd_launches, adain_bwd_launches_bf16
     if x.is_cpu:
         return adain_bwd_ref(g, x, w, mean, rstd)
-    dx, dw, db = _launch_bwd("adain_bwd", g, x, mean, rstd, 1.0, w.float())
+    out = _launch_bwd("adain_bwd", g, x, mean, rstd, 1.0, w)
     if x.dtype is torch.bfloat16:
         adain_bwd_launches_bf16 += 1
     else:
         adain_bwd_launches += 1
-    return dx, dw.to(w.dtype), db.to(w.dtype)
+    return out
 
 
 class AdaIN(torch.autograd.Function):
     """AdaIN with the kernel pair as forward and backward. Saves x, w, mean
     and rstd, as the Pallas VJP keeps its residuals. w and bias may be
-    strided slices of a wider tensor (the style MLP's output): the kernels
-    get contiguous copies, and dw and dbias come back as (B, C) for autograd
-    to route into the slices."""
+    column slices of a wider tensor (the style MLP's output): the kernels
+    read them in place, w is saved as that view (no copy), and dw and dbias
+    come back as contiguous (B, C) for autograd to route into the slices."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps: float):
-        w = weight.contiguous()
-        y, mean, rstd = adain_fwd(x, w, bias.contiguous(), eps)
-        ctx.save_for_backward(x, w, mean, rstd)
+        y, mean, rstd = adain_fwd(x, weight, bias, eps)
+        ctx.save_for_backward(x, weight, mean, rstd)
         return y
 
     @staticmethod

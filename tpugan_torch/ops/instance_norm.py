@@ -202,6 +202,33 @@ def _map_dtype(name: str, dev: int, *maps) -> torch.dtype:
     return dtype
 
 
+def per_plane_strides(name: str, x, *ts, dev=None) -> list:
+    """The row strides of AdaIN's per-plane tensors ``ts`` (w, and b
+    forward) for the NCHW map x, as the affine kernels read them in place:
+    each of x's dtype (TypeError otherwise: no call mixes a bf16 map with
+    float32 w, or the reverse), of shape (B, C), with the C entries of a row
+    adjacent (last stride 1; ValueError otherwise). Its rows may lie any
+    stride apart, so a column slice of the style MLP's (B, 4C x blocks)
+    output is taken as it is. Plain Python: it runs without CUDA; ``dev``,
+    where given, is the CUDA device every tensor must lie on."""
+    n, c = x.shape[:2]
+    strides = []
+    for t in ts:
+        if dev is not None and not (t.is_cuda and t.get_device() == dev):
+            raise ValueError(f"{name}: a tensor on {t.device}, expected all on cuda:{dev}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name}: per-plane dtype {t.dtype}, the map's is {x.dtype}")
+        if t.shape != (n, c):
+            raise ValueError(f"{name}: per-plane tensor of shape {tuple(t.shape)}, expected "
+                             f"{(n, c)}")
+        stride = t.stride()
+        if c > 1 and stride[1] != 1:
+            raise ValueError(f"{name}: per-plane tensor with column stride {stride[1]}, "
+                             "expected 1")
+        strides.append(stride[0])
+    return strides
+
+
 def raw_stream(index: int) -> int:
     """The current CUDA stream of device ``index`` as an integer, read anew
     at every launch (a CUDA-graph capture swaps it)."""
@@ -215,19 +242,17 @@ def _raise_on(rc: int, name: str, p: Plan, planes: int, hw: int) -> None:
 
 def _launch_fwd(name: str, x, eps: float, slope: float, w=None, b=None):
     """Checks a CUDA input and launches the forward of ``instance_norm.cu``
-    for x's dtype at ``slope``, or AdaIN given the float32 per-plane w and b
-    of shape (B, C). Returns (y, mean, rstd), the statistics float32."""
+    for x's dtype at ``slope``, or AdaIN given the per-plane w and b of shape
+    (B, C) in x's dtype, read through their row strides
+    (``per_plane_strides``). Returns (y, mean, rstd), the statistics
+    float32."""
     dev = x.get_device()
     dtype = _map_dtype(name, dev, x)
-    if w is not None:
-        check_tensors(name, dev, w, b)
     shape = x.shape
     if len(shape) != 4 or 0 in shape:
         raise ValueError(f"{name}: expected a non-empty NCHW tensor, got {tuple(shape)}")
     n, c, h, wd = shape
-    if w is not None and (w.shape != (n, c) or b.shape != (n, c)):
-        raise ValueError(f"{name}: per-plane tensors {tuple(w.shape)}, {tuple(b.shape)}, "
-                         f"expected {(n, c)}")
+    ldw, ldb = (0, 0) if w is None else per_plane_strides(name, x, w, b, dev=dev)
     planes, hw = n * c, h * wd
     p, cp = _plan_arg(planes, hw, "fwd", KERNEL_DTYPES[dtype])
     bound = _bound or _bind()
@@ -237,42 +262,43 @@ def _launch_fwd(name: str, x, eps: float, slope: float, w=None, b=None):
     rstd = torch.empty_like(mean)
     rc = fwd(x.data_ptr(), None if w is None else w.data_ptr(),
              None if b is None else b.data_ptr(), y.data_ptr(), mean.data_ptr(),
-             rstd.data_ptr(), eps, slope, cp, stream(dev))
+             rstd.data_ptr(), eps, slope, c, ldw, ldb, cp, stream(dev))
     _raise_on(rc, name, p, planes, hw)
     return y, mean, rstd
 
 
 def _launch_bwd(name: str, g, x, mean, rstd, slope: float, w=None):
     """Checks CUDA inputs and launches the backward of ``instance_norm.cu``
-    for x's dtype (g's too) at ``slope``, returning dx, or AdaIN's given the
-    float32 w, returning (dx, dw, dbias), dw and dbias float32."""
+    for x's dtype (g's too) at ``slope``, returning dx, or AdaIN's given w
+    as the forward takes it, returning (dx, dw, dbias), dw and dbias
+    contiguous (B, C) in x's dtype."""
     dev = x.get_device()
     dtype = _map_dtype(name, dev, x, g)
-    check_tensors(name, dev, mean, rstd, *(() if w is None else (w,)))
+    check_tensors(name, dev, mean, rstd)
     shape = x.shape
     if len(shape) != 4 or 0 in shape:
         raise ValueError(f"{name}: expected a non-empty NCHW tensor, got {tuple(shape)}")
     n, c, h, wd = shape
     planes, hw = n * c, h * wd
-    if g.shape != shape or mean.shape != (planes,) or rstd.shape != (planes,) or (
-            w is not None and w.shape != (n, c)):
+    if g.shape != shape or mean.shape != (planes,) or rstd.shape != (planes,):
         raise ValueError(
             f"{name}: shapes g {tuple(g.shape)}, x {tuple(shape)}, mean {tuple(mean.shape)}, "
-            f"rstd {tuple(rstd.shape)}{'' if w is None else f', w {tuple(w.shape)}'} do not agree"
+            f"rstd {tuple(rstd.shape)} do not agree"
         )
+    ldw = 0 if w is None else per_plane_strides(name, x, w, dev=dev)[0]
     p, cp = _plan_arg(planes, hw, "bwd", KERNEL_DTYPES[dtype])
     bound = _bound or _bind()
     bwd, stream = bound[1 if dtype is torch.float32 else 5], bound[2]
     dx = torch.empty_like(x)
     if w is None:
         rc = bwd(g.data_ptr(), x.data_ptr(), None, mean.data_ptr(), rstd.data_ptr(),
-                 dx.data_ptr(), None, None, slope, cp, stream(dev))
+                 dx.data_ptr(), None, None, slope, 0, 0, cp, stream(dev))
         _raise_on(rc, name, p, planes, hw)
         return dx
-    dw = torch.empty_like(w)
-    db = torch.empty_like(w)
+    dw = x.new_empty((n, c))
+    db = x.new_empty((n, c))
     rc = bwd(g.data_ptr(), x.data_ptr(), w.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-             dx.data_ptr(), dw.data_ptr(), db.data_ptr(), 1.0, cp, stream(dev))
+             dx.data_ptr(), dw.data_ptr(), db.data_ptr(), 1.0, c, ldw, cp, stream(dev))
     _raise_on(rc, name, p, planes, hw)
     return dx, dw, db
 
