@@ -190,7 +190,28 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    dtypes in turns); then
    ``[replay rule]``, the false-alarm bound of the script's shipped-settings
    replay checks, which must stay within 1%, and a ``[bf16 summary]`` line.
-23. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
+23. The observability flags, checkpoints and FID: ``[flags profile]``
+   (``--profile_dir``: ``dcgan.main`` at 64px, batch 64, 4 steps a dispatch
+   and ``--profile_steps 8``, and ``cyclegan.main`` at 256px, batch 1, fp32,
+   4 steps and ``--profile_steps 1``: each trace one TensorBoard file that
+   parses as JSON, holding exactly the ranges of dispatches 1 and 2 (DCGAN)
+   or 1 (CycleGAN), the CycleGAN one naming the IN kernels); ``[flags ragged]``
+   (``--ragged_last_batch`` with 4 steps a dispatch over the synthetic set's
+   4,096 images at batch 60, the tail of 16 run eagerly after the last
+   replay: ``wgan_gp.run``, the MLP critic at 784-512-256-1, the tail's
+   critic step launching the GP pair at batch 16, one GP launch each way a
+   critic step on the device, state and losses held to 6 eager runs by
+   ``replay_rule``; ``dcgan.run`` at 64px with cuDNN deterministic, bit for
+   bit 2 eager runs); ``[flags debug_numerics]`` (``cyclegan.main`` and
+   ``munit.main`` at their reference configurations for 2 steps under
+   anomaly mode with the IN and AdaIN kernels launched, then a CycleGAN step
+   fed a NaN raising FloatingPointError); ``[checkpoint]`` (pix2pix's
+   ``.pth`` files, a save failing midway leaving them whole, the ``--epoch``
+   resume bit for bit); ``[fid]`` (``eval_fid`` on DCGAN, 2,048 samples at
+   batch 256 through the InceptionV3 and VGG19 extractors, He-random: FID
+   and images/s; the Inception forward on the card against its float64
+   forward on the CPU on 4 images), then a ``[flags summary]`` line.
+24. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
    of 60 steps replayed), its JSON line printed before a ``[fused summary]``
    line and the last three lines.
 
@@ -204,9 +225,11 @@ Any failure raises, and the script exits non-zero without the final line.
 The last three lines are the kernels' JSON record (every kernel with its
 launches on the main path, error, times, device time, bound and library-call
 time; the IN pair, which runs on the CycleGAN, MUNIT and eight im2im paths,
-three of them inside replayed CUDA graphs, and the GP pair, which runs eager
-and inside the replayed WGAN-GP unit, also by path; the bf16 forms of the IN
-pair, on the bf16 CycleGAN and MUNIT paths, and of AdaIN),
+three of them inside replayed CUDA graphs, and under ``--profile_dir`` and
+``--debug_numerics``, the GP pair, which runs eager, inside the replayed
+WGAN-GP unit and on its ragged tail, and AdaIN, on MUNIT with and without
+``--debug_numerics``, also by path; the bf16 forms of the IN pair, on the
+bf16 CycleGAN and MUNIT paths, and of AdaIN),
 ``nvidia-smi``'s name and power limit, and ``{"ok": true, "device": {...}}``.
 Imports no JAX.
 """
@@ -4028,6 +4051,363 @@ def phase_wgan_gp_bf16(smi):
     return {"launches": {"fwd": launches["gp_fwd"], "bwd": launches["gp_bwd"]}, **turns}
 
 
+# --- The flags, checkpoints and FID (--profile_dir, --ragged_last_batch,
+# --debug_numerics, crash-safe .pth files, eval_fid) -----------------------------------
+
+
+def _trace_events(tag, directory):
+    """The events of the one TensorBoard trace file under ``directory``."""
+    files = [f for f in os.listdir(directory) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"{tag} {directory} holds trace files {files}, expected one")
+    path = os.path.join(directory, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return events, os.path.getsize(path)
+
+
+def _dispatch_ranges(events) -> list:
+    """The ``tpugan.dispatch.<n>`` ranges of a trace, by n (the observer's
+    ranges on the host; the profiler mirrors them on the device too)."""
+    return sorted({int(e["name"].rsplit(".", 1)[1]) for e in events
+                   if str(e.get("name", "")).startswith("tpugan.dispatch.")})
+
+
+def _kernel_names(events) -> set:
+    return {e["name"] for e in events if e.get("cat") == "kernel"}
+
+
+def _device_launches(launches, replays, names) -> dict:
+    """Launches on the device of each counter in ``names``: calls not
+    captured plus captured calls times the graph's replays."""
+    return {n: launches[n] - launches.get(f"{n}_captured", 0)
+            + launches.get(f"{n}_captured", 0) * replays for n in names}
+
+
+def phase_flags_profile(smi):
+    """``--profile_dir``: DCGAN at 64px, batch 64, with 4 steps a dispatch and
+    ``--profile_steps 8`` must trace exactly dispatches 1 and 2 (the capture
+    and its replay, then a replay); CycleGAN at 256px, batch 1, fp32, 4 steps
+    with ``--profile_steps 1`` must trace dispatch 1 alone (a trace of about
+    80 MB) and name the IN kernels. Each trace is one file that parses as JSON; names are held,
+    not counts (the profiler drops events)."""
+    from tpugan_torch.models import cyclegan, dcgan
+
+    tag = "[flags profile]"
+    runs = {}
+    for name, mod, argv, want_in, want_ranges in (
+            ("dcgan", dcgan, ["--img_size", "64", "--max_batches", "16", "--steps_per_dispatch",
+                              "4", "--profile_steps", "8", "--sample_interval", "0"], False,
+             [1, 2]),
+            ("cyclegan", cyclegan, ["--max_batches", "4", "--profile_steps", "1",
+                                    "--sample_interval", "0", "--checkpoint_interval", "-1"],
+             True, [1])):
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_profile_{name}_")
+        prof = os.path.join(out_dir, "prof")
+        wall, launches, replays = _run_main(mod, ["--synthetic_data", "--n_epochs", "1",
+                                                  "--log_interval", "0", "--profile_dir", prof,
+                                                  *argv], out_dir)
+        events, size = _trace_events(tag, prof)
+        ranges = _dispatch_ranges(events)
+        kernels = _kernel_names(events)
+        in_names = sorted({m.group(0) for k in kernels for m in [re.search(r"in_act_\w+", k)]
+                           if m})
+        log(f"{tag} {name}: main() {wall:.1f} s, graph replays {replays}, trace "
+            f"{size / 1e6:.1f} MB, {len(events)} events, {len(kernels)} distinct kernels, "
+            f"dispatch ranges {ranges}; IN kernels named {in_names}; launches "
+            f"{_nonzero(launches)} ({smi})")
+        if ranges != want_ranges:
+            raise AssertionError(f"{tag} {name} traced dispatches {ranges}, expected "
+                                 f"{want_ranges}")
+        if not kernels:
+            raise AssertionError(f"{tag} {name}: no device kernel in the trace")
+        if want_in and not (any(n.startswith("in_act_fwd") for n in in_names)
+                            and any(n.startswith("in_act_bwd") for n in in_names)):
+            raise AssertionError(f"{tag} {name}: the trace names no in_act_fwd/in_act_bwd kernel")
+        if name == "dcgan" and replays != 3:
+            raise AssertionError(f"{tag} dcgan: {replays} graph replays, expected 3")
+        runs[name] = {"seconds": wall, "launches": _device_launches(
+            launches, replays, ("in_fwd", "in_bwd")), "ranges": ranges}
+    return runs
+
+
+def _losses_snapshot(state, rows) -> dict:
+    """``_snapshot`` of a state with the run's losses beside it, one float64
+    tensor a loss key (the module "losses" to ``replay_rule``)."""
+    import torch
+
+    snap = _snapshot(state)
+    for key in sorted({k for r in rows for k in r} - {"step"}):
+        snap[f"losses.{key}"] = torch.tensor([r.get(key, 0.0) for r in rows],
+                                             dtype=torch.float64)
+    return snap
+
+
+def _ragged_run(mod, cfg):
+    """``mod.run(cfg)`` with its rows; the GP launches, the batch of each GP
+    call not captured in a graph, and the graph replays it made."""
+    import torch
+
+    from tpugan_torch.ops import mlp_gp
+    from tpugan_torch.train import loop
+
+    batches = {"fwd": [], "bwd": []}
+    launch = {"fwd": mlp_gp._launch_fwd, "bwd": mlp_gp._launch_bwd}
+
+    def recorder(d):
+        def call(x, *args):
+            if not torch.cuda.is_current_stream_capturing():
+                batches[d].append(int(x.shape[0]))
+            return launch[d](x, *args)
+        return call
+
+    _reset_port_launches()
+    loop.reset_graph_counts()
+    mlp_gp._launch_fwd, mlp_gp._launch_bwd = recorder("fwd"), recorder("bwd")
+    try:
+        t0 = time.perf_counter()
+        state = mod.run(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        mlp_gp._launch_fwd, mlp_gp._launch_bwd = launch["fwd"], launch["bwd"]
+    with open(cfg.metrics_jsonl) as f:
+        rows = [json.loads(line) for line in f]
+    return state, rows, _port_launches(), loop.graph_replays, batches, wall
+
+
+def phase_flags_ragged(smi):
+    """``--ragged_last_batch`` with 4 steps a dispatch over the synthetic
+    set's 4,096 images at batch 60: 68 full batches and a tail of 16, run
+    eagerly after the last replay. WGAN-GP (the MLP critic at 784-512-256-1,
+    n_critic 5: 13 units, 3 dispatches, then 9 batches unfused, the tail
+    last): the tail's critic step launches ``mlp_gp_fwd``/``mlp_gp_bwd`` at
+    batch 16, one GP launch each way a critic step on the device, and the
+    run's state and losses held to 6 eager runs by ``replay_rule``. DCGAN at
+    64px (17 dispatches and the tail), with cuDNN held deterministic: state
+    and losses bit for bit those of 2 eager runs."""
+    import dataclasses
+
+    import torch
+
+    from tpugan_torch.models import dcgan, wgan_gp
+
+    tag = "[flags ragged]"
+    out = {}
+    n_batches = -(-4096 // 60)
+    for name, mod, base, n_eager, deterministic in (
+            ("wgan_gp", wgan_gp, wgan_gp.Config(), REPLAY_EAGER, False),
+            ("dcgan", dcgan, dcgan.Config(img_size=64), 2, True)):
+        shipped = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            snaps, runs = [], {}
+            for k in [1] * n_eager + [4]:
+                out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_ragged_{name}_{k}_")
+                cfg = dataclasses.replace(
+                    base, synthetic_data=True, n_epochs=1, batch_size=60, steps_per_dispatch=k,
+                    ragged_last_batch=True, sample_interval=0, log_interval=0,
+                    output_dir=out_dir, metrics_jsonl=os.path.join(out_dir, "m.jsonl"))
+                state, rows, launches, replays, gp_batches, wall = _ragged_run(mod, cfg)
+                if [r["step"] for r in rows] != list(range(n_batches)):
+                    raise AssertionError(f"{tag} {name} K={k}: rows {[r['step'] for r in rows]}")
+                if not all(math.isfinite(v) for r in rows for v in r.values()):
+                    raise AssertionError(f"{tag} {name} K={k}: non-finite losses")
+                snap = _losses_snapshot(state, rows)
+                if k == 1:
+                    snaps.append(snap)
+                runs[k] = (snap, launches, replays, gp_batches, wall)
+        finally:
+            torch.backends.cudnn.deterministic = shipped
+        snap, launches, replays, gp_batches, wall = runs[4]
+        device = _device_launches(launches, replays, ("gp_fwd", "gp_bwd"))
+        log(f"{tag} {name}: {n_batches} batches (tail {4096 % 60}) with K=4 in {wall:.2f} s, "
+            f"graph replays {replays}, eager K=1 {runs[1][4]:.2f} s; launches on the device "
+            f"{device}; GP batches not captured (fwd) {gp_batches['fwd']} ({smi})")
+        if name == "wgan_gp":
+            if device != {"gp_fwd": n_batches, "gp_bwd": n_batches}:
+                raise AssertionError(f"{tag} wgan_gp GP launches on the device {device}, "
+                                     f"expected {n_batches} each way")
+            if gp_batches["fwd"][-1:] != [16] or gp_batches["bwd"][-1:] != [16]:
+                raise AssertionError(f"{tag} wgan_gp: the tail's critic step launched no GP "
+                                     f"kernel at batch 16: {gp_batches}")
+        elif any(launches.values()):
+            raise AssertionError(f"{tag} dcgan launched the port's kernels: {launches}")
+        if deterministic:
+            bad = [n for n in snap if not all(torch.equal(snap[n], s[n]) for s in snaps)]
+            if bad:
+                raise AssertionError(f"{tag} {name}: {len(bad)} tensors differ from the eager "
+                                     f"runs with deterministic cuDNN: {bad[:8]}")
+            log(f"{tag} {name}: state and losses bit for bit the {n_eager} eager runs'")
+        else:
+            worst, exact = replay_rule(snaps, snap, f"{tag} {name}")
+            log(f"{tag} {name}: {exact} of {len(snap) - 2} tensors bit for bit; by module, "
+                "fused-nearest eager vs largest eager-eager vs the rule's threshold: " + ", ".join(
+                    f"{r} {x:.3e} vs {y:.3e} vs {z:.3e}" for r, (x, y, z) in worst.items()))
+        out[name] = {"seconds": wall, "eager_seconds": runs[1][4], "replays": replays,
+                     "launches": device}
+    return out
+
+
+def phase_flags_debug(smi):
+    """``--debug_numerics`` on the card: CycleGAN (256px, batch 1, fp32) and
+    MUNIT (128px, batch 1) for 2 steps each, every step under autograd's
+    anomaly mode with the IN and AdaIN kernels launched, losses finite and
+    anomaly mode off after; then a CycleGAN step fed a NaN raises
+    FloatingPointError."""
+    import torch
+
+    from tpugan_torch.models import cyclegan, munit
+    from tpugan_torch.models._im2im_common import first_batch
+    from tpugan_torch.train.loop import StepObserver
+
+    tag = "[flags debug_numerics]"
+    out = {}
+    for name, mod in (("cyclegan", cyclegan), ("munit", munit)):
+        out_dir = tempfile.mkdtemp(prefix=f"chip_smoke_debug_{name}_")
+        wall, launches, _ = _run_main(mod, ["--synthetic_data", "--n_epochs", "1",
+                                            "--max_batches", "2", "--sample_interval", "0",
+                                            "--checkpoint_interval", "-1", "--log_interval", "0",
+                                            "--debug_numerics"], out_dir)
+        rows = _check_rows(f"{tag} {name}", os.path.join(out_dir, "metrics.jsonl"), 2)
+        want = ("in_fwd", "in_bwd") + (("adain_fwd", "adain_bwd") if name == "munit" else ())
+        log(f"{tag} {name}: 2 steps under anomaly mode in {wall:.1f} s, launches "
+            f"{_nonzero(launches)}, last row {rows[-1]} ({smi})")
+        if not all(launches[n] > 0 for n in want) or torch.is_anomaly_enabled():
+            raise AssertionError(f"{tag} {name}: launches {launches}, anomaly mode "
+                                 f"{torch.is_anomaly_enabled()} after the run")
+        out[name] = {"seconds": wall, "launches": {n: launches[n] for n in want}}
+    cfg = cyclegan.Config(synthetic_data=True, debug_numerics=True)
+    dev = torch.device("cuda")
+    modules = cyclegan.build(cfg, dev)
+    state = cyclegan.create_state(cfg, modules, dev)
+    step = StepObserver(cfg).checked(cyclegan.make_step(cfg, modules, dev))
+    a, b = first_batch(cyclegan.make_loader(cfg, dev), 0)
+    a = a.float()
+    a[0, 0, 0, 0] = float("nan")
+    try:
+        step(state, a, b)
+    except FloatingPointError as e:
+        log(f"{tag} a CycleGAN step fed a NaN raised FloatingPointError: {str(e)[:200]}")
+    else:
+        raise AssertionError(f"{tag} a CycleGAN step fed a NaN raised nothing")
+    if torch.is_anomaly_enabled():
+        raise AssertionError(f"{tag} anomaly mode left on after the NaN step")
+    return out
+
+
+def phase_checkpoint(smi):
+    """Crash-safe checkpoints on the card: ``pix2pix.main`` (256px, batch 1)
+    for two epochs of one batch, a checkpoint each; a save of epoch 1 whose
+    ``torch.save`` writes half the file and raises leaves the epoch-1 files
+    as they were, with no partial or temporary file; then the ``--epoch 1``
+    resume (``maybe_resume``, as ``pix2pix.run`` calls it) loads them into
+    fresh modules on the card, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from tpugan_torch.models import pix2pix
+    from tpugan_torch.models._im2im_common import checkpoint_epoch, maybe_resume
+
+    tag = "[checkpoint]"
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
+    t0 = time.perf_counter()
+    state = pix2pix.main(["--synthetic_data", "--max_batches", "1", "--sample_interval", "0",
+                          "--log_interval", "0", "--checkpoint_interval", "1", "--n_epochs", "2",
+                          "--output_dir", out_dir])
+    cfg = pix2pix.Config(output_dir=out_dir, checkpoint_interval=1)
+    directory = os.path.join(out_dir, "saved_models", cfg.dataset_name)
+    files = sorted(os.listdir(directory))
+    want = sorted(f"{n}_{e}.pth" for n in pix2pix.MODULES for e in (0, 1))
+    if files != want:
+        raise AssertionError(f"{tag} {files}, expected {want}")
+    saved = {n: {k: v.clone() for k, v in state.modules[n].state_dict().items()}
+             for n in pix2pix.MODULES}
+    with torch.no_grad():
+        for m in state.modules.values():
+            for p in m.parameters():
+                p.add_(1.0)
+    real_save = torch.save
+
+    def failing_save(obj, path, *args, **kwargs):
+        real_save(obj, path, *args, **kwargs)
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+        raise OSError(28, "No space left on device")
+
+    torch.save = failing_save
+    try:
+        checkpoint_epoch(state.modules, cfg, 1, pix2pix.MODULES)
+    except OSError:
+        pass
+    else:
+        raise AssertionError(f"{tag} the failing save did not raise")
+    finally:
+        torch.save = real_save
+    if sorted(os.listdir(directory)) != files:
+        raise AssertionError(f"{tag} files after the failed save {sorted(os.listdir(directory))}")
+    fresh = pix2pix.build(cfg, torch.device("cuda"))
+    maybe_resume(fresh, dataclasses.replace(cfg, epoch=1), pix2pix.MODULES)
+    for n in pix2pix.MODULES:
+        for k, v in fresh[n].state_dict().items():
+            if not torch.equal(v, saved[n][k]):
+                raise AssertionError(f"{tag} --epoch 1 resumed {n}.{k} unlike its file")
+    log(f"{tag} pix2pix: {files} written through .tmp and os.replace; a save failing midway "
+        f"left them whole; the --epoch 1 resume loaded every tensor on the card bit for bit "
+        f"({time.perf_counter() - t0:.1f} s on {smi})")
+
+
+FID_SAMPLES, FID_BATCH = 2048, 256
+
+
+def phase_fid(smi):
+    """``eval_fid`` on DCGAN (its defaults: 32px, the synthetic set) with
+    2,048 samples at batch 256 through the InceptionV3 and the VGG19
+    extractors on the card, He-random (no weight file): the FID and the
+    extractor's images/s; then the Inception forward on the card against its
+    own float64 forward on the CPU on 4 images."""
+    import copy
+
+    import torch
+
+    from tpugan_torch.metrics import eval_fid
+    from tpugan_torch.metrics.fid import InceptionFeatureModel
+    from tpugan_torch.nn.vgg import imagenet_normalize
+
+    tag = "[fid]"
+    out = {}
+    for extractor in ("inception", "vgg"):
+        args = eval_fid.parse_args(["--model", "dcgan", "--n_samples", str(FID_SAMPLES),
+                                    "--batch", str(FID_BATCH), "--synthetic_data",
+                                    "--data_dir", tempfile.mkdtemp(prefix="chip_smoke_fid_"),
+                                    "--extractor", extractor])
+        t0 = time.perf_counter()
+        rec = eval_fid.evaluate(args)
+        rec["seconds"] = time.perf_counter() - t0
+        log(f"{tag} dcgan, {extractor}: FID {rec['fid']:.4f} ({rec['extractor']}, pretrained "
+            f"{rec['pretrained']}, {rec['features']} features) on {FID_SAMPLES} real and "
+            f"{FID_SAMPLES} generated images; extraction {rec['extract_s']:.3f} s, "
+            f"{rec['images_per_s']:.1f} images/s; whole {rec['seconds']:.1f} s ({smi})")
+        if not (rec["finite"] and math.isfinite(rec["fid"]) and rec["fid"] > 0):
+            raise AssertionError(f"{tag} {extractor}: {rec}")
+        out[extractor] = {k: rec[k] for k in ("fid", "images_per_s", "extract_s", "features")}
+    model = InceptionFeatureModel(device="cuda")
+    x = torch.rand(4, 1, 32, 32, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    got = model.extract(x.cuda()).cpu().double()
+    module64 = copy.deepcopy(model.module).cpu().double()
+    with torch.no_grad():
+        want = module64(imagenet_normalize(((x.double() + 1) / 2).repeat(1, 3, 1, 1)))
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"{tag} Inception forward on the card (fp32, TF32 off) against float64 on the CPU, 4 "
+        f"images: max |diff| {err:.3e} of max |feature| {scale:.3e} (limit 1e-4 of it)")
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"{tag} Inception card forward off its float64 forward by {err}")
+    out["inception_fp64_max_abs_err"] = err
+    return out
+
+
 def _timed_phase(name, fn):
     """``fn()``, its host seconds logged."""
     t0 = time.perf_counter()
@@ -4081,6 +4461,13 @@ def main() -> int:
             "munit": _timed_phase("munit bf16 slice", lambda: phase_munit_bf16(smi)),
             "dcgan fused": _timed_phase("dcgan bf16 fused", lambda: phase_dcgan_bf16_fused(smi)),
             "wgan_gp": _timed_phase("wgan_gp bf16", lambda: phase_wgan_gp_bf16(smi))}
+    flags = {"profile": _timed_phase("flags profile", lambda: phase_flags_profile(smi)),
+             "ragged": _timed_phase("flags ragged", lambda: phase_flags_ragged(smi)),
+             "debug_numerics": _timed_phase("flags debug_numerics",
+                                            lambda: phase_flags_debug(smi))}
+    _timed_phase("checkpoint", lambda: phase_checkpoint(smi))
+    flags["fid"] = _timed_phase("fid", lambda: phase_fid(smi))
+    log("[flags summary] " + json.dumps(flags))
     rate = replay_rule_modules / (1.0 + REPLAY_K ** 2)
     log(f"[replay rule] {replay_rule_modules} modules held to the shipped-settings rule (mean + "
         f"{REPLAY_K:g} std of {REPLAY_EAGER} eager runs' distances): false-alarm rate for a "
@@ -4134,6 +4521,12 @@ def main() -> int:
                              "step_ms": new_slices[path]["ms"],
                              "step_in_device_ms": new_slices[path]["in_device_ms"],
                              **new_in_time[path][k], "times_of": _times_of(path, k)}
+        # The flags' runs count launches only: their error is not read there
+        # (the parity phases hold the pair at the same shapes).
+        for path, r in (("cyclegan profile_dir", flags["profile"]["cyclegan"]),
+                        ("cyclegan debug_numerics", flags["debug_numerics"]["cyclegan"]),
+                        ("munit debug_numerics", flags["debug_numerics"]["munit"])):
+            by_path[path] = {"launches": r["launches"][f"in_{k}"]}
         for path, r in {**inpainting, "pixelda": two_domain["pixelda"]}.items():
             by_path[f"{path} cuda_graph"] = {
                 "launches": r["device_launches"][k],
@@ -4147,7 +4540,8 @@ def main() -> int:
             "name": f"in_act_{k}", "route": "cuda", "source": in_src,
             "replaces": replaces[f"in_act_{k}"],
             "launches": sum(p["launches"] for p in by_path.values()),
-            "max_abs_err": max(p["max_abs_err"] for p in by_path.values()), "ms": c["ms"],
+            "max_abs_err": max(p["max_abs_err"] for p in by_path.values() if "max_abs_err" in p),
+            "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": "bytes",
             "library_ms": c["library_ms"], "device_ms": c["device_ms"],
             "times_of": c["times_of"], "by_path": by_path,
@@ -4164,11 +4558,14 @@ def main() -> int:
             "wgan_gp cuda_graph": {"launches": gp_fused["device_launches"][k],
                                    "wrapper_calls": fused_calls, "captured": captured,
                                    "replays": gp_fused["replays"]},
+            "wgan_gp ragged_last_batch cuda_graph": {
+                "launches": flags["ragged"]["wgan_gp"]["launches"][f"gp_{k}"],
+                "replays": flags["ragged"]["wgan_gp"]["replays"]},
         }
         kernels.append({
             "name": f"mlp_gp_{k}", "route": "cuda", "source": gp_src,
             "replaces": replaces[f"mlp_gp_{k}"],
-            "launches": gp_launches[k] + gp_fused["device_launches"][k], "by_path": by_path,
+            "launches": sum(p["launches"] for p in by_path.values()), "by_path": by_path,
             "max_abs_err": gp_worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "device_ms": t["device_ms"],
@@ -4177,9 +4574,13 @@ def main() -> int:
         })
     for k in ("fwd", "bwd"):
         t = adain_time[k]
+        by_path = {"munit": {"launches": munit_launches[f"adain_{k}"]},
+                   "munit debug_numerics": {
+                       "launches": flags["debug_numerics"]["munit"]["launches"][f"adain_{k}"]}}
         kernels.append({
             "name": f"adain_{k}", "route": "cuda", "source": in_src,
-            "replaces": replaces[f"adain_{k}"], "launches": munit_launches[f"adain_{k}"],
+            "replaces": replaces[f"adain_{k}"],
+            "launches": sum(p["launches"] for p in by_path.values()), "by_path": by_path,
             "max_abs_err": adain_worst[k], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "library_device_ms": t["library_device_ms"],

@@ -17,10 +17,30 @@ from typing import Callable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
+# --debug_numerics: every loader runs on the calling thread, without its
+# producer thread and queue, the input pipeline's only concurrency.
+_SYNCHRONOUS = False
+
+# Whether a loader built from now on drops the n % batch_size tail
+# (--ragged_last_batch sets it False).
+_DROP_LAST = True
+
+
+def set_synchronous(on: bool) -> None:
+    global _SYNCHRONOUS
+    _SYNCHRONOUS = bool(on)
+
+
+def set_drop_last(on: bool) -> None:
+    global _DROP_LAST
+    _DROP_LAST = bool(on)
+
 
 class DeviceLoader:
     """Iterates batches of one or more aligned arrays (equal leading dim),
-    as tuples of tensors on ``device``."""
+    as tuples of tensors on ``device``. The tail of n % batch_size is
+    dropped unless ``set_drop_last(False)`` came before the loader was
+    built."""
 
     def __init__(
         self,
@@ -43,9 +63,12 @@ class DeviceLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.host_transform = host_transform
+        self.drop_last = _DROP_LAST
 
     def __len__(self) -> int:
-        return self.n // self.batch_size
+        if self.drop_last:
+            return self.n // self.batch_size
+        return -(-self.n // self.batch_size)
 
     def _host_batches(self, epoch: int) -> Iterator[tuple]:
         from tpugan_torch import native
@@ -74,8 +97,9 @@ class DeviceLoader:
         return tuple(out)
 
     def epoch(self, epoch: int) -> Iterator[tuple]:
-        """Yield one epoch's device batches, ``prefetch`` ahead on a thread."""
-        if self.prefetch <= 0:
+        """Yield one epoch's device batches, ``prefetch`` ahead on a thread
+        (on the calling thread under ``set_synchronous(True)``)."""
+        if _SYNCHRONOUS or self.prefetch <= 0:
             for batch in self._host_batches(epoch):
                 yield self._to_device(batch)
             return

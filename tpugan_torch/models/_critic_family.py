@@ -26,7 +26,13 @@ import torch
 from tpugan_torch.models._common import mnist_loader as make_loader_a
 from tpugan_torch.models._common import save_grid
 from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
-from tpugan_torch.train.loop import StepObserver, _stack_batches, graph_steps, host_rows
+from tpugan_torch.train.loop import (
+    StepObserver,
+    _stack_batches,
+    fused_k,
+    graph_steps,
+    host_rows,
+)
 from tpugan_torch.train.state import TrainState, normalize_uint8
 
 
@@ -153,12 +159,19 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
     host's work batch by batch from the stacked scalars (``replay_units``);
     a sample takes the dispatch's last unit's images, the deviation of
     ``run_training``'s fused path. The epoch's units short of a dispatch and
-    batches short of a unit run through the unfused path."""
+    batches short of a unit run through the unfused path after the last
+    replay, and so does a ragged last batch (``--ragged_last_batch``): it
+    ends the epoch's filling of units. A dispatch is ``K * (n_critic + 1)``
+    optimizer steps to ``--profile_steps``. ``--debug_numerics`` runs one
+    batch a dispatch (``fused_k``), d_step and g_step each
+    ``observer.checked``."""
     imgdir = os.path.join(cfg.output_dir, "images")
     os.makedirs(imgdir, exist_ok=True)
     loader = make_loader_a(cfg, device)
-    observer = StepObserver(cfg, supports_fused_dispatch=True)
-    k = max(1, int(getattr(cfg, "steps_per_dispatch", 1)))
+    k = fused_k(cfg)
+    observer = StepObserver(cfg, supports_fused_dispatch=True,
+                            dispatch_steps=k * (cfg.n_critic + 1) if k > 1 else 1)
+    d_step, g_step = observer.checked(d_step), observer.checked(g_step)
     steps = graph_steps(make_schedule_unit(cfg, d_step, g_step), k) if k > 1 else None
     bpe = len(loader)
     if cfg.max_batches >= 0:
@@ -221,6 +234,7 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
         dispatch's last unit's images, cloned, since the next replay
         overwrites them and wgan style saves them on later batches."""
         nonlocal batches_done, last_gen
+        observer.profile_tick()
         rows = host_rows(out, steps.heavy_keys, k)
         last_gen = out["gen_imgs"].clone()
         for row, i0 in zip(rows, first_is):
@@ -228,7 +242,7 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
                 r = {"d_loss": row["d_loss" if c == 0 else "_d_loss%d" % c]}
                 if c == 0:
                     r["g_loss"] = row["g_loss"]
-                observer.observe(epoch * bpe + i0 + c, r)
+                observer.observe(epoch * bpe + i0 + c, r, dispatch=False)
             if cfg.log_interval > 0 and i0 % cfg.log_interval == 0:
                 log_line(epoch, i0, row["d_loss"], row["g_loss"])
             if sample_inside_gstep:
@@ -244,6 +258,7 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
     for epoch in range(cfg.n_epochs):
         unit_buf = []  # (i, batch) filling the current schedule unit
         units = []  # (first i, [batches]) awaiting a full dispatch
+        full = 0  # the epoch's batch size
         with contextlib.closing(loader.epoch(epoch)) as batches:
             for i, batch in enumerate(batches):
                 if cfg.max_batches >= 0 and i >= cfg.max_batches:
@@ -252,6 +267,9 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
                     run_batch(epoch, i, batch)
                     continue
                 unit_buf.append((i, batch))
+                full = full or batch[0].shape[0]
+                if batch[0].shape[0] != full:
+                    break  # the ragged tail: flushed unfused below
                 if len(unit_buf) < cfg.n_critic:
                     continue
                 units.append((unit_buf[0][0], [b for _, b in unit_buf]))
@@ -264,8 +282,8 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
                 state, out = steps(state, *stacked)
                 replay_units(epoch, first_is, out)
         # The fused loop's epoch tail: units short of a dispatch, then
-        # batches short of a unit, unfused (every fi is a multiple of
-        # n_critic, so the schedule stays aligned).
+        # batches short of a unit, a ragged one last, unfused (every fi is a
+        # multiple of n_critic, so the schedule stays aligned).
         for fi, bs in units:
             for off, b in enumerate(bs):
                 run_batch(epoch, fi + off, b)

@@ -11,7 +11,7 @@ import os
 import sys
 import time
 
-import torch
+from tpugan_torch.io.checkpoint import load_modules, save_modules
 
 
 class EtaLogger:
@@ -48,17 +48,13 @@ def out_dirs(cfg):
     return imgdir, ckptdir
 
 
-def checkpoint_path(ckptdir: str, name: str, epoch: int) -> str:
-    return os.path.join(ckptdir, "%s_%d.pth" % (name, epoch))
-
-
 def checkpoint_epoch(modules: dict, cfg, epoch: int, names) -> None:
-    """``torch.save(module.state_dict())`` to ``<name>_<epoch>.pth`` every
+    """``<name>_<epoch>.pth`` (the module's ``state_dict``, written to a
+    temporary file and renamed: ``io.checkpoint.save_modules``) every
     ``--checkpoint_interval`` epochs (cyclegan/cyclegan.py:279-284)."""
     if cfg.checkpoint_interval != -1 and epoch % cfg.checkpoint_interval == 0:
         _, ckptdir = out_dirs(cfg)
-        for name in names:
-            torch.save(modules[name].state_dict(), checkpoint_path(ckptdir, name, epoch))
+        save_modules(modules, ckptdir, epoch, names)
 
 
 def maybe_resume(modules: dict, cfg, names) -> None:
@@ -66,10 +62,7 @@ def maybe_resume(modules: dict, cfg, names) -> None:
     (cyclegan/cyclegan.py:71-76); epoch 0 keeps the fresh init."""
     if cfg.epoch != 0:
         _, ckptdir = out_dirs(cfg)
-        for name in names:
-            sd = torch.load(checkpoint_path(ckptdir, name, cfg.epoch), map_location="cpu",
-                            weights_only=True)
-            modules[name].load_state_dict(sd)
+        load_modules(modules, ckptdir, cfg.epoch, names)
 
 
 def paired_loader(cfg, device, height: int, width: int, split: str = "train",
@@ -123,6 +116,7 @@ def run_per_step(cfg, loader, state, step, sample, log_body, modules: dict, name
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
     observer = StepObserver(cfg)
+    step = observer.checked(step)
     eta = EtaLogger(cfg.n_epochs)
     for epoch in range(cfg.epoch, cfg.n_epochs):
         with contextlib.closing(loader.epoch(epoch)) as batches:

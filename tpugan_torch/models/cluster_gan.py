@@ -348,7 +348,7 @@ def run(cfg: Config, device=None):
     state = create_state(cfg, build(cfg, device), device)
     loader = make_loader(cfg, device)
     observer = StepObserver(cfg)
-    full_step, d_step = make_steps(cfg, state)
+    full_step, d_step = map(observer.checked, make_steps(cfg, state))
     epoch_end = make_epoch_eval(cfg, device)
     bpe = len(loader)
     if cfg.max_batches >= 0:

@@ -207,7 +207,7 @@ def run(cfg: Config, device=None) -> TrainState:
     loader = make_loader(cfg, device)
     state = create_state(cfg, modules, device)
     observer = StepObserver(cfg)
-    d_step, g_step = make_steps(cfg, state)
+    d_step, g_step = map(observer.checked, make_steps(cfg, state))
     sample = make_sampler(cfg, modules, device)
     eta = EtaLogger(cfg.n_epochs)
 

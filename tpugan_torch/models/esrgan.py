@@ -173,7 +173,7 @@ def run(cfg: Config, device=None) -> TrainState:
     state = create_state(cfg, modules, device)
     loader = make_loader(cfg, device)
     observer = StepObserver(cfg)
-    warmup_step, full_step = make_steps(cfg, state)
+    warmup_step, full_step = map(observer.checked, make_steps(cfg, state))
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)

@@ -30,6 +30,7 @@ import torch
 
 from tpugan_torch.data.im2im import celeba_images_or_synthetic
 from tpugan_torch.data.loader import DeviceLoader
+from tpugan_torch.io.checkpoint import load_modules, save_modules
 from tpugan_torch.io.images import make_grid, save_image
 from tpugan_torch.losses import l1, mse
 from tpugan_torch.nn.sr import SRDiscriminator, SRGANGenerator
@@ -167,24 +168,16 @@ def save_sr_sample(cfg, out: dict, batches_done: int) -> None:
                os.path.join(imgdir, "%d.png" % batches_done), nrow=1, padding=0)
 
 
-def checkpoint_path(cfg, name: str, epoch: int) -> str:
-    return os.path.join(cfg.output_dir, "saved_models", "%s_%d.pth" % (name, epoch))
-
-
 def save_checkpoints(cfg, modules: dict, epoch: int) -> None:
-    """``generator_<E>.pth`` and ``discriminator_<E>.pth`` (state_dicts)
-    under saved_models/."""
-    os.makedirs(os.path.join(cfg.output_dir, "saved_models"), exist_ok=True)
-    for name in MODULES:
-        torch.save(modules[name].state_dict(), checkpoint_path(cfg, name, epoch))
+    """``generator_<E>.pth`` and ``discriminator_<E>.pth`` (state_dicts, each
+    written to a temporary file and renamed) under saved_models/."""
+    save_modules(modules, os.path.join(cfg.output_dir, "saved_models"), epoch, MODULES)
 
 
 def maybe_resume(cfg, modules: dict) -> None:
     """``--epoch N``: load the generator and the discriminator of epoch N."""
     if cfg.epoch != 0:
-        for name in MODULES:
-            modules[name].load_state_dict(torch.load(checkpoint_path(cfg, name, cfg.epoch),
-                                                     map_location="cpu", weights_only=True))
+        load_modules(modules, os.path.join(cfg.output_dir, "saved_models"), cfg.epoch, MODULES)
 
 
 def run(cfg: Config, device=None) -> TrainState:
@@ -200,7 +193,7 @@ def run(cfg: Config, device=None) -> TrainState:
     state = create_state(cfg, modules, device)
     loader = make_loader(cfg, device)
     observer = StepObserver(cfg)
-    step = make_step(cfg, state)
+    step = observer.checked(make_step(cfg, state))
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)

@@ -208,6 +208,37 @@ def _init_batch_norm(bn, init_mode: str, generator) -> None:
             bn.weight.normal_(1.0, 0.02, generator=generator)
 
 
+def _one_value_batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
+    """Train-mode batch norm over one value a channel (a ragged tail of one
+    sample through ``BatchNorm1d``, or a 1x1 map), where torch raises and the
+    JAX layer (``tpugan/nn/layers.py:411-509``) normalizes: variance 0, so
+    the output is ``bias`` with a zero gradient to ``x`` and ``weight``;
+    the running mean moves towards the value and the running variance
+    towards 0 (its unbiased factor ``n / max(n - 1, 1)`` is 1). In float32,
+    rounded once to ``x``'s dtype."""
+    dims = [0, *range(2, x.dim())]
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.float()
+    mean = xf.mean(dims)
+    centered = xf - mean.view(shape)
+    var = centered.square().mean(dims)
+    y = centered * torch.rsqrt(var + bn.eps).view(shape)
+    if bn.affine:
+        y = y * bn.weight.view(shape) + bn.bias.view(shape)
+    if bn.track_running_stats:
+        with torch.no_grad():
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(mean.detach(), alpha=bn.momentum)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(var.detach(), alpha=bn.momentum)
+            bn.num_batches_tracked.add_(1)
+    return y.to(x.dtype)
+
+
+def _batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
+    if bn.training and x.numel() == x.shape[1]:
+        return _one_value_batch_norm(bn, x)
+    return nn.modules.batchnorm._BatchNorm.forward(bn, x)
+
+
 class BatchNorm1d(nn.BatchNorm1d):
     """torch.nn.BatchNorm1d, the semantics ``tpugan/nn/layers.py:BatchNorm``
     reproduces in flax: ``eps`` passed verbatim (the reference's 0.8),
@@ -217,12 +248,17 @@ class BatchNorm1d(nn.BatchNorm1d):
     parameters and running buffers: torch's batch norm takes the mixed
     dtypes, computes float32 statistics and the normalize in float32, and
     rounds the output to bf16 once, where the JAX layer folds the normalize
-    into a bf16 ``x * a + b``."""
+    into a bf16 ``x * a + b``. One value a channel in train mode (a ragged
+    tail of one sample) takes the JAX layer's result
+    (``_one_value_batch_norm``), where torch raises."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  *, init_mode: str = "torch", generator: Optional[torch.Generator] = None):
         super().__init__(num_features, eps=eps, momentum=momentum)
         _init_batch_norm(self, init_mode, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _batch_norm(self, x)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -234,6 +270,9 @@ class BatchNorm2d(nn.BatchNorm2d):
                  *, init_mode: str = "torch", generator: Optional[torch.Generator] = None):
         super().__init__(num_features, eps=eps, momentum=momentum)
         _init_batch_norm(self, init_mode, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _batch_norm(self, x)
 
 
 class MaskedDropout(nn.Module):

@@ -1,12 +1,17 @@
 """Training-loop plumbing (``tpugan/train/loop.py``): the fused multi-step
-dispatch ``graph_steps``, the per-step metrics sink, a minimal step observer,
-the trainers' device, and the generic loop ``run_training``.
+dispatch ``graph_steps``, the per-step metrics sink, the step observer of the
+observability flags, the trainers' device, and the generic loop
+``run_training``.
 
 ``--steps_per_dispatch K`` above 1 runs K optimizer steps a dispatch, the
 counterpart of the JAX package's ``scan_steps``: on CUDA one CUDA graph of
 the K steps, captured once and replayed; on the CPU a Python loop over the
-same K steps. Flags of the JAX package that the port does not carry yet are
-refused here, where every loop starts, with the ROADMAP item that ports them.
+same K steps. ``StepObserver`` carries ``--metrics_jsonl``,
+``--profile_dir``/``--profile_steps`` (a ``torch.profiler`` trace, counted
+in dispatches) and ``--debug_numerics`` (autograd's anomaly mode and a check
+of each step's scalars); every loop of the port builds one and ticks it once
+a device dispatch. ``--profile_port`` is refused here, where every loop
+starts, with its reason.
 """
 
 from __future__ import annotations
@@ -19,13 +24,14 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from tpugan_torch.utils.config import set_compute_dtype
+from tpugan_torch.utils.config import set_process_modes
 
+# Flags of the JAX package that the port refuses, with the reason.
 _UNPORTED = {
-    "profile_dir": "ROADMAP queue 1, item 10 (metrics, IO, CLI: torch.profiler)",
-    "profile_port": "ROADMAP queue 1, item 10 (metrics, IO, CLI: torch.profiler)",
-    "debug_numerics": "ROADMAP queue 1, item 10 (metrics, IO, CLI)",
-    "ragged_last_batch": "ROADMAP queue 1, item 10 (metrics, IO, CLI)",
+    "profile_port": (
+        "torch has no live profiler server: Kineto's on-demand tracing needs the dynolog "
+        "daemon, which the port neither ships nor can install; trace a fixed window with "
+        "--profile_dir instead (ROADMAP, Not ported)"),
 }
 
 # The capture's error mode: "thread_local" leaves the loader's thread free
@@ -44,30 +50,37 @@ def reset_graph_counts() -> None:
 
 def reject_unported_flags(cfg) -> None:
     """Raise NotImplementedError for a flag set away from its default that
-    the port does not implement yet."""
-    for name, item in _UNPORTED.items():
+    the port does not implement."""
+    for name, reason in _UNPORTED.items():
         if getattr(cfg, name, None):
-            raise NotImplementedError(f"--{name} is not ported yet: {item}")
+            raise NotImplementedError(f"--{name} is not ported: {reason}")
 
 
-def train_device(cfg, device=None) -> torch.device:
-    """The device a trainer's ``run`` trains on: CUDA when ``device`` is
-    None, raising when there is none (the tests pass the CPU). Refuses the
-    unported flags and sets the compute dtype of ``cfg.dtype`` (a config
-    built in code has not been through ``config_from_args``). On CUDA,
+def card_device(device=None) -> torch.device:
+    """The device an entry point of the port runs on: CUDA when ``device``
+    is None, raising when there is none (the tests pass the CPU). On CUDA,
     float32 means TF32 off for convolutions and matmuls, whatever the
     compute dtype: under bfloat16 the layers that stay float32 (norm
     statistics, the ResNet18 trunk, the GP) stay exact float32."""
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("tpugan_torch trains on CUDA and found no CUDA device")
+            raise RuntimeError("tpugan_torch runs on CUDA and found no CUDA device")
         device = torch.device("cuda")
     device = torch.device(device)
-    reject_unported_flags(cfg)
-    set_compute_dtype(cfg)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    return device
+
+
+def train_device(cfg, device=None) -> torch.device:
+    """The device a trainer's ``run`` trains on (``card_device``). Refuses
+    the unported flag and sets the process-wide modes of ``cfg``
+    (``set_process_modes``: a config built in code has not been through
+    ``config_from_args``)."""
+    device = card_device(device)
+    reject_unported_flags(cfg)
+    set_process_modes(cfg)
     return device
 
 
@@ -208,13 +221,63 @@ class MetricsSink:
         self._fh.close()
 
 
-class StepObserver:
-    """Wires ``--metrics_jsonl`` into a training loop. A loop that does not
-    fuse (``supports_fused_dispatch`` False: the bespoke im2im loops) prints
-    the JAX package's notice when ``--steps_per_dispatch`` is above 1 and
-    runs one step at a time (``tpugan/train/loop.py:108-124``)."""
+def fused_k(cfg) -> int:
+    """The steps a dispatch of a loop that fuses (``run_training``,
+    ``run_critic_family``): ``--steps_per_dispatch``, or 1 with a notice
+    under ``--debug_numerics``, whose anomaly mode synchronizes, which a
+    CUDA-graph capture cannot (the port's one deviation from the JAX
+    package's flag, which checks inside its fused scan)."""
+    k = max(1, int(getattr(cfg, "steps_per_dispatch", 1)))
+    if k > 1 and getattr(cfg, "debug_numerics", False):
+        print("[tpugan] --debug_numerics runs one step per dispatch (autograd's anomaly "
+              "mode synchronizes, which a CUDA-graph capture cannot); "
+              "--steps_per_dispatch %d ignored" % k)
+        return 1
+    return k
 
-    def __init__(self, cfg, supports_fused_dispatch: bool = False):
+
+def first_nonfinite(out: dict) -> Optional[str]:
+    """The name of the first 0-d floating entry of ``out`` that is not
+    finite, with one device-to-host read of them all, or None."""
+    names = [n for n, v in out.items()
+             if torch.is_tensor(v) and v.ndim == 0 and v.is_floating_point()]
+    if not names:
+        return None
+    ok = torch.isfinite(torch.stack([out[n].detach().float() for n in names])).tolist()
+    return next((n for n, good in zip(names, ok) if not good), None)
+
+
+class StepObserver:
+    """Wires the observability flags into a training loop
+    (``tpugan/train/loop.py:99-175``). Every loop of the port builds one and
+    calls ``observe`` once a step, or ``profile_tick`` once a fused dispatch
+    and ``observe(..., dispatch=False)`` for each of its rows.
+
+    - ``--metrics_jsonl``: one line a step (``MetricsSink``).
+    - ``--profile_dir D --profile_steps N``: a ``torch.profiler`` trace
+      (CPU and, on a CUDA machine, CUDA activity) of dispatches
+      [1, 1 + ceil(N / S)), S the optimizer steps a dispatch: K under
+      ``--steps_per_dispatch`` K, ``K * (n_critic + 1)`` for the critic
+      family (``dispatch_steps``), 1 for a loop that does not fuse.
+      Dispatch 0 holds the warm-up (cuDNN's algorithm search, the optimizers'
+      state). Counting dispatches, not steps, keeps a replayed graph whole
+      and works on a resumed run. The trace is TensorBoard's
+      (``tensorboard_trace_handler(D)``: ``D/<host>_<pid>.<ns>.pt.trace.json``),
+      and each traced dispatch is a range named ``tpugan.dispatch.<n>`` in
+      it; ``traced`` lists them. The device is synchronized before the
+      trace stops, as the JAX package blocks on the outputs.
+    - ``--debug_numerics``: ``checked(step)`` runs a step under autograd's
+      anomaly mode, whose NaN check covers the backward of every
+      ``autograd.Function`` (the IN, AdaIN and GP kernels included), and
+      then reads the step's scalars; a NaN found either way raises
+      ``FloatingPointError`` naming it, as ``jax_debug_nans`` does.
+
+    A loop that does not fuse (``supports_fused_dispatch`` False: the
+    bespoke loops) prints the JAX package's notice when
+    ``--steps_per_dispatch`` is above 1 and runs one step at a time
+    (``tpugan/train/loop.py:108-124``)."""
+
+    def __init__(self, cfg, supports_fused_dispatch: bool = False, dispatch_steps: int = 1):
         if not supports_fused_dispatch and getattr(cfg, "steps_per_dispatch", 1) > 1:
             print(
                 "[tpugan] --steps_per_dispatch is not supported by this "
@@ -223,12 +286,85 @@ class StepObserver:
             )
         path = getattr(cfg, "metrics_jsonl", "")
         self.sink = MetricsSink(path) if path else None
+        self.profile_dir = getattr(cfg, "profile_dir", "")
+        self.profile_dispatches = max(1, -(-int(getattr(cfg, "profile_steps", 5))
+                                           // dispatch_steps))
+        self.debug_numerics = bool(getattr(cfg, "debug_numerics", False))
+        self.traced = []
+        self._profiler = self._range = None
+        self._calls = 0
 
-    def observe(self, batches_done: int, out: dict) -> None:
+    def checked(self, step_fn: Callable) -> Callable:
+        """``step_fn`` itself, or under ``--debug_numerics`` ``step_fn``
+        under anomaly mode followed by ``first_nonfinite`` of its ``out``."""
+        if not self.debug_numerics:
+            return step_fn
+
+        def step(*args, **kwargs):
+            with torch.autograd.set_detect_anomaly(True):
+                try:
+                    state, out = step_fn(*args, **kwargs)
+                except RuntimeError as e:
+                    if "nan values" not in str(e):
+                        raise
+                    raise FloatingPointError(f"--debug_numerics: {e}") from e
+            bad = first_nonfinite(out)
+            if bad is not None:
+                raise FloatingPointError(
+                    f"--debug_numerics: step output {bad!r} is {float(out[bad])}")
+            return state, out
+
+        return step
+
+    def _open_range(self, n: int) -> None:
+        self._range = torch.profiler.record_function(f"tpugan.dispatch.{n}")
+        self._range.__enter__()
+
+    def _stop(self) -> None:
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        self._profiler.stop()
+        self._profiler = None
+
+    def profile_tick(self) -> None:
+        """Advance the profile window by one device dispatch, the one just
+        issued: after dispatch 0 the trace starts, after dispatch
+        ``profile_dispatches`` it stops."""
+        n, self._calls = self._calls, self._calls + 1
+        if not self.profile_dir:
+            return
+        if n == 0:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(
+                activities=activities,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(self.profile_dir))
+            self._profiler.start()
+            self._open_range(1)
+        elif self._profiler is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+            self.traced.append(n)
+            if n >= self.profile_dispatches:
+                self._stop()
+            else:
+                self._open_range(n + 1)
+
+    def observe(self, batches_done: int, out: dict, dispatch: bool = True) -> None:
+        if dispatch:
+            self.profile_tick()
         if self.sink is not None:
             self.sink.write(batches_done, out)
 
     def close(self) -> None:
+        """Stop a trace still open (a run shorter than its window) and close
+        the sink."""
+        if self._profiler is not None:
+            self._stop()
         if self.sink is not None:
             self.sink.close()
 
@@ -258,19 +394,23 @@ def run_training(cfg, loader, state, step_fn, callbacks: Callbacks, n_epochs: in
     due inside a dispatch takes the dispatch's last ``gen_imgs``, up to K-1
     steps newer than its file name says: the JAX package's documented
     deviation (a K that divides ``sample_interval`` is exact). The epoch's
-    tail shorter than K runs one eager step at a time. ``callbacks.epoch_end``
+    tail shorter than K, and a ragged last batch (``--ragged_last_batch``)
+    with the full ones before it, run one eager step at a time after the
+    last replay, never a capture at the new shape. ``callbacks.epoch_end``
     runs after each epoch, its tail included; a state it returns replaces
-    the loop's."""
+    the loop's. ``--debug_numerics`` runs one step a dispatch
+    (``fused_k``), each ``observer.checked``."""
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
-    k = max(1, int(getattr(cfg, "steps_per_dispatch", 1)))
+    k = fused_k(cfg)
+    observer = StepObserver(cfg, supports_fused_dispatch=True, dispatch_steps=k)
+    step_fn = observer.checked(step_fn)
     steps = graph_steps(step_fn, k) if k > 1 else None
-    observer = StepObserver(cfg, supports_fused_dispatch=True)
 
-    def after_step(state, out, epoch, i):
+    def after_step(state, out, epoch, i, dispatch=True):
         batches_done = epoch * bpe + i
-        observer.observe(batches_done, out)
+        observer.observe(batches_done, out, dispatch)
         if callbacks.log and cfg.log_interval > 0 and i % cfg.log_interval == 0:
             callbacks.log(epoch, i, bpe, out)
         if callbacks.sample and sample_interval > 0 and batches_done % sample_interval == 0:
@@ -286,15 +426,19 @@ def run_training(cfg, loader, state, step_fn, callbacks: Callbacks, n_epochs: in
                     state, out = step_fn(state, *batch)
                     after_step(state, out, epoch, i)
                     continue
+                ragged = bool(pending) and batch[0].shape[0] != pending[0][1][0].shape[0]
                 pending.append((i, batch))
+                if ragged:  # the ragged tail: flushed eagerly below
+                    break
                 if len(pending) < k:
                     continue
                 first_i = pending[0][0]
                 state, out = steps(state, *_stack_batches([b for _, b in pending]))
+                observer.profile_tick()
                 pending = []
                 for j, row in enumerate(host_rows(out, steps.heavy_keys, k)):
-                    after_step(state, row, epoch, first_i + j)
-        for i, batch in pending:  # the epoch's tail, shorter than K
+                    after_step(state, row, epoch, first_i + j, dispatch=False)
+        for i, batch in pending:  # the epoch's tail, shorter than K, ragged or not
             state, out = step_fn(state, *batch)
             after_step(state, out, epoch, i)
         if callbacks.epoch_end is not None:

@@ -1,10 +1,12 @@
 """Config dataclasses and flags: the port's own copy of
 ``tpugan/utils/config.py`` (``flag``, ``BaseConfig``, ``add_config_args``),
-with a ``config_from_args`` that parses and wires ``--dtype`` into the
-layers, as the JAX package's does. That version also wires
-``--debug_numerics`` and ``--ragged_last_batch`` into JAX-side modules; the
-port refuses those two flags instead
-(``tpugan_torch.train.loop.reject_unported_flags``).
+with a ``config_from_args`` that parses and, as the JAX package's does,
+wires the process-wide modes: ``--dtype`` into the layers,
+``--debug_numerics`` into a synchronous input pipeline and
+``--ragged_last_batch`` into the loaders' ``drop_last``
+(``set_process_modes``). The per-loop side of ``--profile_dir`` and
+``--debug_numerics`` is ``tpugan_torch.train.loop.StepObserver``'s;
+``--profile_port`` stays refused (``tpugan_torch.train.loop._UNPORTED``).
 
 Each trainer declares a ``Config`` dataclass whose field names, types and
 defaults match the reference script's flags; the argparse parser is generated
@@ -57,23 +59,22 @@ class BaseConfig:
     # Machine-readable per-step metrics (jsonl lines of the step's scalar
     # outputs); "" disables. The reference only prints (SURVEY.md §5).
     metrics_jsonl: str = flag("", "path for per-step scalar metrics jsonl")
-    # Capture a jax.profiler trace of steps [2, 2+N) into this directory;
-    # "" disables.
-    profile_dir: str = flag("", "jax.profiler trace output directory")
+    # A torch.profiler trace (TensorBoard's format) of dispatches
+    # [1, 1 + ceil(N / steps a dispatch)) into this directory; "" disables.
+    profile_dir: str = flag("", "torch.profiler trace output directory")
     profile_steps: int = flag(5, "number of steps to profile")
-    # Debug mode: disable input prefetch + enable NaN checks (SURVEY.md §5
-    # race-surface notes).
+    # Debug mode: a synchronous input pipeline, autograd's anomaly mode and a
+    # check of every step's scalars, raising FloatingPointError (SURVEY.md
+    # §5 race-surface notes).
     debug_numerics: bool = flag(
-        False, "synchronous input pipeline + jax_debug_nans"
+        False, "synchronous input pipeline + autograd anomaly mode and NaN checks"
     )
-    # Live profiling: serve jax.profiler on this port for TensorBoard's
-    # capture-profile UI (0 = off). Complements --profile_dir's
-    # fixed-window trace (SURVEY.md §5 tracing hook).
-    profile_port: int = flag(0, "jax.profiler server port (0 = off)")
+    # Live profiling server (0 = off): refused by the port, torch has no
+    # built-in server (tpugan_torch.train.loop._UNPORTED).
+    profile_port: int = flag(0, "profiler server port (0 = off; not ported)")
     # Reference epoch semantics: run the ragged len(ds) % batch_size tail
-    # batch each epoch (gan/gan.py:122-125) instead of dropping it. Costs
-    # one extra XLA compile for the tail shape (data/loader.py docstring);
-    # ignored under data parallelism (the tail cannot shard).
+    # batch each epoch (gan/gan.py:122-125) instead of dropping it; a fused
+    # loop runs it eagerly after its last replay.
     ragged_last_batch: bool = flag(
         False, "train the reference's ragged final batch each epoch"
     )
@@ -133,19 +134,26 @@ def add_config_args(parser: argparse.ArgumentParser, cls: type) -> None:
 
 
 def config_from_args(cls: type, argv: Optional[Sequence[str]] = None):
-    """The config of ``argv``; ``--dtype`` also sets the process-wide compute
-    dtype (``set_compute_dtype``), as ``tpugan/utils/config.py:135-140``."""
+    """The config of ``argv``, with its process-wide modes set
+    (``set_process_modes``), as ``tpugan/utils/config.py:135-148``."""
     parser = argparse.ArgumentParser(prog=getattr(cls, "prog", cls.__name__))
     add_config_args(parser, cls)
     cfg = cls(**vars(parser.parse_args(argv)))
-    set_compute_dtype(cfg)
+    set_process_modes(cfg)
     return cfg
 
 
-def set_compute_dtype(cfg) -> None:
-    """Wire ``cfg.dtype`` into the layers (``tpugan_torch.nn.layers``):
-    bfloat16 runs the convolutions and linears in bf16 over float32 master
-    weights, float32 (the default) runs everything in float32."""
+def set_process_modes(cfg) -> None:
+    """Wire ``cfg``'s process-wide flags: ``--dtype`` into the layers
+    (``tpugan_torch.nn.layers``: bfloat16 runs the convolutions and linears
+    in bf16 over float32 master weights, float32, the default, runs
+    everything in float32), ``--debug_numerics`` into a synchronous input
+    pipeline and ``--ragged_last_batch`` into the loaders' default
+    ``drop_last`` (``tpugan_torch.data.loader``). Each is set from ``cfg``,
+    on or off."""
+    from tpugan_torch.data.loader import set_drop_last, set_synchronous
     from tpugan_torch.nn.layers import resolve_dtype, set_default_compute_dtype
 
     set_default_compute_dtype(resolve_dtype(getattr(cfg, "dtype", "float32")))
+    set_synchronous(getattr(cfg, "debug_numerics", False))
+    set_drop_last(not getattr(cfg, "ragged_last_batch", False))
