@@ -95,7 +95,8 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    replays. WGAN-GP's GP launches on the device (wrapper calls not captured,
    plus captured calls times replays) must be one each way per critic step,
    and a profiled replay must hold the kernels of that many. Then for each,
-   replay against eager from the same seed (bit for bit where the eager runs
+   replay against eager from the same seed, three dispatches of
+   ``REPLAY_CHECK_K`` = 10 steps or units (bit for bit where the eager runs
    are, else ``replay_rule``: within the mean plus 50 standard deviations of
    the distances between 6 eager runs; DCGAN also with cuDNN held
    deterministic, bit for bit), and the eager and the graphed ms a step (or
@@ -184,8 +185,8 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    steps (exact bf16 launches, no float32 one, float32 checkpoints), the
    step in float32 and bf16 in turns, the bf16 step's largest kernels, and
    for CycleGAN cuDNN's kernels for the 256-to-128 conv at 128x128 in both
-   dtypes; ``[dcgan bf16 fused]`` (K = 60, replay against eager in bf16
-   with the shipped settings, and the bench's bf16 line) and ``[wgan_gp
+   dtypes; ``[dcgan bf16 fused]`` (main at K = 60, replay against eager in
+   bf16 at K = 10 with the shipped settings, and the bench's bf16 line) and ``[wgan_gp
    bf16]`` (one float32 GP launch each way a critic step, the unit in both
    dtypes in turns); then
    ``[replay rule]``, the false-alarm bound of the script's shipped-settings
@@ -211,7 +212,24 @@ Run from the root of a checkout, on a machine with a CUDA card. Phases:
    batch 256 through the InceptionV3 and VGG19 extractors, He-random: FID
    and images/s; the Inception forward on the card against its float64
    forward on the CPU on 4 images), then a ``[flags summary]`` line.
-24. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
+24. Data parallelism (``tpugan_torch/parallel``): ``[dp nccl]``,
+   ``dcgan.main`` at 64px, batch 64, fp32, 15 steps at K = 5 (cuDNN held
+   deterministic), without data parallelism and inside a one-rank NCCL group
+   whose all-reduces and BatchNorm all-gathers the CUDA graph captures with
+   the steps: two replays each, the losses (first step 1e-4 relative, every
+   step 1e-2) and parameters (within how far two runs of Adam can drift,
+   ``adam_envelope``) against the run without it, the running statistics'
+   distance reported;
+   then the graphed step both ways, images/s, and the device time of the
+   replay's NCCL kernels. ``[dp gloo]``: two spawned ranks in a gloo group
+   sharing the card, each running ``dcgan.main`` (64px, batch 64),
+   ``wgan_gp.main`` (batch 64) and ``cyclegan.main`` (256px, batch 2, 9
+   residual blocks, fp32, the replay buffer on the gathered fakes) for two
+   batches, eager; the IN pair and the GP pair launched inside the
+   data-parallel steps (exact counts), both ranks' states equal, and each
+   held to one process on the card (losses 1e-3 relative, parameters within
+   ``adam_envelope``); then a ``[dp summary]`` line.
+25. DCGAN bench: ``tpugan_torch.bench`` (64px, batch 64, fp32, one CUDA graph
    of 60 steps replayed), its JSON line printed before a ``[fused summary]``
    line and the last three lines.
 
@@ -226,8 +244,9 @@ The last three lines are the kernels' JSON record (every kernel with its
 launches on the main path, error, times, device time, bound and library-call
 time; the IN pair, which runs on the CycleGAN, MUNIT and eight im2im paths,
 three of them inside replayed CUDA graphs, and under ``--profile_dir`` and
-``--debug_numerics``, the GP pair, which runs eager, inside the replayed
-WGAN-GP unit and on its ragged tail, and AdaIN, on MUNIT with and without
+``--debug_numerics`` and on two data-parallel ranks, the GP pair, which runs
+eager, inside the replayed WGAN-GP unit, on its ragged tail and on two
+data-parallel ranks, and AdaIN, on MUNIT with and without
 ``--debug_numerics``, also by path; the bf16 forms of the IN pair, on the
 bf16 CycleGAN and MUNIT paths, and of AdaIN),
 ``nvidia-smi``'s name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -2230,6 +2249,11 @@ def _snapshot(state) -> dict:
 # exchangeable runs' is the largest with chance 1 / (n + 1). A module whose
 # eager runs agree bit for bit must still agree bit for bit.
 REPLAY_EAGER, REPLAY_K = 6, 50.0
+# Steps (or critic-family units) a dispatch in the replay-against-eager
+# checks: each check captures its own graph, so the trainers whose shipped K
+# is larger (DCGAN's 60, run_training's 20) replay a graph of this many steps
+# there, three dispatches a run, which keeps their eager runs short.
+REPLAY_CHECK_K = 10
 replay_rule_modules = 0
 
 
@@ -2366,7 +2390,7 @@ def _fused_times(tag, smi, make, chunk, k, images_per_step, unit="step", n_repla
     for j in range(3):
         state, out = step(state, *(x[j] for x in chunk))
     torch.cuda.synchronize()
-    n_eager = 2 * k
+    n_eager = min(2 * k, 20)
     t0 = time.perf_counter()
     for j in range(n_eager):
         state, out = step(state, *(x[j % k] for x in chunk))
@@ -2411,7 +2435,11 @@ def _fused_times(tag, smi, make, chunk, k, images_per_step, unit="step", n_repla
     log(f"{tag} profiled replays: (kernels, device ms) "
         f"{[(n, round(ms, 3)) for n, ms, *_ in traces]}")
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    kernel_ms = {}
+    for e in kernels:
+        kernel_ms[e.name] = kernel_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / k
     r = {"eager_ms": eager_ms, "graph_ms": graph_ms, "capture_s": fused.capture_s,
+         "kernel_ms": kernel_ms,
          "instantiate_s": fused.instantiate_s, "first_s": first_s,
          "memory_before": fused.memory_before, "memory_after": fused.memory_after,
          "replay_kernels": [e.name for e in kernels],
@@ -2460,7 +2488,8 @@ def _u8_chunks(shape, seed=0):
 
 def phase_dcgan_fused(smi):
     """``dcgan.main`` at 64px with 60 steps a dispatch, replay against eager
-    at K = 60, and the graphed step beside the eager one."""
+    at K = ``REPLAY_CHECK_K``, and the graphed step at K = 60 beside the
+    eager one."""
     import torch
 
     from tpugan_torch.models import dcgan
@@ -2491,11 +2520,12 @@ def phase_dcgan_fused(smi):
         state = dcgan.create_state(cfg, dcgan.build(cfg, dev), dev)
         return state, dcgan.make_step(cfg, state)
 
-    chunks = _u8_chunks((3, k, cfg.batch_size, 64, 64, 1))
-    worst = {mode: _replay_vs_eager(tag, make, chunks, k, mode == "deterministic",
+    chunks = _u8_chunks((3, REPLAY_CHECK_K, cfg.batch_size, 64, 64, 1))
+    worst = {mode: _replay_vs_eager(tag, make, chunks, REPLAY_CHECK_K, mode == "deterministic",
                                     2 if mode == "deterministic" else REPLAY_EAGER)
              for mode in ("deterministic", "shipped")}
-    times = _fused_times(tag, smi, make, chunks[0], k, cfg.batch_size)
+    times = _fused_times(tag, smi, make, _u8_chunks((k, cfg.batch_size, 64, 64, 1)), k,
+                         cfg.batch_size)
     return {"replay_vs_eager": worst, **times}
 
 
@@ -2709,17 +2739,20 @@ def _recipe_fused(tag, smi, mod):
         return state, mod.make_step(cfg, state)
 
     b, size = cfg.batch_size, cfg.img_size
-    imgs = _u8_chunks((3, RECIPE_K, b, size, size, 1))
+    kr = REPLAY_CHECK_K
+    imgs = _u8_chunks((3, kr, b, size, size, 1))
     labels = torch.from_numpy(np.random.default_rng(1).integers(
-        0, 10, (3, RECIPE_K, b), dtype=np.int32)).to(dev)
+        0, 10, (3, kr, b), dtype=np.int32)).to(dev)
     # With cuDNN held deterministic the eager runs agree bit for bit, and so
     # must the replay, on every tensor. The shipped settings' comparison is
     # one draw of a chaotic spread for the convolutional trainers (cuDNN's
     # atomics through 61 Adam steps): sgan's discriminator once lay 6.5e-2
     # from the nearest of four eager runs that lay at most 3.5e-2 apart.
-    worst = _replay_vs_eager(tag, make, (imgs, labels), RECIPE_K, deterministic=True,
-                             n_eager=2)
-    times = _fused_times(tag, smi, make, (imgs[0], labels[0]), RECIPE_K, b)
+    worst = _replay_vs_eager(tag, make, (imgs, labels), kr, deterministic=True, n_eager=2)
+    labels_k = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 10, (RECIPE_K, b), dtype=np.int32)).to(dev)
+    times = _fused_times(tag, smi, make, (_u8_chunks((RECIPE_K, b, size, size, 1)), labels_k),
+                         RECIPE_K, b)
     return {"replay_vs_eager": worst, **times}
 
 
@@ -3992,10 +4025,11 @@ def phase_dcgan_bf16_fused(smi):
         state = dcgan.create_state(cfg, dcgan.build(cfg, dev), dev)
         return state, dcgan.make_step(cfg, state)
 
-    chunks = _u8_chunks((3, k, cfg.batch_size, 64, 64, 1))
+    chunks = _u8_chunks((3, REPLAY_CHECK_K, cfg.batch_size, 64, 64, 1))
     with _compute_dtype(torch.bfloat16):
-        worst = {"shipped": _replay_vs_eager(tag, make, chunks, k)}
-        times = _fused_times(tag, smi, make, chunks[0], k, cfg.batch_size)
+        worst = {"shipped": _replay_vs_eager(tag, make, chunks, REPLAY_CHECK_K)}
+        times = _fused_times(tag, smi, make, _u8_chunks((k, cfg.batch_size, 64, 64, 1)), k,
+                             cfg.batch_size)
     with _compute_dtype(None):
         rec = {"metric": bench.METRIC, **bench.measure(bench.IMG_SIZE, bench.BATCH_SIZE,
                                                         bench.STEPS, dtype="bfloat16")}
@@ -4408,6 +4442,309 @@ def phase_fid(smi):
     return out
 
 
+# Data parallelism (``tpugan_torch/parallel``). [dp nccl]: DCGAN at 64px,
+# batch 64, K = 5, DP_NCCL_BATCHES batches through ``dcgan.main`` with and
+# without a one-rank NCCL group. [dp gloo]: each DP_GLOO run's ``main`` for
+# two batches on two gloo ranks sharing the card, against one process.
+DP_NCCL_K, DP_NCCL_BATCHES = 5, 15
+DP_GLOO_RUNS = {
+    "dcgan": ["--img_size", "64", "--batch_size", "64"],
+    "wgan_gp": ["--batch_size", "64"],
+    "cyclegan": ["--batch_size", "2", "--n_residual_blocks", "9"],
+}
+DP_GLOO_BATCHES = 2
+
+
+def _state_dicts(state) -> dict:
+    return {f"{role}.{k}": v.detach().cpu().clone()
+            for role, m in state.modules.items() for k, v in m.state_dict().items()}
+
+
+def adam_envelope(lr, b1, b2, steps) -> float:
+    """How far apart two runs of ``steps`` Adam updates can carry a
+    parameter whatever their gradients: twice the sum over steps t of Adam's
+    largest move lr * |m_t| / sqrt(v_t) (bias-corrected; eps only shrinks
+    it), which by Cauchy-Schwarz is lr * sqrt(sum_i a_i^2 / c_i) for the
+    weights a_i of gradient i in m_t and c_i in v_t. Step 1 moves lr, step 2
+    at most 1.054 lr at (0.5, 0.999). The noise of a near-zero gradient (a
+    bias that feeds a norm) can take either sign in either run."""
+    total = 0.0
+    for t in range(1, steps + 1):
+        ratio = sum(((1 - b1) * b1 ** (t - i) / (1 - b1 ** t)) ** 2
+                    / ((1 - b2) * b2 ** (t - i) / (1 - b2 ** t)) for i in range(1, t + 1))
+        total += math.sqrt(ratio)
+    return 2 * lr * total
+
+
+def _dp_held(tag, got, want, cfg, steps, hold_buffers=True) -> dict:
+    """Two runs of the same Adam steps, one data-parallel, held to each
+    other: every parameter element within ``adam_envelope``; running
+    statistics within the envelope over lr of their largest magnitude (the
+    envelope's share of a unit weight, such as a BatchNorm scale: they are
+    running means of activations of networks whose parameters drift apart
+    within it); ``hold_buffers`` False only reports them. Returns the
+    largest differences of parameters and of running statistics, the latter
+    over the largest magnitude."""
+    import torch
+
+    bound = adam_envelope(cfg.lr, cfg.b1, cfg.b2, steps) + 1e-6
+    worst = {"param": 0.0, "buffer": 0.0, "envelope": bound}
+    for k, w in want.items():
+        g = got[k]
+        if not w.dtype.is_floating_point:
+            if not torch.equal(g, w):
+                raise AssertionError(f"{tag} {k}: {g} against {w}")
+            continue
+        d = float((g - w).abs().max())
+        if "running" in k:
+            share = d / max(float(w.abs().max()), 1e-12)
+            worst["buffer"] = max(worst["buffer"], share)
+            if hold_buffers and share > bound:
+                raise AssertionError(f"{tag} {k}: off by {d:.3e}, {share:.3e} of its largest, "
+                                     f"past {bound:.3e}")
+        else:
+            worst["param"] = max(worst["param"], d)
+            if d > bound:
+                raise AssertionError(f"{tag} {k}: off by {d:.3e}, past Adam's envelope "
+                                     f"{bound:.3e} over {steps} steps")
+    return worst
+
+
+def phase_dp_nccl(smi):
+    """``dcgan.main`` at 64px, batch 64, fp32, K = 5 steps a CUDA graph,
+    without data parallelism and then inside a one-rank NCCL group (its
+    all-reduces and BatchNorm gathers captured in the graph with the steps):
+    the graph's replays, the losses and parameters against the run without
+    it; then ``_fused_times`` of the step both ways (images/s), and the
+    device time of the replay's NCCL kernels."""
+    import torch
+    import torch.distributed as dist
+
+    from tpugan_torch.models import dcgan
+    from tpugan_torch.parallel.dryrun import free_port
+    from tpugan_torch.parallel.mesh import auto_sharding, replicate_for
+
+    tag = "[dp nccl]"
+    k, n = DP_NCCL_K, DP_NCCL_BATCHES
+    argv = ["--synthetic_data", "--n_epochs", "1", "--max_batches", str(n), "--img_size", "64",
+            "--sample_interval", "0", "--log_interval", "0", "--steps_per_dispatch", str(k)]
+    cfg = dcgan.Config(img_size=64, synthetic_data=True)
+    dev = torch.device("cuda", 0)
+    chunk = _u8_chunks((k, cfg.batch_size, 64, 64, 1), seed=3)
+    runs, times = {}, {}
+    shipped = torch.backends.cudnn.deterministic
+    for mode in ("one process", "nccl"):
+        if mode == "nccl":
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                    rank=0, world_size=1, device_id=dev)
+        try:
+            out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_nccl_")
+            torch.backends.cudnn.deterministic = True
+            try:
+                from tpugan_torch.train import loop
+
+                loop.reset_graph_counts()
+                state = dcgan.main(argv + ["--output_dir", out_dir, "--metrics_jsonl",
+                                           os.path.join(out_dir, "metrics.jsonl")])
+                torch.cuda.synchronize()
+                replays = loop.graph_replays
+            finally:
+                torch.backends.cudnn.deterministic = shipped
+            if (state.dp is None) != (mode == "one process"):
+                raise AssertionError(f"{tag} {mode}: state.dp is {state.dp}")
+            if replays != n // k - 1:
+                raise AssertionError(f"{tag} {mode}: {replays} replays, expected {n // k - 1}")
+            rows = _check_rows(tag, os.path.join(out_dir, "metrics.jsonl"), n)
+            runs[mode] = (rows, _state_dicts(state))
+
+            def make(dp_on=mode == "nccl"):
+                st = dcgan.create_state(cfg, dcgan.build(cfg, dev), dev)
+                st = replicate_for(auto_sharding(cfg.batch_size, dev) if dp_on else None, st)
+                return st, dcgan.make_step(cfg, st)
+
+            times[mode] = _fused_times(f"{tag} {mode}", smi, make, chunk, k, cfg.batch_size)
+        finally:
+            if mode == "nccl":
+                dist.destroy_process_group()
+    (rows1, sd1), (rows_dp, sd_dp) = runs["one process"], runs["nccl"]
+    loss_err = max(abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(rows_dp, rows1)
+                   for key in ("d_loss", "g_loss"))
+    first_err = max(abs(rows_dp[0][key] - rows1[0][key]) / abs(rows1[0][key])
+                    for key in ("d_loss", "g_loss"))
+    if first_err > 1e-4 or loss_err > 1e-2:
+        raise AssertionError(f"{tag} losses off the one-process run's: first step {first_err:.3e}"
+                             f" (limit 1e-4), any step {loss_err:.3e} (limit 1e-2)")
+    # Losses and parameters are held; the running statistics are reported:
+    # a running mean follows the bias of the conv that feeds its BatchNorm,
+    # whose near-zero gradient Adam turns into moves of up to lr in either
+    # run and which the normalization absorbs (4.3e-2 of the largest running
+    # mean seen after 15 steps, with the losses within 7.4e-6).
+    worst = _dp_held(tag, sd_dp, sd1, cfg, n, hold_buffers=False)
+    # Device time a step by kernel name, data-parallel replay minus the
+    # one-process one: global BatchNorm's elementwise kernels and the
+    # collectives. One rank's collectives are copies, which NCCL may run as
+    # memcpys rather than kernels of its own.
+    base, dp_ms = times["one process"]["kernel_ms"], times["nccl"]["kernel_ms"]
+    nccl = {name: ms for name, ms in dp_ms.items() if "nccl" in name.lower()}
+    extra = sorted(((ms - base.get(name, 0.0), name) for name, ms in dp_ms.items()),
+                   reverse=True)
+    memcpy = sum(d for d, name in extra if "Memcpy" in name or "Memset" in name)
+    nccl_s = json.dumps({x: round(v, 4) for x, v in nccl.items()}) if nccl else "none"
+    ips = {m: cfg.batch_size * 1e3 / t["graph_ms"] for m, t in times.items()}
+    log(f"{tag} dcgan.main, {n} steps at K = {k}, cuDNN deterministic, with a one-rank NCCL "
+        f"group against one process: {n // k - 1} replays each; losses within {loss_err:.3e} "
+        f"relative (first step {first_err:.3e}); parameters within {worst['param']:.3e} (Adam's "
+        f"envelope {worst['envelope']:.3e}); running statistics {worst['buffer']:.3e} of their "
+        f"largest apart (reported, not held)")
+    log(f"{tag} graphed step on {torch.cuda.get_device_name(0)} ({smi}): one process "
+        f"{times['one process']['graph_ms']:.3f} ms, {ips['one process']:.1f} images/s; "
+        f"one-rank NCCL {times['nccl']['graph_ms']:.3f} ms, {ips['nccl']:.1f} images/s "
+        f"({ips['nccl'] / ips['one process'] - 1:+.1%}); eager "
+        f"{times['one process']['eager_ms']:.3f} and {times['nccl']['eager_ms']:.3f} ms; device "
+        f"time a step "
+        f"{fmt_ms(times['one process']['device_ms'], 0)} and "
+        f"{fmt_ms(times['nccl']['device_ms'], 0)}"
+        f" ms; NCCL kernels {nccl_s} (ms a step), memcpys and memsets {memcpy:+.4f} ms a step")
+    log(f"{tag} device ms a step by kernel name, the data-parallel replay minus the one-process "
+        f"one, largest first: " + ", ".join(f"{name[:70]} {d:+.4f}" for d, name in extra[:8])
+        + f"; in all {sum(d for d, _ in extra):+.4f} ms a step over {len(dp_ms)} names")
+    return {"images_per_s": ips, "graph_ms": {m: t["graph_ms"] for m, t in times.items()},
+            "device_ms": {m: t["device_ms"] for m, t in times.items()}, "nccl_device_ms": nccl,
+            "memcpy_delta_ms": memcpy,
+            "loss_rel_err": loss_err, "param_max_abs_err": worst["param"]}
+
+
+def _dp_gloo_rank(rank, world, port, out_dir, results):
+    """One rank of ``phase_dp_gloo``: a gloo group on the one card, then each
+    DP_GLOO_RUNS main for DP_GLOO_BATCHES batches; its states, losses and the
+    port's kernel launches to ``out_dir``."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, REPO)
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world)
+        try:
+            got = {}
+            for name, extra in DP_GLOO_RUNS.items():
+                got[name] = _dp_gloo_run(name, extra, os.path.join(out_dir, f"{name}_{rank}"))
+            torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, "ok"))
+    except BaseException:  # noqa: BLE001 - reported to the parent, which raises
+        results.put((rank, traceback.format_exc()))
+
+
+def _dp_gloo_run(name, extra, out_dir):
+    """``<name>.main`` for DP_GLOO_BATCHES batches on the card: its final
+    state, metric rows, the port's launches and wall seconds."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module(f"tpugan_torch.models.{name}")
+    argv = ["--synthetic_data", "--n_epochs", "1", "--max_batches", str(DP_GLOO_BATCHES),
+            "--sample_interval", "0", "--log_interval", "0", *extra]
+    os.makedirs(out_dir, exist_ok=True)
+    _reset_port_launches()
+    t0 = time.perf_counter()
+    state = mod.main(argv + ["--output_dir", out_dir, "--metrics_jsonl",
+                             os.path.join(out_dir, "metrics.jsonl")], "cuda:0")
+    torch.cuda.synchronize()
+    rows = []
+    path = os.path.join(out_dir, "metrics.jsonl")
+    if os.path.exists(path):
+        with open(path) as f:
+            rows = [json.loads(line) for line in f]
+    return {"state": _state_dicts(state), "rows": rows, "launches": _port_launches(),
+            "seconds": time.perf_counter() - t0, "dp": None if state.dp is None else
+            (state.dp.rank, state.dp.world)}
+
+
+def phase_dp_gloo(smi):
+    """Two spawned ranks in a gloo group, both on the card (NCCL refuses two
+    ranks on one device): each DP_GLOO_RUNS main for two batches, eager, with
+    the IN pair (CycleGAN) and the GP pair (WGAN-GP) launched inside the
+    data-parallel steps; each held to one process on the card running the
+    same main (losses, parameters, the launches a rank makes)."""
+    import importlib
+    import multiprocessing
+    import queue as queue_mod
+
+    import torch
+
+    from tpugan_torch.parallel.dryrun import free_port
+
+    tag = "[dp gloo]"
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_gloo_")
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port, world = free_port(), 2
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_dp_gloo_rank, args=(r, world, port, out_dir, results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for _ in range(world):
+            rank, status = results.get(timeout=600)
+            if status != "ok":
+                raise AssertionError(f"{tag} rank {rank} failed:\n{status}")
+    except queue_mod.Empty:
+        raise AssertionError(f"{tag} a rank sent nothing in 600 s") from None
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+           for r in range(world)]
+    out = {}
+    for name, extra in DP_GLOO_RUNS.items():
+        single = _dp_gloo_run(name, extra, os.path.join(out_dir, f"{name}_single"))
+        r0, r1 = got[0][name], got[1][name]
+        if (r0["dp"], r1["dp"], single["dp"]) != ((0, 2), (1, 2), None):
+            raise AssertionError(f"{tag} {name}: dp {r0['dp']}, {r1['dp']}, {single['dp']}")
+        for key, v in r0["state"].items():
+            if not torch.equal(v, r1["state"][key]):
+                raise AssertionError(f"{tag} {name}: the ranks differ at {key}")
+        cfg = importlib.import_module(f"tpugan_torch.models.{name}").Config()
+        worst = _dp_held(f"{tag} {name}", r0["state"], single["state"], cfg, DP_GLOO_BATCHES)
+        loss_err = max((abs(a[key] - b[key]) / max(abs(b[key]), 1e-6)
+                        for a, b in zip(r0["rows"], single["rows"]) for key in b if key != "step"),
+                       default=0.0)
+        if len(r0["rows"]) != len(single["rows"]) or loss_err > 1e-3:
+            raise AssertionError(f"{tag} {name}: losses off by {loss_err:.3e} (limit 1e-3): "
+                                 f"{r0['rows']} against {single['rows']}")
+        launches = {key: r0["launches"][key] + r1["launches"][key]
+                    for key in ("in_fwd", "in_bwd", "gp_fwd", "gp_bwd")}
+        want = {"dcgan": {}, "wgan_gp": {"gp_fwd": 2 * DP_GLOO_BATCHES,
+                                         "gp_bwd": 2 * DP_GLOO_BATCHES},
+                "cyclegan": {"in_fwd": 2 * DP_GLOO_BATCHES * FWD_PER_STEP,
+                             "in_bwd": 2 * DP_GLOO_BATCHES * BWD_PER_STEP}}[name]
+        if {key: v for key, v in launches.items() if v} != want:
+            raise AssertionError(f"{tag} {name}: the ranks launched {launches}, expected {want}")
+        log(f"{tag} {name} ({' '.join(extra)}), {DP_GLOO_BATCHES} batches on 2 gloo ranks on "
+            f"{torch.cuda.get_device_name(0)} against one process: losses within "
+            f"{loss_err:.3e} relative, parameters within {worst['param']:.3e} (Adam's envelope "
+            f"{worst['envelope']:.3e}), running statistics within {worst['buffer']:.3e} of their "
+            f"largest; both ranks' states equal; the ranks' "
+            f"kernel launches {launches}; main {r0['seconds']:.1f} s on rank 0, "
+            f"{single['seconds']:.1f} s alone ({smi})")
+        out[name] = {"launches": launches, "loss_rel_err": loss_err,
+                     "param_max_abs_err": worst["param"], "rank_s": r0["seconds"],
+                     "single_s": single["seconds"]}
+    log(f"{tag} the two rank processes took {ranks_s:.1f} s, start-up included")
+    return out
+
+
 def _timed_phase(name, fn):
     """``fn()``, its host seconds logged."""
     t0 = time.perf_counter()
@@ -4468,6 +4805,9 @@ def main() -> int:
     _timed_phase("checkpoint", lambda: phase_checkpoint(smi))
     flags["fid"] = _timed_phase("fid", lambda: phase_fid(smi))
     log("[flags summary] " + json.dumps(flags))
+    dp = {"nccl": _timed_phase("dp nccl", lambda: phase_dp_nccl(smi)),
+          "gloo": _timed_phase("dp gloo", lambda: phase_dp_gloo(smi))}
+    log("[dp summary] " + json.dumps(dp))
     rate = replay_rule_modules / (1.0 + REPLAY_K ** 2)
     log(f"[replay rule] {replay_rule_modules} modules held to the shipped-settings rule (mean + "
         f"{REPLAY_K:g} std of {REPLAY_EAGER} eager runs' distances): false-alarm rate for a "
@@ -4525,7 +4865,8 @@ def main() -> int:
         # (the parity phases hold the pair at the same shapes).
         for path, r in (("cyclegan profile_dir", flags["profile"]["cyclegan"]),
                         ("cyclegan debug_numerics", flags["debug_numerics"]["cyclegan"]),
-                        ("munit debug_numerics", flags["debug_numerics"]["munit"])):
+                        ("munit debug_numerics", flags["debug_numerics"]["munit"]),
+                        ("cyclegan dp gloo", dp["gloo"]["cyclegan"])):
             by_path[path] = {"launches": r["launches"][f"in_{k}"]}
         for path, r in {**inpainting, "pixelda": two_domain["pixelda"]}.items():
             by_path[f"{path} cuda_graph"] = {
@@ -4561,6 +4902,7 @@ def main() -> int:
             "wgan_gp ragged_last_batch cuda_graph": {
                 "launches": flags["ragged"]["wgan_gp"]["launches"][f"gp_{k}"],
                 "replays": flags["ragged"]["wgan_gp"]["replays"]},
+            "wgan_gp dp gloo": {"launches": dp["gloo"]["wgan_gp"]["launches"][f"gp_{k}"]},
         }
         kernels.append({
             "name": f"mlp_gp_{k}", "route": "cuda", "source": gp_src,

@@ -15,7 +15,9 @@ their plain bf16 versions at the same shapes, within one bf16 ulp plus the
 float32 tolerances (``chip_smoke.py``), and one bf16 CycleGAN step on the
 card against the same bf16 step on the CPU.
 
-These need a CUDA device and skip without one. The fused dispatch: DCGAN
+These need a CUDA device and skip without one. Data parallelism: one
+DCGAN step on two gloo ranks sharing the card against one process. The
+fused dispatch: DCGAN
 steps (K = 3) and WGAN-GP schedule units (K = 2) replayed from a CUDA graph
 against the same eager steps, the generator's state after them, the GP
 kernels a replayed unit launches, and the trainers' fused ``main`` against
@@ -593,6 +595,8 @@ def test_replayed_dcgan_steps_equal_eager_steps_with_deterministic_cudnn(cuda, m
     cfg = dcgan.Config(img_size=64, synthetic_data=True)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
 
     def make():
         state = dcgan.create_state(cfg, dcgan.build(cfg, cuda), cuda)
@@ -1211,6 +1215,8 @@ def test_replayed_began_steps_equal_eager_steps_with_deterministic_cudnn(cuda, m
     cfg = began.Config(synthetic_data=True)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
 
     def make():
         state = began.create_state(cfg, began.build(cfg, cuda), cuda)
@@ -1480,3 +1486,116 @@ def test_bf16_cyclegan_step_on_the_card_matches_the_cpu(cuda):
         print(f"{name}: card-CPU bf16 gradient difference {diff:.3g}, CPU bf16-fp32 {scale:.3g}, "
               f"norm {float(grad_c[name].norm()):.3g}")
         assert diff <= 2 * scale, name
+
+
+def _dp_dcgan_rank(rank, port, imgs, results):
+    """One rank of ``test_two_gloo_ranks_on_the_card_match_one_process``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from tpugan_torch.models import dcgan
+    from tpugan_torch.parallel.mesh import auto_sharding, local_rows, replicate_for
+    from tpugan_torch.train.loop import card_device
+
+    try:
+        dev = card_device(torch.device("cuda", 0))  # fp32: TF32 off
+        torch.cuda.set_device(dev)
+        torch.backends.cudnn.deterministic = True
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=2)
+        try:
+            cfg = dcgan.Config(img_size=64, synthetic_data=True)
+            state = replicate_for(auto_sharding(cfg.batch_size, dev),
+                                  dcgan.create_state(cfg, dcgan.build(cfg, dev), dev))
+            imgs = local_rows(state.dp, torch.from_numpy(imgs)).to(dev)
+            state, out = dcgan.make_step(cfg, state)(state, imgs)
+            # numpy through the queue: torch's own tensor pickling passes
+            # file descriptors, which a sandboxed host may refuse.
+            results.put((rank, {"d_loss": float(out["d_loss"]), "g_loss": float(out["g_loss"]),
+                                "state": {f"{r}.{k}": v.cpu().numpy()
+                                          for r, m in state.modules.items()
+                                          for k, v in m.state_dict().items()},
+                                "grads": {f"{r}.{k}": p.grad.cpu().numpy()
+                                          for r, m in state.modules.items()
+                                          for k, p in m.named_parameters()}}))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 - reported to the test
+        results.put((rank, traceback.format_exc()))
+
+
+def test_two_gloo_ranks_on_the_card_match_one_process(cuda, monkeypatch):
+    """One DCGAN step at 64px, batch 64, on two gloo ranks sharing the card
+    (global BatchNorm, the gradient mean, each rank's rows of the draws),
+    against one process on the card from the same seed, fp32 with TF32 off
+    and cuDNN held deterministic on both sides: losses 1e-4 relative, gradients 1e-3
+    relative plus 1e-3 of the module's largest, parameters 1e-5 absolute
+    where the gradient is above that floor and above 100x Adam's eps, 2*lr
+    elsewhere (the step tolerances above), both ranks' states bit for bit.
+    The test prints each module's largest gradient difference as a share of
+    its largest gradient."""
+    import multiprocessing
+
+    from tpugan_torch.models import dcgan
+    from tpugan_torch.parallel.dryrun import free_port
+
+    cfg = dcgan.Config(img_size=64, synthetic_data=True)
+    imgs = torch.randint(0, 256, (cfg.batch_size, 64, 64, 1), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(0))
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_dp_dcgan_rank, args=(r, port, imgs.numpy(), results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(results.get(timeout=300) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for rank, r in got.items():
+        assert isinstance(r, dict), f"rank {rank} failed:\n{r}"
+        for part in ("state", "grads"):
+            r[part] = {k: torch.from_numpy(v) for k, v in r[part].items()}
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    state = dcgan.create_state(cfg, dcgan.build(cfg, cuda), cuda)
+    state, out = dcgan.make_step(cfg, state)(state, imgs.to(cuda))
+    want = {f"{r}.{k}": v.cpu() for r, m in state.modules.items()
+            for k, v in m.state_dict().items()}
+    want_grads = {f"{r}.{k}": p.grad.cpu() for r, m in state.modules.items()
+                  for k, p in m.named_parameters()}
+    r0, r1 = got[0], got[1]
+    for k in ("d_loss", "g_loss"):
+        assert r0[k] == r1[k]
+        assert abs(r0[k] - float(out[k])) <= 1e-4 * abs(float(out[k])), k
+    largest = {}
+    for k, g in r0["grads"].items():
+        role = k.split(".")[0]
+        largest[role] = max(largest.get(role, 0.0), float(g.abs().max()))
+    for role, top in largest.items():
+        share = max(float((r0["grads"][k] - want_grads[k]).abs().max())
+                    for k in want_grads if k.startswith(role + ".")) / top
+        print(f"{role}: largest gradient difference {share:.3e} of its largest gradient")
+    for k, g in want_grads.items():
+        torch.testing.assert_close(r0["grads"][k], g, rtol=1e-3,
+                                   atol=1e-3 * largest[k.split(".")[0]], msg=lambda m: f"{k}: {m}")
+    for k, w in want.items():
+        assert torch.equal(r0["state"][k], r1["state"][k]), k
+        if k.endswith("num_batches_tracked"):
+            assert int(r0["state"][k]) == int(w), k
+            continue
+        diff = (r0["state"][k] - w).abs()
+        if k in r0["grads"]:
+            g = r0["grads"][k].abs()
+            quiet = (g <= 1e-3 * largest[k.split(".")[0]]) | (g <= 100 * 1e-8)
+            bound = torch.where(quiet, torch.full_like(w, 2 * cfg.lr + 1e-5),
+                                torch.full_like(w, 1e-5))
+        else:  # running statistics
+            bound = 1e-5 + 1e-4 * w.abs()
+        assert not (diff > bound).any(), f"{k}: off by {float(diff.max()):.3e}"

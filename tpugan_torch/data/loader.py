@@ -6,16 +6,26 @@ the uint8 batches are byte-identical. Each batch is copied to the loader's
 device: on CUDA from pinned host memory with ``non_blocking=True``. Batches
 stay NHWC uint8; ``train.state.normalize_uint8`` converts them on the
 device. The last partial batch is dropped, so every step has one shape.
+
+Under data parallelism (``dp``, ``tpugan_torch/parallel/mesh.py``) every
+rank draws the same permutation from the seed, assembles the same global
+batch and keeps its contiguous share of the rows; ``len`` counts global
+batches. A ragged tail cannot divide over the ranks, so there
+``--ragged_last_batch`` drops it with the JAX package's warning
+(``tpugan/data/loader.py:78-84``).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import warnings
 from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+from tpugan_torch.parallel.mesh import DataParallel
 
 # --debug_numerics: every loader runs on the calling thread, without its
 # producer thread and queue, the input pipeline's only concurrency.
@@ -40,7 +50,8 @@ class DeviceLoader:
     """Iterates batches of one or more aligned arrays (equal leading dim),
     as tuples of tensors on ``device``. The tail of n % batch_size is
     dropped unless ``set_drop_last(False)`` came before the loader was
-    built."""
+    built and there is no ``dp``. With ``dp`` each batch is this rank's
+    share of the global batch of ``batch_size``."""
 
     def __init__(
         self,
@@ -51,6 +62,7 @@ class DeviceLoader:
         seed: int = 0,
         prefetch: int = 2,
         host_transform: Optional[Callable] = None,
+        dp: Optional[DataParallel] = None,
     ):
         self.arrays = list(arrays)
         n = len(self.arrays[0])
@@ -63,7 +75,19 @@ class DeviceLoader:
         self.seed = seed
         self.prefetch = prefetch
         self.host_transform = host_transform
+        self.dp = dp
         self.drop_last = _DROP_LAST
+        if not self.drop_last and dp is not None and self._items() % batch_size != 0:
+            warnings.warn(
+                "[tpugan] --ragged_last_batch is incompatible with a "
+                "sharded (data-parallel) batch; dropping the tail batch",
+                stacklevel=2,
+            )
+            self.drop_last = True
+
+    def _items(self) -> int:
+        """Items an epoch."""
+        return self.n
 
     def __len__(self) -> int:
         if self.drop_last:
@@ -85,6 +109,17 @@ class DeviceLoader:
                 batch = self.host_transform(batch, epoch, b)
             yield batch
 
+    def _rank_batches(self, epoch: int) -> Iterator[tuple]:
+        """The host batches of ``epoch``, each cut to this rank's rows (after
+        the host transform, whose draws are the global batch's)."""
+        if self.dp is None:
+            yield from self._host_batches(epoch)
+            return
+        for batch in self._host_batches(epoch):
+            share = len(batch[0]) // self.dp.world
+            lo = self.dp.rank * share
+            yield tuple(a[lo:lo + share] for a in batch)
+
     def _to_device(self, batch: tuple) -> tuple:
         out = []
         for a in batch:
@@ -100,7 +135,7 @@ class DeviceLoader:
         """Yield one epoch's device batches, ``prefetch`` ahead on a thread
         (on the calling thread under ``set_synchronous(True)``)."""
         if _SYNCHRONOUS or self.prefetch <= 0:
-            for batch in self._host_batches(epoch):
+            for batch in self._rank_batches(epoch):
                 yield self._to_device(batch)
             return
 
@@ -110,7 +145,7 @@ class DeviceLoader:
         def producer():
             # An exception travels to the consumer and is raised there.
             try:
-                for batch in self._host_batches(epoch):
+                for batch in self._rank_batches(epoch):
                     if stop.is_set():
                         return
                     q.put(self._to_device(batch))
@@ -144,12 +179,16 @@ class UnpairedLoader(DeviceLoader):
     all of B for every item."""
 
     def __init__(self, a: np.ndarray, b: np.ndarray, batch_size: int, device,
-                 seed: int = 0, prefetch: int = 2, host_transform=None):
-        super().__init__([a], batch_size, device, shuffle=True, seed=seed,
-                         prefetch=prefetch, host_transform=host_transform)
-        self.n = max(len(a), len(b))
+                 seed: int = 0, prefetch: int = 2, host_transform=None,
+                 dp: Optional[DataParallel] = None):
         self._a = a
         self._b = b
+        super().__init__([a], batch_size, device, shuffle=True, seed=seed, prefetch=prefetch,
+                         host_transform=host_transform, dp=dp)
+        self.n = self._items()
+
+    def _items(self) -> int:
+        return max(len(self._a), len(self._b))
 
     def _host_batches(self, epoch: int):
         from tpugan_torch import native

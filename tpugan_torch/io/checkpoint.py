@@ -6,7 +6,8 @@ reference's layout (cyclegan/cyclegan.py:279-284), so the reference's
 directory and then renamed over ``path`` with ``os.replace``, which POSIX
 makes atomic within a file system: a save that fails midway leaves the
 earlier file whole and no partial file at ``path``. ``--epoch N`` resumes
-from these files.
+from these files. Under data parallelism rank 0 alone writes, and every rank
+waits at a barrier until the file is whole, so every rank can resume from it.
 """
 
 from __future__ import annotations
@@ -16,19 +17,26 @@ from typing import Dict, Iterable
 
 import torch
 
+from tpugan_torch.parallel.mesh import rank_zero_write
+
 
 def save_state_dict(state_dict, path: str) -> None:
     """``torch.save(state_dict)`` to ``path + ".tmp"``, then ``os.replace``
-    onto ``path``; the temporary file is removed if the save raises."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    try:
-        torch.save(state_dict, tmp)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise
+    onto ``path``; the temporary file is removed if the save raises. On rank
+    0 alone under data parallelism, then a barrier (``rank_zero_write``)."""
+
+    def write():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = path + ".tmp"
+        try:
+            torch.save(state_dict, tmp)
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise
+
+    rank_zero_write(write)
 
 
 def checkpoint_path(directory: str, name: str, epoch: int) -> str:

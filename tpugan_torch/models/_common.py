@@ -2,10 +2,9 @@
 the MNIST-or-synthetic loader and the MNIST/MNIST-M pair of pixelda and
 cogan, the reference's log lines, the 5x5 sample
 grid, the class-grid noise of the conditional samplers and
-``run_mnist_recipe``, which runs the template-A/B trainers.
-
-One device. The JAX package's data-parallel branch becomes DDP in ROADMAP
-queue 1, item 9.
+``run_mnist_recipe``, which runs the template-A/B trainers, data-parallel
+under a launcher of several ranks (``tpugan_torch/parallel/mesh.py``) as the
+JAX package runs them over several devices (``tpugan/models/_common.py:104-114``).
 """
 
 from __future__ import annotations
@@ -18,13 +17,14 @@ import torch
 from tpugan_torch.data.loader import DeviceLoader, ZipLoader
 from tpugan_torch.data.sources import mnist_or_synthetic, mnistm_or_synthetic
 from tpugan_torch.io.images import save_image
+from tpugan_torch.parallel.mesh import auto_sharding, gather_rows, rank_zero_write, replicate_for
 from tpugan_torch.train.loop import Callbacks, run_training, train_device
 
 
-def mnist_loader(cfg, device) -> DeviceLoader:
+def mnist_loader(cfg, device, dp=None) -> DeviceLoader:
     """MNIST at ``--img_size`` from ``--data_dir`` (bilinearly resized), or
     the synthetic glyphs when it is absent or ``--synthetic_data`` is set;
-    batches as the JAX loader draws them."""
+    batches as the JAX loader draws them, this rank's share under ``dp``."""
     ds, is_real = mnist_or_synthetic(
         cfg.data_dir,
         img_size=cfg.img_size,
@@ -35,7 +35,7 @@ def mnist_loader(cfg, device) -> DeviceLoader:
     if not is_real:
         print("[tpugan] MNIST not found on disk — using synthetic dataset")
     return DeviceLoader(
-        [ds.images, ds.labels], cfg.batch_size, device, shuffle=True, seed=cfg.seed
+        [ds.images, ds.labels], cfg.batch_size, device, shuffle=True, seed=cfg.seed, dp=dp
     )
 
 
@@ -111,12 +111,15 @@ def save_grid(imgs: torch.Tensor, path: str, nrow: int) -> None:
 def grid_sampler(cfg):
     """``sample(state, out, batches_done)``: the first 25 images of
     ``out["gen_imgs"]`` (NCHW) as a grid of 5 a row, normalized, to
-    ``images/<batches_done>.png``."""
+    ``images/<batches_done>.png``. Under data parallelism every rank calls
+    it: the images are gathered from the ranks and rank 0 writes."""
     imgdir = os.path.join(cfg.output_dir, "images")
     os.makedirs(imgdir, exist_ok=True)
 
     def sample(state, out, batches_done):
-        save_grid(out["gen_imgs"][:25], os.path.join(imgdir, "%d.png" % batches_done), 5)
+        imgs = gather_rows(state.dp, out["gen_imgs"])[:25]
+        rank_zero_write(lambda: save_grid(
+            imgs, os.path.join(imgdir, "%d.png" % batches_done), 5))
 
     return sample
 
@@ -124,11 +127,14 @@ def grid_sampler(cfg):
 def run_mnist_recipe(cfg, recipe_mod, callbacks=None, device=None):
     """build -> create_state -> loader -> ``run_training``
     (``tpugan/models/_common.py:95``), with ``callbacks`` or the reference's
-    log line and sample grid. ``device`` as ``train_device``."""
+    log line and sample grid. ``device`` as ``train_device``. Under a
+    launcher of several ranks the state is replicated and each rank loads
+    its share of every batch (``auto_sharding``)."""
     device = train_device(cfg, device)
     modules = recipe_mod.build(cfg, device)
-    state = recipe_mod.create_state(cfg, modules, device)
-    loader = recipe_mod.make_loader(cfg, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, recipe_mod.create_state(cfg, modules, device))
+    loader = recipe_mod.make_loader(cfg, device, dp=dp)
     step = recipe_mod.make_step(cfg, state)
     cb = callbacks or Callbacks(log=std_log_line(cfg), sample=grid_sampler(cfg))
     return run_training(cfg, loader, state, step, cb, n_epochs=cfg.n_epochs,

@@ -12,6 +12,11 @@ Random draws (z and the penalty's interpolation weights) come from the
 state's ``torch.Generator`` on the device, or are passed in, so a test can
 hand both frameworks the same numbers. The library functions take an explicit
 device; the trainers' ``run`` asks for CUDA unless the caller names another.
+
+Under a launcher of several ranks ``run_critic_family`` runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/_critic_family.py:
+225-231``): the draws are the global batch's and each rank keeps its rows,
+the losses in ``out`` are global means, and rank 0 alone logs and writes.
 """
 
 from __future__ import annotations
@@ -26,6 +31,15 @@ import torch
 from tpugan_torch.models._common import mnist_loader as make_loader_a
 from tpugan_torch.models._common import save_grid
 from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    gather_rows,
+    global_means,
+    is_writer,
+    local_rows,
+    rank_zero_write,
+    replicate_for,
+)
 from tpugan_torch.train.loop import (
     StepObserver,
     _stack_batches,
@@ -73,18 +87,23 @@ def make_d_step(cfg, modules: dict, opt_d, d_loss_fn: Callable, post_update=None
     train mode under ``no_grad``: its BatchNorm running statistics advance,
     as in JAX, and ``fake`` carries no graph. ``post_update(D)`` runs after
     the optimizer step (wgan's weight clip). ``out`` holds ``d_loss`` and the
-    ``z`` the following g_step reuses."""
+    ``z`` the following g_step reuses. Under data parallelism (``state.dp``)
+    z and alpha are the global batch's, drawn or passed in, and the step
+    keeps this rank's rows (``out["z"]`` holds them); ``d_loss`` is the
+    global mean."""
     G, D = modules["generator"], modules["discriminator"]
 
     def d_step(state: TrainState, imgs_u8, labels=None, z=None, alpha=None):
         del labels
-        device = _device(D)
+        device, dp = _device(D), state.dp
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        b = real.shape[0]
+        b = real.shape[0] * (dp.world if dp else 1)
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if alpha is None and draw_alpha:
             alpha = torch.rand(b, 1, 1, 1, generator=state.draws, device=device)
+        z = local_rows(dp, z)
+        alpha = None if alpha is None else local_rows(dp, alpha)
         with torch.no_grad():
             fake = G(z)
         opt_d.zero_grad(set_to_none=True)
@@ -94,7 +113,7 @@ def make_d_step(cfg, modules: dict, opt_d, d_loss_fn: Callable, post_update=None
         if post_update is not None:
             post_update(D)
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "z": z}
+        return state, global_means(dp, {"d_loss": d_loss.detach(), "z": z}, ("d_loss",))
 
     return d_step
 
@@ -102,7 +121,8 @@ def make_d_step(cfg, modules: dict, opt_d, d_loss_fn: Callable, post_update=None
 def make_g_step(cfg, modules: dict, opt_g):
     """``g_step(state, z) -> (state, out)``: one generator update on the
     d_step's z, -mean(D(G(z))) (``_critic_family.py:105-136``). Only G's
-    parameters take gradients."""
+    parameters take gradients. Under data parallelism z is this rank's rows
+    (the d_step's ``out["z"]``) and ``g_loss`` the global mean."""
     G, D = modules["generator"], modules["discriminator"]
     g_params = list(G.parameters())
 
@@ -112,7 +132,8 @@ def make_g_step(cfg, modules: dict, opt_g):
         g_loss = -D(gen).float().mean()
         g_loss.backward(inputs=g_params)
         opt_g.step()
-        return state, {"g_loss": g_loss.detach(), "gen_imgs": gen.detach()}
+        out = {"g_loss": g_loss.detach(), "gen_imgs": gen.detach()}
+        return state, global_means(state.dp, out, ("g_loss",))
 
     return g_step
 
@@ -164,15 +185,20 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
     ends the epoch's filling of units. A dispatch is ``K * (n_critic + 1)``
     optimizer steps to ``--profile_steps``. ``--debug_numerics`` runs one
     batch a dispatch (``fused_k``), d_step and g_step each
-    ``observer.checked``."""
+    ``observer.checked``. Under a launcher of several ranks the state is
+    replicated and each rank loads its share of every batch
+    (``auto_sharding``); samples gather the ranks' images and rank 0 writes."""
     imgdir = os.path.join(cfg.output_dir, "images")
     os.makedirs(imgdir, exist_ok=True)
-    loader = make_loader_a(cfg, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, state)
+    loader = make_loader_a(cfg, device, dp)
     k = fused_k(cfg)
     observer = StepObserver(cfg, supports_fused_dispatch=True,
                             dispatch_steps=k * (cfg.n_critic + 1) if k > 1 else 1)
     d_step, g_step = observer.checked(d_step), observer.checked(g_step)
-    steps = graph_steps(make_schedule_unit(cfg, d_step, g_step), k) if k > 1 else None
+    steps = graph_steps(make_schedule_unit(cfg, d_step, g_step), k, dp) if k > 1 else None
+    writer = is_writer()
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
@@ -180,9 +206,12 @@ def run_critic_family(cfg, state: TrainState, d_step, g_step, sample_inside_gste
     last_gen = None
 
     def save(imgs, tag):
-        save_grid(imgs[:25], os.path.join(imgdir, "%d.png" % tag), 5)
+        imgs = gather_rows(dp, imgs)[:25]
+        rank_zero_write(lambda: save_grid(imgs, os.path.join(imgdir, "%d.png" % tag), 5))
 
     def log_line(epoch, i, d_loss, g_loss):
+        if not writer:
+            return
         print(
             "[Epoch %d/%d] [Batch %d/%d] [D loss: %f] [G loss: %f]"
             % (

@@ -107,9 +107,11 @@ def run_per_step(cfg, loader, state, step, sample, log_body, modules: dict, name
     ``--log_interval`` batches, ``sample(state, out, batches_done)`` every
     ``sample_interval``; ``epoch_end()`` (the schedulers' step) and the
     checkpoints after each epoch. Fused dispatch is not supported: the
-    notice, then one step a batch."""
+    notice, then one step a batch. Under data parallelism rank 0 alone logs,
+    samples and writes checkpoints."""
     import contextlib
 
+    from tpugan_torch.parallel.mesh import is_writer, rank_zero_write
     from tpugan_torch.train.loop import StepObserver
 
     bpe = len(loader)
@@ -118,6 +120,7 @@ def run_per_step(cfg, loader, state, step, sample, log_body, modules: dict, name
     observer = StepObserver(cfg)
     step = observer.checked(step)
     eta = EtaLogger(cfg.n_epochs)
+    writer = is_writer()
     for epoch in range(cfg.epoch, cfg.n_epochs):
         with contextlib.closing(loader.epoch(epoch)) as batches:
             for i, batch in enumerate(batches):
@@ -126,10 +129,10 @@ def run_per_step(cfg, loader, state, step, sample, log_body, modules: dict, name
                 state, out = step(state, *batch)
                 batches_done = epoch * bpe + i
                 observer.observe(batches_done, out)
-                if cfg.log_interval > 0 and i % cfg.log_interval == 0:
+                if writer and cfg.log_interval > 0 and i % cfg.log_interval == 0:
                     eta.line(epoch, i, bpe, log_body(out))
                 if cfg.sample_interval > 0 and batches_done % cfg.sample_interval == 0:
-                    sample(state, out, batches_done)
+                    rank_zero_write(lambda: sample(state, out, batches_done))
         if epoch_end is not None:
             epoch_end()
         checkpoint_epoch(modules, cfg, epoch, names)

@@ -15,6 +15,10 @@ state's device generator or are passed in, so a test can hand both
 frameworks the same numbers. The step makes no host sync, allocates no host
 memory and reads no Python value that a CUDA graph would freeze, so
 ``graph_steps`` can capture it.
+
+Under data parallelism (``state.dp``) the draws are the global batch's, as
+one process draws them, and each rank keeps its rows; the losses in ``out``
+are global means.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Callable, Optional
 
 import torch
 
+from tpugan_torch.parallel.mesh import global_means, local_rows
 from tpugan_torch.train.optim import capturable
 from tpugan_torch.train.state import TrainState, normalize_uint8
 
@@ -49,8 +54,10 @@ def make_step_b(cfg, state: TrainState, adv_loss: Callable,
     ``z`` is (B, latent_dim); ``masks`` holds the Dropout2d keep masks of
     D's three forwards, each a list from ``D.draw_masks``. Both are drawn
     from ``state.draws``, z first, unless passed in; a discriminator without
-    ``draw_masks`` (template A's) takes none. ``out`` holds ``d_loss`` and
-    ``g_loss`` (0-d tensors) and ``gen_imgs``, the G phase's fakes (NCHW)."""
+    ``draw_masks`` (template A's) takes none. Under data parallelism both
+    are the global batch's, drawn or passed in, and the step keeps this
+    rank's rows. ``out`` holds ``d_loss`` and ``g_loss`` (0-d tensors, global
+    means) and ``gen_imgs``, the G phase's fakes (NCHW, this rank's)."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -60,13 +67,15 @@ def make_step_b(cfg, state: TrainState, adv_loss: Callable,
 
     def step(state: TrainState, imgs_u8, labels=None, z=None, masks=None):
         del labels
-        device = state.draws.device
+        device, dp = state.draws.device, state.dp
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        b = real.shape[0]
+        b = real.shape[0] * (dp.world if dp else 1)
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if masks is None:
             masks = [D.draw_masks(b, state.draws) if uses_masks else None for _ in range(3)]
+        z = local_rows(dp, z)
+        masks = [ms and [local_rows(dp, m) for m in ms] for ms in masks]
 
         # G phase: only G's parameters take gradients.
         opt_g.zero_grad(set_to_none=True)
@@ -83,6 +92,7 @@ def make_step_b(cfg, state: TrainState, adv_loss: Callable,
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+        return state, global_means(dp, out, ("d_loss", "g_loss"))
 
     return step

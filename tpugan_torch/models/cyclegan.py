@@ -14,12 +14,17 @@ per-sample instance norm, so batching changes no value.
 
 The library functions take an explicit ``device``; the tests run them on the
 CPU. ``run`` trains on CUDA unless told otherwise, and raises when there is
-none.
+none. Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/cyclegan.py:292-300``):
+each rank steps on its share of the batch, the replay buffers take the
+gathered global fakes with the same draws on every rank, so they stay
+identical, and each rank keeps its rows of what they return.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -30,6 +35,14 @@ from tpugan_torch.io.images import make_grid, save_image
 from tpugan_torch.losses import l1, mse
 from tpugan_torch.models._im2im_common import first_batch, maybe_resume, out_dirs, run_per_step
 from tpugan_torch.nn.im2im import GeneratorResNet, PatchGAN
+from tpugan_torch.parallel.mesh import (
+    DataParallel,
+    auto_sharding,
+    gather_rows,
+    global_means,
+    local_rows,
+    replicate_for,
+)
 from tpugan_torch.train.loop import train_device
 from tpugan_torch.train.optim import linear_decay_lambda
 from tpugan_torch.train.replay import ReplayBuffer
@@ -66,13 +79,15 @@ class Config(BaseConfig):
 class TrainState:
     """What the step updates: the modules' parameters (through the
     optimizers), the optimizers' moments, the schedulers and the replay
-    buffers. ``step`` counts optimizer steps."""
+    buffers. ``step`` counts optimizer steps; ``dp`` is the data-parallel
+    descriptor (``parallel.replicate_for``), None in one process."""
 
     modules: dict
     optimizers: dict
     schedulers: dict
     buffers: dict
     step: int = 0
+    dp: Optional[DataParallel] = None
 
 
 def build(cfg: Config, device) -> dict:
@@ -107,9 +122,9 @@ def create_state(cfg: Config, modules: dict, device) -> TrainState:
 def make_step(cfg: Config, modules: dict, device):
     """``step(state, a_u8, b_u8) -> (state, out)``: one G update, then one
     update of D_A and of D_B (cyclegan.py:177-239). ``a_u8``/``b_u8`` are
-    NHWC uint8 batches; ``out`` holds the five losses as 0-d tensors. After
-    the step each parameter's ``.grad`` holds the gradient it was updated
-    with."""
+    NHWC uint8 batches; ``out`` holds the five losses as 0-d tensors (global
+    means under data parallelism). After the step each parameter's ``.grad``
+    holds the gradient it was updated with."""
     G_AB, G_BA = modules["G_AB"], modules["G_BA"]
     D_A, D_B = modules["D_A"], modules["D_B"]
     g_params = [*G_AB.parameters(), *G_BA.parameters()]
@@ -147,9 +162,13 @@ def make_step(cfg: Config, modules: dict, device):
         g_loss.backward(inputs=g_params)
         opt_g.step()
 
-        # Replay buffers, then the D phases on [real; replayed fake].
-        fake_a_pool = state.buffers["buf_A"].push_and_pop(fake_a)
-        fake_b_pool = state.buffers["buf_B"].push_and_pop(fake_b)
+        # Replay buffers, on the global batch of fakes under data
+        # parallelism, then the D phases on [real; replayed fake].
+        dp = state.dp
+        fake_a_pool = local_rows(dp, state.buffers["buf_A"].push_and_pop(
+            gather_rows(dp, fake_a.detach())))
+        fake_b_pool = local_rows(dp, state.buffers["buf_B"].push_and_pop(
+            gather_rows(dp, fake_b.detach())))
         loss_d_a = d_update(state, "D_A", D_A, real_a, fake_a_pool)
         loss_d_b = d_update(state, "D_B", D_B, real_b, fake_b_pool)
 
@@ -161,12 +180,13 @@ def make_step(cfg: Config, modules: dict, device):
             "loss_cycle": loss_cycle.detach(),
             "loss_identity": loss_identity.detach(),
         }
-        return state, out
+        return state, global_means(dp, out, tuple(out))
 
     return step
 
 
-def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2):
+def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2,
+                dp=None):
     a, b, is_real = unpaired_or_synthetic(
         cfg.data_dir, cfg.dataset_name, cfg.img_height, cfg.img_width,
         split=split, synthetic=cfg.synthetic_data, seed=cfg.seed,
@@ -181,7 +201,7 @@ def make_loader(cfg: Config, device, split: str = "train", batch_size=None, pref
     return UnpairedLoader(
         a, b, batch_size or cfg.batch_size, device,
         seed=cfg.seed if split == "train" else cfg.seed + 991,
-        prefetch=prefetch, host_transform=transform,
+        prefetch=prefetch, host_transform=transform, dp=dp,
     )
 
 
@@ -217,9 +237,10 @@ def run(cfg: Config, device=None) -> TrainState:
     device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
-    state = create_state(cfg, modules, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
     return run_per_step(
-        cfg, make_loader(cfg, device), state, make_step(cfg, modules, device),
+        cfg, make_loader(cfg, device, dp=dp), state, make_step(cfg, modules, device),
         make_sampler(cfg, modules, device),
         lambda out: "[D loss: %f] [G loss: %f, adv: %f, cycle: %f, identity: %f]" % (
             float(out["d_loss"]), float(out["g_loss"]), float(out["loss_GAN"]),

@@ -28,6 +28,7 @@ from torch import nn
 
 from tpugan_torch.ops.image import reflection_pad, upsample_nearest, zero_pad_lt
 from tpugan_torch.ops.instance_norm import instance_norm_act
+from tpugan_torch.parallel.mesh import gather_rows
 
 _NOT_PORTED = "no trainer of the JAX package uses it (ROADMAP, Not ported)"
 
@@ -233,7 +234,44 @@ def _one_value_batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def global_batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
+    """Train-mode batch norm over the global batch of the ranks of ``bn.dp``
+    (``tpugan_torch/parallel/mesh.py``), the statistics GSPMD gives the JAX
+    layer over a sharded batch. Each rank contributes its count, mean and
+    sum of squared deviations a channel, gathered in one differentiable
+    all-gather and combined as Chan et al.'s pairwise update (no
+    cancellation between E[x^2] and E[x]^2); the output is normalized by the
+    biased global variance and ``running_var`` moves by the unbiased one,
+    its factor ``n / max(n - 1, 1)`` with n the global count, so one value a
+    channel over all ranks gives ``_one_value_batch_norm``'s result. In
+    float32, rounded once to ``x``'s dtype. The gradient flows to every
+    rank's input through the gather's backward."""
+    dims = [0, *range(2, x.dim())]
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.float()
+    count = xf.numel() // xf.shape[1]
+    mean = xf.mean(dims)
+    m2 = (xf - mean.view(shape)).square().sum(dims)
+    stats = gather_rows(bn.dp, torch.stack([torch.full_like(mean, count), mean, m2])[None])
+    counts, means, m2s = stats.unbind(1)
+    n = counts.sum(0)
+    g_mean = (counts * means).sum(0) / n
+    var = (m2s + counts * (means - g_mean).square()).sum(0) / n
+    y = (xf - g_mean.view(shape)) * torch.rsqrt(var + bn.eps).view(shape)
+    if bn.affine:
+        y = y * bn.weight.view(shape) + bn.bias.view(shape)
+    if bn.track_running_stats:
+        with torch.no_grad():
+            unbiased = var * (n / (n - 1).clamp(min=1))
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(g_mean, alpha=bn.momentum)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(unbiased, alpha=bn.momentum)
+            bn.num_batches_tracked.add_(1)
+    return y.to(x.dtype)
+
+
 def _batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
+    if bn.training and getattr(bn, "dp", None) is not None:
+        return global_batch_norm(bn, x)
     if bn.training and x.numel() == x.shape[1]:
         return _one_value_batch_norm(bn, x)
     return nn.modules.batchnorm._BatchNorm.forward(bn, x)
@@ -250,7 +288,9 @@ class BatchNorm1d(nn.BatchNorm1d):
     rounds the output to bf16 once, where the JAX layer folds the normalize
     into a bf16 ``x * a + b``. One value a channel in train mode (a ragged
     tail of one sample) takes the JAX layer's result
-    (``_one_value_batch_norm``), where torch raises."""
+    (``_one_value_batch_norm``), where torch raises. Under data parallelism
+    (``dp``, attached by ``parallel.replicate_for``) the statistics are the
+    global batch's (``global_batch_norm``)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
                  *, init_mode: str = "torch", generator: Optional[torch.Generator] = None):

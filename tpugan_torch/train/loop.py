@@ -19,11 +19,13 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import time
 from typing import Any, Callable, Optional
 
 import torch
 
+from tpugan_torch.parallel import mesh
 from tpugan_torch.utils.config import set_process_modes
 
 # Flags of the JAX package that the port refuses, with the reason.
@@ -58,14 +60,19 @@ def reject_unported_flags(cfg) -> None:
 
 def card_device(device=None) -> torch.device:
     """The device an entry point of the port runs on: CUDA when ``device``
-    is None, raising when there is none (the tests pass the CPU). On CUDA,
-    float32 means TF32 off for convolutions and matmuls, whatever the
-    compute dtype: under bfloat16 the layers that stay float32 (norm
-    statistics, the ResNet18 trunk, the GP) stay exact float32."""
+    is None, raising when there is none (the tests pass the CPU); under a
+    launcher that sets ``LOCAL_RANK`` (``torchrun``), that rank's card, made
+    the current device. On CUDA, float32 means TF32 off for convolutions and
+    matmuls, whatever the compute dtype: under bfloat16 the layers that stay
+    float32 (norm statistics, the ResNet18 trunk, the GP) stay exact
+    float32."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("tpugan_torch runs on CUDA and found no CUDA device")
-        device = torch.device("cuda")
+        local = os.environ.get("LOCAL_RANK")
+        device = torch.device("cuda") if local is None else torch.device("cuda", int(local))
+        if local is not None:
+            torch.cuda.set_device(device)
     device = torch.device(device)
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
@@ -75,11 +82,13 @@ def card_device(device=None) -> torch.device:
 
 def train_device(cfg, device=None) -> torch.device:
     """The device a trainer's ``run`` trains on (``card_device``). Refuses
-    the unported flag and sets the process-wide modes of ``cfg``
-    (``set_process_modes``: a config built in code has not been through
-    ``config_from_args``)."""
+    the unported flag, and a trainer not ported to data parallelism under
+    several ranks (``mesh.refuse_outside_slice``), and sets the process-wide
+    modes of ``cfg`` (``set_process_modes``: a config built in code has not
+    been through ``config_from_args``)."""
     device = card_device(device)
     reject_unported_flags(cfg)
+    mesh.refuse_outside_slice(cfg)
     set_process_modes(cfg)
     return device
 
@@ -185,9 +194,12 @@ class GraphSteps:
         graph_replays += 1
 
 
-def graph_steps(step_fn: Callable, k: int) -> GraphSteps:
+def graph_steps(step_fn: Callable, k: int, dp=None) -> GraphSteps:
     """K steps of ``step_fn`` a dispatch (``GraphSteps``): the port's
-    ``scan_steps``."""
+    ``scan_steps``. Under data parallelism ``dp`` must be an NCCL group,
+    whose collectives the graph captures with the steps
+    (``mesh.check_fusable``)."""
+    mesh.check_fusable(dp)
     return GraphSteps(step_fn, k)
 
 
@@ -284,9 +296,11 @@ class StepObserver:
                 "recipe's training loop (per-step host logic); running "
                 "one step per dispatch"
             )
+        # Rank 0 alone writes the metrics and the trace.
+        writer = mesh.is_writer()
         path = getattr(cfg, "metrics_jsonl", "")
-        self.sink = MetricsSink(path) if path else None
-        self.profile_dir = getattr(cfg, "profile_dir", "")
+        self.sink = MetricsSink(path) if path and writer else None
+        self.profile_dir = getattr(cfg, "profile_dir", "") if writer else ""
         self.profile_dispatches = max(1, -(-int(getattr(cfg, "profile_steps", 5))
                                            // dispatch_steps))
         self.debug_numerics = bool(getattr(cfg, "debug_numerics", False))
@@ -399,20 +413,23 @@ def run_training(cfg, loader, state, step_fn, callbacks: Callbacks, n_epochs: in
     last replay, never a capture at the new shape. ``callbacks.epoch_end``
     runs after each epoch, its tail included; a state it returns replaces
     the loop's. ``--debug_numerics`` runs one step a dispatch
-    (``fused_k``), each ``observer.checked``."""
+    (``fused_k``), each ``observer.checked``. Under data parallelism
+    (``state.dp``) rank 0 alone logs; every rank calls ``callbacks.sample``,
+    which may gather."""
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
     k = fused_k(cfg)
     observer = StepObserver(cfg, supports_fused_dispatch=True, dispatch_steps=k)
     step_fn = observer.checked(step_fn)
-    steps = graph_steps(step_fn, k) if k > 1 else None
+    steps = graph_steps(step_fn, k, getattr(state, "dp", None)) if k > 1 else None
+    log = callbacks.log if mesh.is_writer() else None
 
     def after_step(state, out, epoch, i, dispatch=True):
         batches_done = epoch * bpe + i
         observer.observe(batches_done, out, dispatch)
-        if callbacks.log and cfg.log_interval > 0 and i % cfg.log_interval == 0:
-            callbacks.log(epoch, i, bpe, out)
+        if log and cfg.log_interval > 0 and i % cfg.log_interval == 0:
+            log(epoch, i, bpe, out)
         if callbacks.sample and sample_interval > 0 and batches_done % sample_interval == 0:
             callbacks.sample(state, out, batches_done)
 

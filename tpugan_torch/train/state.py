@@ -3,8 +3,11 @@
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+from tpugan_torch.parallel.mesh import DataParallel
 
 
 @dataclasses.dataclass
@@ -15,13 +18,16 @@ class TrainState:
     random draws. ``step`` counts the steps taken (critic steps in the critic
     family). ``aux`` holds a trainer's loop-carried device tensors (began's
     equilibrium term ``k``, ``tpugan/models/began.py:114-186``), which the
-    step updates in place so that a captured CUDA graph carries them too."""
+    step updates in place so that a captured CUDA graph carries them too.
+    ``dp`` is the data-parallel descriptor ``parallel.replicate_for``
+    attaches, which the steps read; None in one process."""
 
     modules: dict
     optimizers: dict
     draws: torch.Generator
     step: int = 0
     aux: dict = dataclasses.field(default_factory=dict)
+    dp: Optional[DataParallel] = None
 
 
 def normalize_uint8(x: torch.Tensor, mean: float = 0.5, std: float = 0.5) -> torch.Tensor:
