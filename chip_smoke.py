@@ -366,11 +366,13 @@ DCGAN_K, DCGAN_FUSED_EPOCHS, DCGAN_EPOCH_BATCHES = 60, 3, 64
 WGAN_K, WGAN_FUSED_EPOCHS, WGAN_PLAIN_FUSED_EPOCHS = 10, 2, 3
 # The rest of the critic family and the conditional family, each at its
 # reference configuration: the run_training trainers (gan, dragan, cgan,
-# acgan, sgan, infogan) unfused for one epoch of 30 batches, then with K = 20
-# steps a graph over two epochs of 30 (a dispatch and a tail of 10 each);
-# wgan_div unfused for one epoch of 53 batches, then with K = 10 units (50
-# batches) a graph over two (a tail of 3 each).
-RECIPE_K, RECIPE_EPOCH_BATCHES, RECIPE_SAMPLE_INTERVAL = 20, 30, 10
+# acgan, sgan, infogan, bgan, softmax_gan, relativistic_gan, ebgan, began,
+# aae) unfused for one epoch of 15 batches, then with K = 10 steps a graph
+# over two epochs of 15 (a dispatch and a tail of 5 each); wgan_div unfused
+# for one epoch of 53 batches, then with K = 10 units (50 batches) a graph
+# over two (a tail of 3 each). Short, so that the script keeps inside its
+# time limit.
+RECIPE_K, RECIPE_EPOCH_BATCHES, RECIPE_SAMPLE_INTERVAL = 10, 15, 5
 CLUSTER_BATCHES = 15  # a cluster_gan epoch in [cluster_gan slice]
 WDIV_K, WDIV_TAIL = 10, 3
 # (shape, offset, w kind): "normal" w ~ 1 +- 0.3, "zeros" with zeros and
@@ -518,9 +520,13 @@ def timed_sites(path: str) -> list:
 
 
 # The im2im slices, each main at its reference configuration: batches, and
-# the sample interval (pix2pix and discogan sample at batch 0 and 5, dualgan
-# at 0 and 4: two of its five batches take a g_step).
-IM2IM_SLICE = {"pix2pix": (6, 5), "discogan": (6, 5), "dualgan": (5, 4)}
+# the sample interval (each samples at batch 0 and 2; dualgan's batch 0
+# takes a g_step).
+IM2IM_SLICE = {"pix2pix": (3, 2), "discogan": (3, 2), "dualgan": (3, 2)}
+# The steady state of the im2im, stargan and unit slices (``_step_report``):
+# steps timed (dualgan 2 units, stargan's d_step and unit's step half,
+# stargan's g_step 3), steps profiled and the traces the fullest is kept from.
+IM2IM_TIMED, IM2IM_PROFILED, IM2IM_TRACES = 10, 2, 2
 # The inpainting pair fused: unfused one epoch of 25 batches, then with K =
 # 10 steps a CUDA graph over two (two dispatches and a tail of 5 each).
 INPAINT_K, INPAINT_EPOCH_BATCHES, INPAINT_SAMPLE_INTERVAL = 10, 25, 10
@@ -3053,11 +3059,12 @@ def phase_im2im_slices(smi):
                     if i == 0:
                         g_step(state, a, b)
 
-            r = _step_report(tag, smi, unit, 4, f"unit of {cfg.n_critic} batches",
-                             cfg.n_critic * cfg.batch_size)
+            r = _step_report(tag, smi, unit, 2, f"unit of {cfg.n_critic} batches",
+                             cfg.n_critic * cfg.batch_size, IM2IM_PROFILED, IM2IM_TRACES)
         else:
             step = mod.make_step(cfg, state)
-            r = _step_report(tag, smi, lambda: step(state, a, b), 20, "step", cfg.batch_size)
+            r = _step_report(tag, smi, lambda: step(state, a, b), IM2IM_TIMED, "step",
+                             cfg.batch_size, IM2IM_PROFILED, IM2IM_TRACES)
         out[mod.NAME] = {"launches": launches, **r}
     return out
 
@@ -3161,9 +3168,9 @@ def phase_new_in():
     return worst, times
 
 
-# stargan 5 batches (one g_step at batch 0, n_critic 5) and unit 6, each
-# sampling at batch 0 (unit also at 5) with a checkpoint.
-NEW_SLICE = {"stargan": (5, 5), "unit": (6, 5)}
+# stargan 3 batches (one g_step at batch 0, n_critic 5) and unit 3, each
+# sampling at batch 0 (unit also at 2) with a checkpoint.
+NEW_SLICE = {"stargan": (3, 5), "unit": (3, 2)}
 
 
 def phase_new_slices(smi):
@@ -3205,10 +3212,11 @@ def phase_new_slices(smi):
             d_step, g_step = stargan.make_steps(cfg, state)
             _, d_out = d_step(state, imgs, labels)
             c = d_out["sampled_c"]
-            rd = _step_report(f"{tag} d_step", smi, lambda: d_step(state, imgs, labels, c), 10,
-                              "d_step", cfg.batch_size)
-            rg = _step_report(f"{tag} g_step", smi, lambda: g_step(state, imgs, labels, c), 5,
-                              "g_step", cfg.batch_size)
+            rd = _step_report(f"{tag} d_step", smi, lambda: d_step(state, imgs, labels, c),
+                              IM2IM_TIMED // 2, "d_step", cfg.batch_size, IM2IM_PROFILED,
+                              IM2IM_TRACES)
+            rg = _step_report(f"{tag} g_step", smi, lambda: g_step(state, imgs, labels, c), 3,
+                              "g_step", cfg.batch_size, IM2IM_PROFILED, IM2IM_TRACES)
             r = {"d_step": rd, "g_step": rg,
                  **{k: rd[k] + rg[k] for k in ("ms", "device_ms", "in_device_ms", "kernels")
                     if rd[k] is not None and rg[k] is not None}}
@@ -3217,7 +3225,8 @@ def phase_new_slices(smi):
         else:
             b = torch.from_numpy(rng.integers(0, 256, imgs.shape, dtype=np.uint8)).to(dev)
             step = unit.make_step(cfg, state)
-            r = _step_report(tag, smi, lambda: step(state, imgs, b), 10, "step", cfg.batch_size)
+            r = _step_report(tag, smi, lambda: step(state, imgs, b), IM2IM_TIMED // 2, "step",
+                             cfg.batch_size, IM2IM_PROFILED, IM2IM_TRACES)
         torch.cuda.synchronize()
         r["max_memory_mib"] = torch.cuda.max_memory_allocated() / 2**20
         log(f"{tag} max_memory_allocated over the steady-state steps "
@@ -4445,14 +4454,61 @@ def phase_fid(smi):
 # Data parallelism (``tpugan_torch/parallel``). [dp nccl]: DCGAN at 64px,
 # batch 64, K = 5, DP_NCCL_BATCHES batches through ``dcgan.main`` with and
 # without a one-rank NCCL group. [dp gloo]: each DP_GLOO run's ``main`` for
-# two batches on two gloo ranks sharing the card, against one process.
+# two batches on two gloo ranks sharing the card, against one process. The
+# im2im, style and SR trainers run at their reference widths and image sizes
+# at an even batch, and sample at batch 0 (``--sample_interval`` past the
+# run), on rank 0 alone.
 DP_NCCL_K, DP_NCCL_BATCHES = 5, 15
+_SAMPLE_AT_0 = ["--sample_interval", "1000"]
 DP_GLOO_RUNS = {
     "dcgan": ["--img_size", "64", "--batch_size", "64"],
     "wgan_gp": ["--batch_size", "64"],
     "cyclegan": ["--batch_size", "2", "--n_residual_blocks", "9"],
+    "pix2pix": ["--batch_size", "2", *_SAMPLE_AT_0],  # 256px
+    "discogan": ["--batch_size", "64", *_SAMPLE_AT_0],  # 64px
+    "dualgan": ["--batch_size", "8", *_SAMPLE_AT_0],  # 128px
+    "stargan": ["--batch_size", "16", *_SAMPLE_AT_0],  # 128px
+    "unit": ["--batch_size", "2", *_SAMPLE_AT_0],  # 256px
+    "munit": ["--batch_size", "2", *_SAMPLE_AT_0],  # 128px
+    "bicyclegan": ["--batch_size", "8", *_SAMPLE_AT_0],  # 128px
+    "srgan": ["--batch_size", "4", *_SAMPLE_AT_0],  # HR 256
 }
 DP_GLOO_BATCHES = 2
+# stargan runs one batch (a d_step and a g_step), so that its tracked IN
+# buffers move only with the generator's initial weights and are held to one
+# process's within rounding: over a second batch they follow the first Adam
+# step's noise (on an H100, 8.4e-4 of their largest plus one, past the
+# envelope).
+DP_GLOO_BATCHES_OF = {"stargan": 1}
+DP_GLOO_TRACKED_RTOL = 1e-4  # stargan's tracked IN buffers against one process
+
+
+def dp_gloo_batches(name: str) -> int:
+    return DP_GLOO_BATCHES_OF.get(name, DP_GLOO_BATCHES)
+
+
+def dp_gloo_launches(name: str) -> tuple:
+    """The port's kernel launches of a DP_GLOO_RUNS main, by counter: a
+    rank's in its ``dp_gloo_batches`` steps (each rank runs every kernel call
+    of the step on its rows), and rank 0's sampler's at batch 0. dualgan and
+    stargan take a d_step every batch and a g_step on batch 0 (``n_critic``
+    5); the sites and counts are ``IM2IM_IN``'s, MUNIT's and CycleGAN's."""
+    b = dp_gloo_batches(name)
+    if name == "wgan_gp":
+        return {"gp_fwd": b, "gp_bwd": b}, {}
+    if name == "cyclegan":
+        return {"in_fwd": b * FWD_PER_STEP, "in_bwd": b * BWD_PER_STEP}, {}
+    if name == "munit":
+        return ({"in_fwd": b * MUNIT_IN_PER_STEP, "in_bwd": b * MUNIT_IN_PER_STEP,
+                 "adain_fwd": b * ADAIN_PER_STEP, "adain_bwd": b * ADAIN_PER_STEP},
+                {"in_fwd": MUNIT_IN_PER_SAMPLE, "adain_fwd": ADAIN_PER_SAMPLE})
+    if name in IM2IM_IN:
+        units = ["step"] * b if "step" in IM2IM_IN[name] else ["d_step"] * b + ["g_step"]
+        # (n_critic 5: the g_step of batch 0 alone)
+        steps = {f"in_{d}": sum(im2im_per_unit(name, u, d) for u in units)
+                 for d in ("fwd", "bwd")}
+        return steps, {"in_fwd": im2im_per_unit(name, "sample", "fwd")}
+    return {}, {}
 
 
 def _state_dicts(state) -> dict:
@@ -4479,12 +4535,14 @@ def adam_envelope(lr, b1, b2, steps) -> float:
 def _dp_held(tag, got, want, cfg, steps, hold_buffers=True) -> dict:
     """Two runs of the same Adam steps, one data-parallel, held to each
     other: every parameter element within ``adam_envelope``; running
-    statistics within the envelope over lr of their largest magnitude (the
-    envelope's share of a unit weight, such as a BatchNorm scale: they are
-    running means of activations of networks whose parameters drift apart
-    within it); ``hold_buffers`` False only reports them. Returns the
-    largest differences of parameters and of running statistics, the latter
-    over the largest magnitude."""
+    statistics within the envelope times their largest magnitude plus one:
+    they are running means of activations of networks whose parameters
+    drift apart within it, a weight (such as a BatchNorm scale) scaling an
+    activation by its share, a bias (such as a conv's before a BatchNorm,
+    whose true gradient is 0, so the two runs' Adam steps take either sign)
+    shifting it by as much absolutely. ``hold_buffers`` False only reports
+    them. Returns the largest differences of parameters and of running
+    statistics, the latter over that scale."""
     import torch
 
     bound = adam_envelope(cfg.lr, cfg.b1, cfg.b2, steps) + 1e-6
@@ -4497,7 +4555,7 @@ def _dp_held(tag, got, want, cfg, steps, hold_buffers=True) -> dict:
             continue
         d = float((g - w).abs().max())
         if "running" in k:
-            share = d / max(float(w.abs().max()), 1e-12)
+            share = d / (float(w.abs().max()) + 1.0)
             worst["buffer"] = max(worst["buffer"], share)
             if hold_buffers and share > bound:
                 raise AssertionError(f"{tag} {k}: off by {d:.3e}, {share:.3e} of its largest, "
@@ -4615,40 +4673,45 @@ def phase_dp_nccl(smi):
 
 
 def _dp_gloo_rank(rank, world, port, out_dir, results):
-    """One rank of ``phase_dp_gloo``: a gloo group on the one card, then each
-    DP_GLOO_RUNS main for DP_GLOO_BATCHES batches; its states, losses and the
-    port's kernel launches to ``out_dir``."""
+    """One process of ``phase_dp_gloo`` on the one card: a rank of a gloo
+    group, or with ``rank`` None the one process the ranks are held to
+    (no group), which runs beside them; then each DP_GLOO_RUNS main for its
+    ``dp_gloo_batches``; its states, losses and the port's kernel launches to
+    ``out_dir``."""
     import traceback
 
+    label = "single" if rank is None else f"rank{rank}"
     try:
         import torch
         import torch.distributed as dist
 
         sys.path.insert(0, REPO)
         torch.cuda.set_device(0)
-        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                                world_size=world)
+        if rank is not None:
+            dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                    world_size=world)
         try:
             got = {}
             for name, extra in DP_GLOO_RUNS.items():
-                got[name] = _dp_gloo_run(name, extra, os.path.join(out_dir, f"{name}_{rank}"))
-            torch.save(got, os.path.join(out_dir, f"rank{rank}.pt"))
+                got[name] = _dp_gloo_run(name, extra, os.path.join(out_dir, f"{name}_{label}"))
+            torch.save(got, os.path.join(out_dir, f"{label}.pt"))
         finally:
-            dist.destroy_process_group()
-        results.put((rank, "ok"))
+            if rank is not None:
+                dist.destroy_process_group()
+        results.put((label, "ok"))
     except BaseException:  # noqa: BLE001 - reported to the parent, which raises
-        results.put((rank, traceback.format_exc()))
+        results.put((label, traceback.format_exc()))
 
 
 def _dp_gloo_run(name, extra, out_dir):
-    """``<name>.main`` for DP_GLOO_BATCHES batches on the card: its final
+    """``<name>.main`` for its ``dp_gloo_batches`` on the card: its final
     state, metric rows, the port's launches and wall seconds."""
     import importlib
 
     import torch
 
     mod = importlib.import_module(f"tpugan_torch.models.{name}")
-    argv = ["--synthetic_data", "--n_epochs", "1", "--max_batches", str(DP_GLOO_BATCHES),
+    argv = ["--synthetic_data", "--n_epochs", "1", "--max_batches", str(dp_gloo_batches(name)),
             "--sample_interval", "0", "--log_interval", "0", *extra]
     os.makedirs(out_dir, exist_ok=True)
     _reset_port_launches()
@@ -4666,13 +4729,73 @@ def _dp_gloo_run(name, extra, out_dir):
             (state.dp.rank, state.dp.world)}
 
 
+def _dp_gloo_held(tag, smi, name, extra, r0, r1, single) -> dict:
+    """One DP_GLOO_RUNS main of ``phase_dp_gloo``: ranks 0 and 1 (``r0``,
+    ``r1``) against each other and against one process (``single``): the
+    descriptors, equal states, ``_dp_held``, the losses within 1e-3
+    relative, each rank's launches against ``dp_gloo_launches``. Raises
+    AssertionError; returns the numbers."""
+    import importlib
+
+    import torch
+
+    if (r0["dp"], r1["dp"], single["dp"]) != ((0, 2), (1, 2), None):
+        raise AssertionError(f"{tag} {name}: dp {r0['dp']}, {r1['dp']}, {single['dp']}")
+    for key, v in r0["state"].items():
+        if not torch.equal(v, r1["state"][key]):
+            raise AssertionError(f"{tag} {name}: the ranks differ at {key}")
+    cfg = importlib.import_module(f"tpugan_torch.models.{name}").Config()
+    batches = dp_gloo_batches(name)
+    worst = _dp_held(f"{tag} {name}", r0["state"], single["state"], cfg, batches)
+    loss_err = max((abs(a[key] - b[key]) / max(abs(b[key]), 1e-6)
+                    for a, b in zip(r0["rows"], single["rows"]) for key in b if key != "step"),
+                   default=0.0)
+    if len(r0["rows"]) != len(single["rows"]) or loss_err > 1e-3:
+        raise AssertionError(f"{tag} {name}: losses off by {loss_err:.3e} (limit 1e-3): "
+                             f"{r0['rows']} against {single['rows']}")
+    keys = ("in_fwd", "in_bwd", "adain_fwd", "adain_bwd", "gp_fwd", "gp_bwd")
+    per_rank = [{key: r["launches"][key] for key in keys if r["launches"][key]}
+                for r in (r0, r1)]
+    steps, sample = dp_gloo_launches(name)
+    want = [{key: steps.get(key, 0) + sample.get(key, 0) for key in {*steps, *sample}},
+            steps]
+    if per_rank != want:
+        raise AssertionError(f"{tag} {name}: ranks 0 and 1 launched {per_rank}, expected "
+                             f"{want} (rank 0's sampler {sample})")
+    launches = {key: r0["launches"][key] + r1["launches"][key] for key in keys}
+    tracked = ""
+    if name == "stargan":
+        # The tracked IN buffers: equal on both ranks (above), and within
+        # rounding of one process's (``DP_GLOO_BATCHES_OF``).
+        diff = max(float((r0["state"][k] - single["state"][k]).abs().max())
+                   / max(float(single["state"][k].abs().max()), 1e-12)
+                   for k in single["state"] if "running" in k)
+        if diff > DP_GLOO_TRACKED_RTOL:
+            raise AssertionError(f"{tag} {name}: the tracked IN buffers off by {diff:.3e} of "
+                                 f"their largest, past {DP_GLOO_TRACKED_RTOL:g}")
+        tracked = f"; the tracked IN buffers within {diff:.3e} of their largest"
+    log(f"{tag} {name} ({' '.join(extra)}), {batches} batches on 2 gloo ranks on "
+        f"{torch.cuda.get_device_name(0)} against one process: losses within "
+        f"{loss_err:.3e} relative, parameters within {worst['param']:.3e} (Adam's envelope "
+        f"{worst['envelope']:.3e}), running statistics within {worst['buffer']:.3e} of their "
+        f"largest plus one; both ranks' states equal{tracked}; kernel launches by rank {per_rank} "
+        f"(rank 0's sampler {sample}); main {r0['seconds']:.1f} s on rank 0, "
+        f"{single['seconds']:.1f} s in the one process beside the ranks ({smi})")
+    return {"launches": launches, "launches_by_rank": per_rank, "sampler_launches": sample,
+            "loss_rel_err": loss_err, "param_max_abs_err": worst["param"],
+            "rank_s": r0["seconds"], "single_s": single["seconds"]}
+
+
 def phase_dp_gloo(smi):
     """Two spawned ranks in a gloo group, both on the card (NCCL refuses two
-    ranks on one device): each DP_GLOO_RUNS main for two batches, eager, with
-    the IN pair (CycleGAN) and the GP pair (WGAN-GP) launched inside the
-    data-parallel steps; each held to one process on the card running the
-    same main (losses, parameters, the launches a rank makes)."""
-    import importlib
+    ranks on one device): each DP_GLOO_RUNS main for two batches (stargan
+    one), eager, with the IN pair (CycleGAN, pix2pix, discogan, dualgan,
+    stargan, unit, MUNIT), the AdaIN pair (MUNIT) and the GP pair (WGAN-GP)
+    launched inside the data-parallel steps; each held to one process on the
+    card running the same main, spawned beside the ranks (losses,
+    parameters, running statistics, stargan's tracked IN buffers within
+    rounding), and each rank's launches to ``dp_gloo_launches``, rank 0's
+    sampler's counted apart."""
     import multiprocessing
     import queue as queue_mod
 
@@ -4687,16 +4810,16 @@ def phase_dp_gloo(smi):
     port, world = free_port(), 2
     t0 = time.perf_counter()
     procs = [ctx.Process(target=_dp_gloo_rank, args=(r, world, port, out_dir, results))
-             for r in range(world)]
+             for r in (*range(world), None)]
     for p in procs:
         p.start()
     try:
-        for _ in range(world):
-            rank, status = results.get(timeout=600)
+        for _ in procs:
+            label, status = results.get(timeout=600)
             if status != "ok":
-                raise AssertionError(f"{tag} rank {rank} failed:\n{status}")
+                raise AssertionError(f"{tag} {label} failed:\n{status}")
     except queue_mod.Empty:
-        raise AssertionError(f"{tag} a rank sent nothing in 600 s") from None
+        raise AssertionError(f"{tag} a process sent nothing in 600 s") from None
     finally:
         for p in procs:
             p.join(timeout=60)
@@ -4704,44 +4827,21 @@ def phase_dp_gloo(smi):
                 p.kill()
                 p.join()
     ranks_s = time.perf_counter() - t0
-    got = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
-           for r in range(world)]
-    out = {}
+    got = {label: torch.load(os.path.join(out_dir, f"{label}.pt"), weights_only=False)
+           for label in ("rank0", "rank1", "single")}
+    out, failed = {}, []
     for name, extra in DP_GLOO_RUNS.items():
-        single = _dp_gloo_run(name, extra, os.path.join(out_dir, f"{name}_single"))
-        r0, r1 = got[0][name], got[1][name]
-        if (r0["dp"], r1["dp"], single["dp"]) != ((0, 2), (1, 2), None):
-            raise AssertionError(f"{tag} {name}: dp {r0['dp']}, {r1['dp']}, {single['dp']}")
-        for key, v in r0["state"].items():
-            if not torch.equal(v, r1["state"][key]):
-                raise AssertionError(f"{tag} {name}: the ranks differ at {key}")
-        cfg = importlib.import_module(f"tpugan_torch.models.{name}").Config()
-        worst = _dp_held(f"{tag} {name}", r0["state"], single["state"], cfg, DP_GLOO_BATCHES)
-        loss_err = max((abs(a[key] - b[key]) / max(abs(b[key]), 1e-6)
-                        for a, b in zip(r0["rows"], single["rows"]) for key in b if key != "step"),
-                       default=0.0)
-        if len(r0["rows"]) != len(single["rows"]) or loss_err > 1e-3:
-            raise AssertionError(f"{tag} {name}: losses off by {loss_err:.3e} (limit 1e-3): "
-                                 f"{r0['rows']} against {single['rows']}")
-        launches = {key: r0["launches"][key] + r1["launches"][key]
-                    for key in ("in_fwd", "in_bwd", "gp_fwd", "gp_bwd")}
-        want = {"dcgan": {}, "wgan_gp": {"gp_fwd": 2 * DP_GLOO_BATCHES,
-                                         "gp_bwd": 2 * DP_GLOO_BATCHES},
-                "cyclegan": {"in_fwd": 2 * DP_GLOO_BATCHES * FWD_PER_STEP,
-                             "in_bwd": 2 * DP_GLOO_BATCHES * BWD_PER_STEP}}[name]
-        if {key: v for key, v in launches.items() if v} != want:
-            raise AssertionError(f"{tag} {name}: the ranks launched {launches}, expected {want}")
-        log(f"{tag} {name} ({' '.join(extra)}), {DP_GLOO_BATCHES} batches on 2 gloo ranks on "
-            f"{torch.cuda.get_device_name(0)} against one process: losses within "
-            f"{loss_err:.3e} relative, parameters within {worst['param']:.3e} (Adam's envelope "
-            f"{worst['envelope']:.3e}), running statistics within {worst['buffer']:.3e} of their "
-            f"largest; both ranks' states equal; the ranks' "
-            f"kernel launches {launches}; main {r0['seconds']:.1f} s on rank 0, "
-            f"{single['seconds']:.1f} s alone ({smi})")
-        out[name] = {"launches": launches, "loss_rel_err": loss_err,
-                     "param_max_abs_err": worst["param"], "rank_s": r0["seconds"],
-                     "single_s": single["seconds"]}
-    log(f"{tag} the two rank processes took {ranks_s:.1f} s, start-up included")
+        try:
+            out[name] = _dp_gloo_held(tag, smi, name, extra, got["rank0"][name],
+                                      got["rank1"][name], got["single"][name])
+        except AssertionError as e:  # every run is held before the phase fails
+            log(f"{tag} FAILED: {e}")
+            failed.append(str(e))
+    log(f"{tag} the two rank processes and the one beside them took {ranks_s:.1f} s, start-up "
+        f"included")
+    if failed:
+        raise AssertionError(f"{tag} {len(failed)} of {len(DP_GLOO_RUNS)} runs failed: "
+                             + "; ".join(failed))
     return out
 
 
@@ -4866,7 +4966,9 @@ def main() -> int:
         for path, r in (("cyclegan profile_dir", flags["profile"]["cyclegan"]),
                         ("cyclegan debug_numerics", flags["debug_numerics"]["cyclegan"]),
                         ("munit debug_numerics", flags["debug_numerics"]["munit"]),
-                        ("cyclegan dp gloo", dp["gloo"]["cyclegan"])):
+                        *((f"{name} dp gloo", dp["gloo"][name])
+                          for name in ("cyclegan", "pix2pix", "discogan", "dualgan", "stargan",
+                                       "unit", "munit"))):
             by_path[path] = {"launches": r["launches"][f"in_{k}"]}
         for path, r in {**inpainting, "pixelda": two_domain["pixelda"]}.items():
             by_path[f"{path} cuda_graph"] = {
@@ -4918,7 +5020,8 @@ def main() -> int:
         t = adain_time[k]
         by_path = {"munit": {"launches": munit_launches[f"adain_{k}"]},
                    "munit debug_numerics": {
-                       "launches": flags["debug_numerics"]["munit"]["launches"][f"adain_{k}"]}}
+                       "launches": flags["debug_numerics"]["munit"]["launches"][f"adain_{k}"]},
+                   "munit dp gloo": {"launches": dp["gloo"]["munit"]["launches"][f"adain_{k}"]}}
         kernels.append({
             "name": f"adain_{k}", "route": "cuda", "source": in_src,
             "replaces": replaces[f"adain_{k}"],

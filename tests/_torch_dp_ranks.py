@@ -13,6 +13,7 @@ side and pass its draws in ``payload``.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -57,8 +58,13 @@ def spawn(name: str, payload: dict, work_dir: str, world: int = WORLD) -> list:
     if any(p.returncode for p in procs):
         raise AssertionError("\n".join(f"--- rank {r} (exit {p.returncode}):\n{log}"
                                        for r, (p, log) in enumerate(zip(procs, logs))))
-    return [torch.load(os.path.join(work_dir, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+    got = []
+    for name in [f"rank{r}.pt" for r in range(world)] + ["payload.pt"]:
+        path = os.path.join(work_dir, name)
+        if name != "payload.pt":
+            got.append(torch.load(path, weights_only=False))
+        os.remove(path)  # up to a GiB each at full width
+    return got
 
 
 def _dp():
@@ -257,6 +263,279 @@ def cyclegan(payload: dict, work_dir: str) -> dict:
         cg.maybe_resume = real_resume
     res["resumed"] = loaded
     return res
+
+
+# --- The im2im, style and SR trainers ----------------------------------------------------------
+
+
+def digest(t: torch.Tensor) -> str:
+    """A tensor's dtype, shape and bytes, hashed: rank 1 reports these, and
+    the test holds them to rank 0's tensors bit for bit."""
+    import hashlib
+
+    t = t.detach().contiguous().cpu()
+    raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return f"{t.dtype}{tuple(t.shape)}" + hashlib.sha1(raw).hexdigest()
+
+
+def digests(tree):
+    if isinstance(tree, dict):
+        return {k: digests(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [digests(v) for v in tree]
+    return digest(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def record_grads(named: dict, optimizers: dict) -> dict:
+    """Wrap each optimizer's ``step``: for each call, each of its parameters'
+    (gradient or None, value after), by (role, key) of ``named``
+    (``tests/test_torch_port_critic_rest.py:record_updates`` without the
+    value before, which the test holds)."""
+    names = {id(p): (role, k) for role, m in named.items() for k, p in m.named_parameters()}
+    rec = {}
+    for name, opt in optimizers.items():
+        params = [p for g in opt.param_groups for p in g["params"]]
+
+        def step(*a, _name=name, _params=params, _orig=opt.step, **kw):
+            result = _orig(*a, **kw)
+            rec.setdefault(_name, []).append(
+                {names[id(p)]: (None if p.grad is None else p.grad.detach().clone(),
+                                p.detach().clone()) for p in _params})
+            return result
+
+        opt.step = step
+    return rec
+
+
+class Decisions:
+    """JAX's activation decisions, in call order, for this rank's rows
+    (``tests/test_torch_port_unet_im2im.py:Decisions``, whose pre-activations
+    arrive here NCHW and global): within ``patched``, each LeakyReLU and ReLU
+    of the modules applies the next (pre-activation >= 0 for a LeakyReLU,
+    > 0 for a ReLU). ``worst`` is the largest |pre-activation| of the
+    port's own, relative to its layer's largest, at which its decision
+    differs from JAX's."""
+
+    def __init__(self, pre, dp):
+        self.pre, self.dp, self.worst = iter(pre), dp, 0.0
+
+    @contextlib.contextmanager
+    def patched(self, modules):
+        from tpugan_torch.nn.layers import LeakyReLU
+
+        layers = [(layer, layer.negative_slope if isinstance(layer, LeakyReLU) else 0.0)
+                  for m in modules for layer in m.modules()
+                  if isinstance(layer, (LeakyReLU, torch.nn.ReLU))]
+        for layer, slope in layers:
+            layer.forward = self._forward(slope)
+        try:
+            yield
+        finally:
+            for layer, _ in layers:
+                del layer.forward
+
+    def _forward(self, slope):
+        from tpugan_torch.parallel.mesh import local_rows
+
+        def forward(x):
+            z = local_rows(self.dp, next(self.pre)).to(x.dtype)
+            keep = z >= 0 if slope else z > 0
+            own = x >= 0 if slope else x > 0
+            differ = keep != own
+            if differ.any():
+                mag = x.detach().abs()
+                self.worst = max(self.worst, float(mag[differ].max() / mag.max()))
+            return torch.where(keep, x, slope * x)
+
+        return forward
+
+
+def _run_plain(mod, cfg, state, batch, spec, dp):
+    step = (mod.make_step(cfg, state.modules, "cpu") if mod.NAME == "munit"
+            else mod.make_step(cfg, state))
+    return step(state, *batch, **spec.get("draws", {}))[1], {}
+
+
+def _run_dualgan(mod, cfg, state, batch, spec, dp):
+    """``tests/test_torch_port_unet_im2im.py:_dualgan`` on this rank's rows:
+    the d_step with JAX's fakes, masks, alphas and critic decisions; JAX's
+    critics after it; the g_step with JAX's masks and decisions."""
+    from tpugan_torch.parallel.mesh import local_rows
+
+    d_step, g_step = mod.make_steps(cfg, state)
+    m = state.modules
+    fakes = iter([local_rows(dp, f) for f in spec["fakes"]])  # G_BA(b), then G_AB(a)
+    d_decisions = Decisions(spec["d_pre"], dp)
+    for role in ("G_BA", "G_AB"):
+        m[role].forward = lambda *args, **kw: next(fakes)
+    try:
+        with d_decisions.patched([m["D_A"], m["D_B"]]):
+            state, d_out = d_step(state, *batch, masks=spec["masks"][:2],
+                                  alphas=spec["alphas"])
+    finally:
+        for role in ("G_BA", "G_AB"):
+            del m[role].forward
+    seen = {role: _sd(m[role]) for role in ("D_A", "D_B")}
+    for role in ("D_A", "D_B"):
+        m[role].load_state_dict(spec["critics1"][role])
+    g_decisions = Decisions(spec["g_pre"], dp)
+    with g_decisions.patched([m[role] for role in mod.MODULES]):
+        state, g_out = g_step(state, *batch, masks=spec["masks"][2:])
+    seen["local"] = {"worst": max(d_decisions.worst, g_decisions.worst)}
+    return {**d_out, **g_out}, seen
+
+
+def _run_stargan(mod, cfg, state, batch, spec, dp):
+    """``tests/test_torch_port_stargan.py:_stargan`` on this rank's rows: the
+    d_step with JAX's sampled attributes, alpha and decisions; JAX's critic
+    after it; the g_step with JAX's decisions."""
+    d_step, g_step = mod.make_steps(cfg, state)
+    m = list(state.modules.values())
+    d_decisions = Decisions(spec["d_pre"], dp)
+    with d_decisions.patched(m):
+        state, d_out = d_step(state, *batch, sampled_c=spec["sampled_c"], alpha=spec["alpha"])
+    seen = {"d_stats": _sd(state.modules["generator"])}
+    state.modules["discriminator"].load_state_dict(spec["critic1"])
+    g_decisions = Decisions(spec["g_pre"], dp)
+    with g_decisions.patched(m):
+        state, g_out = g_step(state, *batch, d_out["sampled_c"])
+    seen["local"] = {"worst": max(d_decisions.worst, g_decisions.worst),
+                     "left": [next(d.pre, None) is None for d in (d_decisions, g_decisions)]}
+    return {k: v for k, v in {**d_out, **g_out}.items() if v.ndim == 0}, seen
+
+
+def _run_bicyclegan(mod, cfg, state, batch, spec, dp):
+    """In float64, as ``tests/test_torch_port_bicyclegan.py:_step``."""
+    from tpugan_torch.train import state as state_mod
+
+    real = mod.normalize_uint8
+    mod.normalize_uint8 = lambda x: state_mod.normalize_uint8(x).double()
+    try:
+        return _run_plain(mod, cfg, state, batch, spec, dp)
+    finally:
+        mod.normalize_uint8 = real
+
+
+RUNS = {"dualgan": _run_dualgan, "stargan": _run_stargan, "bicyclegan": _run_bicyclegan}
+
+
+def im2im_step(spec: dict, dp) -> dict:
+    """One step of ``spec["trainer"]`` from ``spec["init"]`` (the JAX initial
+    weights in the port's layout) on this rank's rows of ``spec["batch"]``,
+    with the JAX draws of ``spec`` (global, kept to this rank's rows by the
+    step); ``dp`` None runs the single process on the whole batch. Returns
+    the step's scalars, each optimizer's (gradient, parameter after) by
+    (role, key) at each of its steps and the modules' buffers after (both
+    named by ``model_blocks`` where ``spec["trunks"]``), the parameters left
+    without a gradient and what the trainer's run saw (``seen``; its
+    ``local`` entry is this rank's own, the rest equal on every rank)."""
+    import importlib
+
+    from tpugan_torch.parallel.mesh import local_rows, replicate_for
+
+    mod = importlib.import_module(f"tpugan_torch.models.{spec['trainer']}")
+    cfg = spec["cfg"]
+    modules = mod.build(cfg, "cpu")
+    for role, sd in spec["init"].items():
+        modules[role].load_state_dict(sd)
+    if spec.get("float64"):
+        for m in modules.values():
+            m.double()
+    state = replicate_for(dp, mod.create_state(cfg, modules, "cpu"))
+    named = ({k: getattr(m, "model_blocks", m) for k, m in modules.items()}
+             if spec.get("trunks") else modules)
+    rec = record_grads(named, state.optimizers)
+    batch = [local_rows(dp, x) for x in spec["batch"]]
+    out, seen = RUNS.get(spec["trainer"], _run_plain)(mod, cfg, state, batch, spec, dp)
+    return {"out": {k: float(v) for k, v in out.items() if v.ndim == 0}, "grads": rec,
+            "state": {r: {k: b.detach().clone() for k, b in m.named_buffers()}
+                      for r, m in named.items()},
+            "none": _grads_none(modules), "seen": seen}
+
+
+@case
+def im2im_steps(payload: dict, work_dir: str) -> dict:
+    """``im2im_step`` of each spec of ``payload["steps"]`` on this rank, then
+    the cases of ``payload["extra"]`` that ``EXTRA`` names. Rank 0 returns
+    its tensors; the other ranks their ``digests``."""
+    dp = _dp()
+    res = {name: im2im_step(spec, dp) for name, spec in payload["steps"].items()}
+    for name, spec in payload.get("extra", {}).items():
+        res[name] = EXTRA[name](spec, dp, work_dir)
+    return res if dp.rank == 0 else digests(res)
+
+
+def tracked_in_case(spec, dp, work_dir) -> dict:
+    """The tracked InstanceNorm's buffer updates from this rank's rows of
+    ``spec["x"]``, ``spec["steps"]`` train forwards, and the frozen and
+    eval forwards, which move nothing."""
+    from tpugan_torch.nn.layers import InstanceNorm, batch_stats_frozen
+    from tpugan_torch.parallel.mesh import local_rows
+
+    layer = InstanceNorm(spec["x"].shape[2], affine=True, track_running_stats=True)
+    layer.dp = dp
+    for x in spec["x"]:
+        layer(local_rows(dp, x))
+    after = _sd(layer)
+    with batch_stats_frozen(layer):
+        layer(local_rows(dp, spec["x"][0]))
+    layer.eval()
+    layer(local_rows(dp, spec["x"][0]))
+    return {"after": after, "frozen_eval": _sd(layer)}
+
+
+def penalty_critic() -> torch.nn.Module:
+    """A small critic with a BatchNorm(0.8) between its convs, as dualgan's."""
+    from tpugan_torch.nn.layers import BatchNorm2d, Conv2d, LeakyReLU
+
+    g = torch.Generator().manual_seed(0)
+    return torch.nn.Sequential(
+        Conv2d(3, 8, 4, 2, 1, init_mode="normal02", generator=g), LeakyReLU(0.2),
+        Conv2d(8, 16, 4, 2, 1, init_mode="normal02", generator=g),
+        BatchNorm2d(16, 0.8, init_mode="normal02", generator=g), LeakyReLU(0.2),
+        Conv2d(16, 1, 3, 1, 1, init_mode="normal02", generator=g))
+
+
+def penalty_case(spec, dp, work_dir) -> dict:
+    """A WGAN-GP penalty through ``penalty_critic`` with a global BatchNorm,
+    from this rank's rows: the penalty's global mean and the critic's
+    gradient averaged over the ranks (a gradient of a gradient that crosses
+    them)."""
+    import torch.distributed as dist
+
+    from tpugan_torch.nn.layers import BatchNorm2d, batch_stats_frozen
+    from tpugan_torch.ops.penalty import wgan_gp_penalty
+    from tpugan_torch.parallel.mesh import global_mean, local_rows
+
+    critic = penalty_critic()
+    for layer in critic.modules():
+        if isinstance(layer, BatchNorm2d):
+            layer.dp = dp
+    with batch_stats_frozen(critic):
+        gp = wgan_gp_penalty(critic, *(local_rows(dp, spec[k]) for k in ("real", "fake",
+                                                                         "alpha")))
+    gp.backward()
+    grads = {}
+    for k, p in critic.named_parameters():
+        g = p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+        dist.all_reduce(g)
+        grads[k] = g / dp.world
+    return {"gp": float(global_mean(dp, gp)), "grads": grads}
+
+
+def cli_case(spec, dp, work_dir) -> dict:
+    """``spec["trainer"]``'s main from ``spec["argv"]``, each rank into its
+    own output directory; the modules it ends with."""
+    import importlib
+
+    mod = importlib.import_module(f"tpugan_torch.models.{spec['trainer']}")
+    rank_dir = os.path.join(work_dir, "cli_rank%d" % dp.rank)
+    os.makedirs(rank_dir)
+    final = mod.main(spec["argv"] + ["--output_dir", rank_dir], "cpu")
+    return {"dir": rank_dir, "final": {n: _sd(m) for n, m in final.modules.items()}}
+
+
+EXTRA = {"tracked_in": tracked_in_case, "penalty": penalty_case, "cli": cli_case}
 
 
 def main() -> None:

@@ -49,7 +49,7 @@ from tpugan_torch.data.im2im import resize_crop_flip_transform
 from tpugan_torch.data.loader import DeviceLoader, UnpairedLoader
 from tpugan_torch.io.images import decode_png
 from tpugan_torch.io.interop import load_jax_params
-from tpugan_torch.models import cgan, dcgan, gan, pix2pix, softmax_gan, wgan_gp
+from tpugan_torch.models import cgan, dcgan, esrgan, gan, softmax_gan, wgan_gp
 from tpugan_torch.parallel.dryrun import dryrun_multichip
 from tpugan_torch.parallel.mesh import auto_sharding
 
@@ -405,7 +405,7 @@ def test_auto_sharding_raises_on_an_indivisible_batch_under_a_launcher(monkeypat
         auto_sharding(7, "cpu")
 
 
-@pytest.mark.parametrize("mod, item", [(cgan, "9b"), (softmax_gan, "9c"), (pix2pix, "9d")])
+@pytest.mark.parametrize("mod, item", [(cgan, "9b"), (softmax_gan, "9c"), (esrgan, "9c")])
 def test_trainers_outside_the_slice_refuse_several_ranks(monkeypatch, tmp_path, mod, item):
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match=f"item {item}"):

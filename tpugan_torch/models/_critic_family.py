@@ -34,6 +34,7 @@ from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
 from tpugan_torch.parallel.mesh import (
     auto_sharding,
     gather_rows,
+    global_batch,
     global_means,
     is_writer,
     local_rows,
@@ -97,7 +98,7 @@ def make_d_step(cfg, modules: dict, opt_d, d_loss_fn: Callable, post_update=None
         del labels
         device, dp = _device(D), state.dp
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        b = real.shape[0] * (dp.world if dp else 1)
+        b = global_batch(dp, real.shape[0])
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if alpha is None and draw_alpha:

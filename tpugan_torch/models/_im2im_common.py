@@ -66,13 +66,14 @@ def maybe_resume(modules: dict, cfg, names) -> None:
 
 
 def paired_loader(cfg, device, height: int, width: int, split: str = "train",
-                  batch_size=None, prefetch: int = 2, hflip: bool = True):
-    """The paired loader of pix2pix, discogan, dualgan and bicyclegan
+                  batch_size=None, prefetch: int = 2, hflip: bool = True, dp=None):
+    """The paired loader of pix2pix, discogan, dualgan, munit and bicyclegan
     (``tpugan/models/pix2pix.py:make_loader``): A|B pairs from
     ``--data_dir``/``--dataset_name``, or synthetic pairs; the training split
     shuffled, with a joint horizontal flip unless ``hflip`` is False
     (bicyclegan's has none, ``tpugan/models/bicyclegan.py:365-382``), the
-    others with seed + 991."""
+    others with seed + 991. Under ``dp`` each batch is this rank's rows of
+    the global one, the flip drawn for the global batch."""
     from tpugan_torch.data.im2im import joint_hflip_transform, paired_or_synthetic
     from tpugan_torch.data.loader import DeviceLoader
 
@@ -86,6 +87,7 @@ def paired_loader(cfg, device, height: int, width: int, split: str = "train",
         [a, b], batch_size or cfg.batch_size, device, shuffle=True,
         seed=cfg.seed if split == "train" else cfg.seed + 991, prefetch=prefetch,
         host_transform=joint_hflip_transform(cfg.seed) if split == "train" and hflip else None,
+        dp=dp,
     )
 
 
@@ -100,15 +102,18 @@ def first_batch(loader, epoch: int) -> tuple:
 
 def run_per_step(cfg, loader, state, step, sample, log_body, modules: dict, names,
                  epoch_end=None):
-    """The hand-rolled loop of cyclegan, munit, pix2pix and discogan
-    (``tpugan/models/pix2pix.py:run``): one step a batch, up to
+    """The hand-rolled loop of cyclegan, munit, pix2pix, discogan, unit and
+    bicyclegan (``tpugan/models/pix2pix.py:run``): one step a batch, up to
     ``--max_batches`` an epoch, from ``--epoch``; the step's scalars to
     ``--metrics_jsonl``, the ETA line with ``log_body(out)`` every
     ``--log_interval`` batches, ``sample(state, out, batches_done)`` every
     ``sample_interval``; ``epoch_end()`` (the schedulers' step) and the
     checkpoints after each epoch. Fused dispatch is not supported: the
-    notice, then one step a batch. Under data parallelism rank 0 alone logs,
-    samples and writes checkpoints."""
+    notice, then one step a batch. Under data parallelism every rank steps
+    on its share of ``loader``'s batches (the ``dp`` the trainer gave it)
+    and ``out`` holds global means; rank 0 alone logs, samples (so a
+    sampler reaches no collective: ``parallel/mesh.py``) and writes
+    checkpoints, each rank then waiting at a barrier."""
     import contextlib
 
     from tpugan_torch.parallel.mesh import is_writer, rank_zero_write

@@ -27,7 +27,7 @@ from typing import Callable, Optional
 
 import torch
 
-from tpugan_torch.parallel.mesh import global_means, local_rows
+from tpugan_torch.parallel.mesh import global_batch, global_means, local_rows
 from tpugan_torch.train.optim import capturable
 from tpugan_torch.train.state import TrainState, normalize_uint8
 
@@ -69,7 +69,7 @@ def make_step_b(cfg, state: TrainState, adv_loss: Callable,
         del labels
         device, dp = state.draws.device, state.dp
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        b = real.shape[0] * (dp.world if dp else 1)
+        b = global_batch(dp, real.shape[0])
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if masks is None:

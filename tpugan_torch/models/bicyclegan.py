@@ -28,6 +28,16 @@ and ``latent_dim`` translations with z from a generator of its own,
 through the eval-mode generator. Checkpoints ``<module>_<E>.pth`` for
 generator, encoder, D_VAE and D_LR; ``--epoch N`` resumes. The training
 loader flips nothing.
+
+Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/bicyclegan.py:427-429``):
+each rank loads its rows of the global batch; eps and z are drawn for the
+global batch and each rank keeps its rows; every BatchNorm, the ResNet18
+trunk's too, takes the global batch's statistics; the KL term, a sum over
+the batch, is scaled by the ranks, so that the gradient mean is the global
+sum's gradient; the losses are global means (the KL the global sum), and
+rank 0 alone samples and writes checkpoints. The two-phase update holds:
+each optimizer's gradient mean comes before its step.
 """
 
 from __future__ import annotations
@@ -51,6 +61,13 @@ from tpugan_torch.nn.layers import BatchNorm2d, Conv2d, LeakyReLU, Linear, Upsam
 from tpugan_torch.nn.resnet import ResNet18Trunk
 from tpugan_torch.nn.style import multi_d_loss
 from tpugan_torch.ops.image import avg_pool
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    global_batch,
+    global_means,
+    local_rows,
+    replicate_for,
+)
 from tpugan_torch.train.loop import train_device
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -222,9 +239,11 @@ def make_step(cfg: Config, state: TrainState):
     """``step(state, a_u8, b_u8, eps=None, sampled_z=None) -> (state,
     out)``: the two-phase E/G update, then D_VAE's and D_LR's. eps and the
     sampled z, each (B, latent_dim), are drawn from ``state.draws`` in that
-    order when not given. ``out`` holds ``loss_D_VAE``, ``loss_D_LR``,
-    ``g_loss`` (loss_GE), ``loss_pixel``, ``loss_kl`` and ``loss_latent``
-    as 0-d tensors."""
+    order when not given; under data parallelism (``state.dp``) both are the
+    global batch's, drawn or passed in, and the step keeps this rank's rows.
+    ``out`` holds ``loss_D_VAE``, ``loss_D_LR``, ``g_loss`` (loss_GE),
+    ``loss_pixel``, ``loss_kl`` and ``loss_latent`` as 0-d tensors (global
+    means; ``loss_kl`` the global batch's sum)."""
     G, E = state.modules["generator"], state.modules["encoder"]
     D_VAE, D_LR = state.modules["D_VAE"], state.modules["D_LR"]
     opt = state.optimizers
@@ -241,11 +260,13 @@ def make_step(cfg: Config, state: TrainState):
         device = state.draws.device
         real_a = normalize_uint8(a_u8.to(device, non_blocking=True))
         real_b = normalize_uint8(b_u8.to(device, non_blocking=True))
-        shape = (real_a.shape[0], cfg.latent_dim)
+        dp = state.dp
+        shape = (global_batch(dp, real_a.shape[0]), cfg.latent_dim)
         if eps is None:
             eps = torch.randn(shape, generator=state.draws, device=device)
         if sampled_z is None:
             sampled_z = torch.randn(shape, generator=state.draws, device=device)
+        eps, sampled_z = local_rows(dp, eps), local_rows(dp, sampled_z)
 
         # Phase 1 (bicyclegan.py:152-188): loss_GE; the encoder steps on it.
         opt["encoder"].zero_grad(set_to_none=True)
@@ -255,6 +276,8 @@ def make_step(cfg: Config, state: TrainState):
         loss_pixel = l1(fake_b, real_b)
         mu32, logvar32 = mu.float(), logvar.float()
         loss_kl = 0.5 * torch.sum(torch.exp(logvar32) + mu32 ** 2 - logvar32 - 1.0)
+        if dp is not None:
+            loss_kl = loss_kl * dp.world  # the ranks' gradient mean: the global sum's
         loss_vae_gan = multi_d_loss(D_VAE(fake_b), 1.0)
         _fake_b = G(real_a, sampled_z)
         loss_lr_gan = multi_d_loss(D_LR(_fake_b), 1.0)
@@ -275,16 +298,18 @@ def make_step(cfg: Config, state: TrainState):
         loss_d_lr = d_update("D_LR", D_LR, real_b, _fake_b.detach())
 
         state.step += 1
-        return state, {"loss_D_VAE": loss_d_vae, "loss_D_LR": loss_d_lr,
-                       "g_loss": loss_ge.detach(), "loss_pixel": loss_pixel.detach(),
-                       "loss_kl": loss_kl.detach(), "loss_latent": loss_latent.detach()}
+        out = {"loss_D_VAE": loss_d_vae, "loss_D_LR": loss_d_lr, "g_loss": loss_ge.detach(),
+               "loss_pixel": loss_pixel.detach(), "loss_kl": loss_kl.detach(),
+               "loss_latent": loss_latent.detach()}
+        return state, global_means(dp, out, tuple(out))
 
     return step
 
 
-def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2):
+def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2,
+                dp=None):
     return paired_loader(cfg, device, cfg.img_height, cfg.img_width, split, batch_size,
-                         prefetch, hflip=False)
+                         prefetch, hflip=False, dp=dp)
 
 
 def make_sampler(cfg: Config, modules: dict, device):
@@ -322,9 +347,10 @@ def run(cfg: Config, device=None) -> TrainState:
     device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
-    state = create_state(cfg, modules, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
     return run_per_step(
-        cfg, make_loader(cfg, device), state, make_step(cfg, state),
+        cfg, make_loader(cfg, device, dp=dp), state, make_step(cfg, state),
         make_sampler(cfg, modules, device),
         lambda out: "[D VAE_loss: %f, LR_loss: %f] [G loss: %f, pixel: %f, kl: %f, latent: %f]"
         % tuple(float(out[k]) for k in ("loss_D_VAE", "loss_D_LR", "g_loss", "loss_pixel",

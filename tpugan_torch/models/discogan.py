@@ -10,6 +10,13 @@ the G phase's fakes, detached.
 Every IN runs through the port's instance-norm kernel pair (``nn/im2im.py``),
 at batch 64 down to the 2x2 maps of ``up1``. The sampler runs the generators
 in eval mode (dropout off), as the reference does.
+
+Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/discogan.py:254-256``):
+each rank loads its rows of the global batch, the dropout masks of the
+four generator forwards are drawn for the global batch and each rank keeps
+its rows, the losses are global means, and rank 0 alone samples and writes
+checkpoints.
 """
 
 from __future__ import annotations
@@ -31,6 +38,13 @@ from tpugan_torch.models._im2im_common import (
 )
 from tpugan_torch.nn.im2im import PatchGAN, UNet, UNetDown, UNetUp, _numbered
 from tpugan_torch.nn.layers import Conv2d, Upsample, ZeroPadLT
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    global_batch,
+    global_means,
+    local_rows,
+    replicate_for,
+)
 from tpugan_torch.train.loop import train_device
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -103,9 +117,12 @@ def make_step(cfg: Config, state: TrainState):
     both generators, then one of D_A and of D_B (discogan.py:145-203).
     ``masks`` holds, for the four generator forwards in order (G_AB(real_a),
     G_BA(real_b), G_BA(fake_b), G_AB(fake_a)), the keep masks of their seven
-    dropout sites; None draws them from ``state.draws``. Each D sees the real
-    and the fake batch in one forward. ``out`` holds ``d_loss``, ``g_loss``,
-    ``loss_GAN``, ``loss_pixelwise`` and ``loss_cycle`` as 0-d tensors."""
+    dropout sites; None draws them from ``state.draws``, in that order. Under
+    data parallelism (``state.dp``) they are the global batch's, drawn or
+    passed in, and the step keeps this rank's rows. Each D sees the real and
+    the fake batch in one forward. ``out`` holds ``d_loss``, ``g_loss``,
+    ``loss_GAN``, ``loss_pixelwise`` and ``loss_cycle`` as 0-d tensors
+    (global means)."""
     G_AB, G_BA, D_A, D_B = (state.modules[k] for k in MODULES)
     g_params = [*G_AB.parameters(), *G_BA.parameters()]
 
@@ -123,7 +140,13 @@ def make_step(cfg: Config, state: TrainState):
         device = state.draws.device
         real_a = normalize_uint8(a_u8.to(device, non_blocking=True))
         real_b = normalize_uint8(b_u8.to(device, non_blocking=True))
-        m = masks if masks is not None else [None] * 4
+        dp = state.dp
+        if masks is None:
+            b = global_batch(dp, real_a.shape[0])
+            # G_AB(real_a), G_BA(real_b), G_BA(fake_b), G_AB(fake_a).
+            masks = [G.draw_masks(b, state.draws, real_a.shape[2:])
+                     for G in (G_AB, G_BA, G_BA, G_AB)]
+        m = [[local_rows(dp, x) for x in ms] for ms in masks]
 
         opt_g = state.optimizers["G"]
         opt_g.zero_grad(set_to_none=True)
@@ -141,15 +164,18 @@ def make_step(cfg: Config, state: TrainState):
         loss_d_a = d_update(state, "D_A", D_A, real_a, fake_a.detach())
         loss_d_b = d_update(state, "D_B", D_B, real_b, fake_b.detach())
         state.step += 1
-        return state, {"d_loss": 0.5 * (loss_d_a + loss_d_b), "g_loss": g_loss.detach(),
-                       "loss_GAN": loss_gan.detach(), "loss_pixelwise": loss_pixelwise.detach(),
-                       "loss_cycle": loss_cycle.detach()}
+        out = {"d_loss": 0.5 * (loss_d_a + loss_d_b), "g_loss": g_loss.detach(),
+               "loss_GAN": loss_gan.detach(), "loss_pixelwise": loss_pixelwise.detach(),
+               "loss_cycle": loss_cycle.detach()}
+        return state, global_means(dp, out, tuple(out))
 
     return step
 
 
-def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2):
-    return paired_loader(cfg, device, cfg.img_height, cfg.img_width, split, batch_size, prefetch)
+def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2,
+                dp=None):
+    return paired_loader(cfg, device, cfg.img_height, cfg.img_width, split, batch_size, prefetch,
+                         dp=dp)
 
 
 def make_sampler(cfg: Config, modules: dict, device):
@@ -180,9 +206,10 @@ def run(cfg: Config, device=None) -> TrainState:
     device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
-    state = create_state(cfg, modules, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
     return run_per_step(
-        cfg, make_loader(cfg, device), state, make_step(cfg, state),
+        cfg, make_loader(cfg, device, dp=dp), state, make_step(cfg, state),
         make_sampler(cfg, modules, device),
         lambda out: "[D loss: %f] [G loss: %f, adv: %f, pixel: %f, cycle: %f]" % (
             float(out["d_loss"]), float(out["g_loss"]), float(out["loss_GAN"]),

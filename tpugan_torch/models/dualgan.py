@@ -15,6 +15,15 @@ critics' BatchNorm running statistics take two updates a critic step (real,
 then fake) and one a generator step; the penalty's forward normalizes by its
 batch statistics and leaves the running ones alone (``batch_stats_frozen``),
 as the JAX package drops that update (``tpugan/models/dualgan.py:144-168``).
+
+Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/dualgan.py:300-302``):
+each rank loads its rows of the global batch; the dropout masks and the
+penalty's alphas are drawn for the global batch and each rank keeps its
+rows; the critics' BatchNorm takes the global batch's statistics, in the
+penalty's forward too, whose gradient of a gradient then crosses the ranks;
+the losses are global means, and rank 0 alone logs, samples and writes
+checkpoints.
 """
 
 from __future__ import annotations
@@ -39,6 +48,15 @@ from tpugan_torch.models._im2im_common import (
 from tpugan_torch.nn.im2im import PatchGAN, UNet, UNetDown, UNetUp, _numbered
 from tpugan_torch.nn.layers import ConvTranspose2d, batch_stats_frozen
 from tpugan_torch.ops.penalty import wgan_gp_penalty
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    global_batch,
+    global_means,
+    is_writer,
+    local_rows,
+    rank_zero_write,
+    replicate_for,
+)
 from tpugan_torch.train.loop import StepObserver, train_device
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -114,9 +132,11 @@ def make_steps(cfg: Config, state: TrainState):
     ``d_step`` takes ``masks`` for its two generator forwards, G_BA(b) then
     G_AB(a), and ``alphas``, the penalty's (B, 1, 1, 1) alpha for domain A
     then B; ``g_step`` takes ``masks`` for G_BA(b), G_AB(a), G_BA(fake_b),
-    G_AB(fake_a). What is None is drawn from ``state.draws``: the masks as
-    the forwards run, then the alphas. ``d_step``'s ``out`` holds ``d_loss``;
-    ``g_step``'s ``g_adv``, ``g_cycle`` and ``g_loss``."""
+    G_AB(fake_a). What is None is drawn from ``state.draws``: the masks in
+    the forwards' order, then the alphas. Under data parallelism
+    (``state.dp``) the draws are the global batch's, drawn or passed in, and
+    the steps keep this rank's rows. ``d_step``'s ``out`` holds ``d_loss``;
+    ``g_step``'s ``g_adv``, ``g_cycle`` and ``g_loss`` (global means)."""
     G_AB, G_BA, D_A, D_B = (state.modules[k] for k in MODULES)
     g_params = [*G_AB.parameters(), *G_BA.parameters()]
 
@@ -129,13 +149,18 @@ def make_steps(cfg: Config, state: TrainState):
         device = state.draws.device
         imgs_a = normalize_uint8(a_u8.to(device, non_blocking=True))
         imgs_b = normalize_uint8(b_u8.to(device, non_blocking=True))
-        m = masks if masks is not None else [None] * 2
+        dp = state.dp
+        b = global_batch(dp, imgs_a.shape[0])
+        if masks is None:
+            masks = [G.draw_masks(b, state.draws, imgs_a.shape[2:]) for G in (G_BA, G_AB)]
+        m = [[local_rows(dp, x) for x in ms] for ms in masks]
         with torch.no_grad():
-            fake_a = G_BA(imgs_b, m[0], state.draws)
-            fake_b = G_AB(imgs_a, m[1], state.draws)
+            fake_a = G_BA(imgs_b, m[0])
+            fake_b = G_AB(imgs_a, m[1])
         if alphas is None:
-            shape = (imgs_a.shape[0], 1, 1, 1)
-            alphas = [torch.rand(shape, generator=state.draws, device=device) for _ in range(2)]
+            alphas = [torch.rand((b, 1, 1, 1), generator=state.draws, device=device)
+                      for _ in range(2)]
+        alphas = [local_rows(dp, a) for a in alphas]
         opt_a, opt_b = state.optimizers["D_A"], state.optimizers["D_B"]
         opt_a.zero_grad(set_to_none=True)
         opt_b.zero_grad(set_to_none=True)
@@ -145,32 +170,39 @@ def make_steps(cfg: Config, state: TrainState):
         opt_a.step()
         opt_b.step()
         state.step += 1
-        return state, {"d_loss": d_loss.detach()}
+        return state, global_means(dp, {"d_loss": d_loss.detach()}, ("d_loss",))
 
     def g_step(state: TrainState, a_u8, b_u8, masks=None):
         device = state.draws.device
         imgs_a = normalize_uint8(a_u8.to(device, non_blocking=True))
         imgs_b = normalize_uint8(b_u8.to(device, non_blocking=True))
-        m = masks if masks is not None else [None] * 4
+        dp = state.dp
+        if masks is None:
+            b = global_batch(dp, imgs_a.shape[0])
+            masks = [G.draw_masks(b, state.draws, imgs_a.shape[2:])
+                     for G in (G_BA, G_AB, G_BA, G_AB)]
+        m = [[local_rows(dp, x) for x in ms] for ms in masks]
         opt_g = state.optimizers["G"]
         opt_g.zero_grad(set_to_none=True)
-        fake_a = G_BA(imgs_b, m[0], state.draws)
-        fake_b = G_AB(imgs_a, m[1], state.draws)
-        recov_a = G_BA(fake_b, m[2], state.draws)
-        recov_b = G_AB(fake_a, m[3], state.draws)
+        fake_a = G_BA(imgs_b, m[0])
+        fake_b = G_AB(imgs_a, m[1])
+        recov_a = G_BA(fake_b, m[2])
+        recov_b = G_AB(fake_a, m[3])
         g_adv = -torch.mean(D_A(fake_a).float()) - torch.mean(D_B(fake_b).float())
         g_cycle = l1(recov_a, imgs_a) + l1(recov_b, imgs_b)
         g_loss = LAMBDA_ADV * g_adv + LAMBDA_CYCLE * g_cycle
         g_loss.backward(inputs=g_params)
         opt_g.step()
-        return state, {"g_adv": g_adv.detach(), "g_cycle": g_cycle.detach(),
-                       "g_loss": g_loss.detach()}
+        out = {"g_adv": g_adv.detach(), "g_cycle": g_cycle.detach(), "g_loss": g_loss.detach()}
+        return state, global_means(dp, out, tuple(out))
 
     return d_step, g_step
 
 
-def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2):
-    return paired_loader(cfg, device, cfg.img_size, cfg.img_size, split, batch_size, prefetch)
+def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2,
+                dp=None):
+    return paired_loader(cfg, device, cfg.img_size, cfg.img_size, split, batch_size, prefetch,
+                         dp=dp)
 
 
 def make_sampler(cfg: Config, modules: dict, device):
@@ -200,16 +232,19 @@ def run(cfg: Config, device=None) -> TrainState:
     tests pass the CPU. On CUDA, float32 means TF32 off. The loop of
     ``tpugan/models/dualgan.py:run``: a critic step every batch, a generator
     step and the log line on every ``n_critic``-th, a sample every
-    ``sample_interval`` batches."""
+    ``sample_interval`` batches; under data parallelism rank 0 alone logs,
+    samples and writes checkpoints."""
     device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
-    loader = make_loader(cfg, device)
-    state = create_state(cfg, modules, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    loader = make_loader(cfg, device, dp=dp)
+    state = replicate_for(dp, create_state(cfg, modules, device))
     observer = StepObserver(cfg)
     d_step, g_step = map(observer.checked, make_steps(cfg, state))
     sample = make_sampler(cfg, modules, device)
     eta = EtaLogger(cfg.n_epochs)
+    writer = is_writer()
 
     bpe = len(loader)
     if cfg.max_batches >= 0:
@@ -226,12 +261,12 @@ def run(cfg: Config, device=None) -> TrainState:
                 else:
                     state, g_out = g_step(state, *batch)
                     observer.observe(batches_done, {**out, **g_out})
-                    if cfg.log_interval > 0:
+                    if writer and cfg.log_interval > 0:
                         eta.line(epoch, i, bpe, "[D loss: %f] [G loss: %f, cycle: %f]" % (
                             float(out["d_loss"]), float(g_out["g_adv"]),
                             float(g_out["g_cycle"])))
                 if cfg.sample_interval > 0 and batches_done % cfg.sample_interval == 0:
-                    sample(state, out, batches_done)
+                    rank_zero_write(lambda: sample(state, out, batches_done))
                 batches_done += 1
         checkpoint_epoch(modules, cfg, epoch, MODULES)
     observer.close()

@@ -18,7 +18,13 @@ and two discriminator calls, and each D phase two discriminator calls.
 
 The library functions take an explicit ``device``; the tests run them on the
 CPU. ``run`` trains on CUDA unless told otherwise, and raises when there is
-none.
+none. Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/munit.py:308-316``):
+each rank loads its rows of the global batch, the style codes are drawn for
+the global batch from ``state.generator`` and each rank keeps its rows (the
+AdaIN pair runs on them), the losses are global means, and rank 0 alone
+samples and writes checkpoints. The default batch of 1 does not divide over
+the ranks and raises.
 """
 
 from __future__ import annotations
@@ -45,6 +51,14 @@ from tpugan_torch.nn.style import (
     MunitDecoder,
     StyleEncoder,
     multi_d_loss,
+)
+from tpugan_torch.parallel.mesh import (
+    DataParallel,
+    auto_sharding,
+    global_batch,
+    global_means,
+    local_rows,
+    replicate_for,
 )
 from tpugan_torch.train.loop import train_device
 from tpugan_torch.train.optim import linear_decay_lambda
@@ -98,13 +112,16 @@ class MunitEncoder(nn.Module):
 class TrainState:
     """What the step updates: the modules' parameters (through the
     optimizers), the optimizers' moments and the schedulers; ``generator``
-    draws the style codes. ``step`` counts optimizer steps."""
+    draws the style codes. ``step`` counts optimizer steps; ``dp`` is the
+    data-parallel descriptor (``parallel.replicate_for``), None in one
+    process."""
 
     modules: dict
     optimizers: dict
     schedulers: dict
     generator: torch.Generator
     step: int = 0
+    dp: Optional[DataParallel] = None
 
 
 def build(cfg: Config, device) -> dict:
@@ -138,7 +155,9 @@ def make_step(cfg: Config, modules: dict, device):
     then one update of D1 and of D2 (munit.py:185-254). ``a_u8``/``b_u8`` are
     NHWC uint8 batches. ``styles`` is (style_1, style_2), each (B,
     style_dim); None draws them, in that order, from ``state.generator``.
-    ``out`` holds ``d_loss`` and ``g_loss`` as 0-d tensors. After the step
+    Under data parallelism (``state.dp``) they are the global batch's, drawn
+    or passed in, and the step keeps this rank's rows. ``out`` holds
+    ``d_loss`` and ``g_loss`` as 0-d tensors (global means). After the step
     each parameter's ``.grad`` holds the gradient it was updated with."""
     Enc1, Dec1, Enc2, Dec2, D1, D2 = (modules[k] for k in MODULES)
     g_params = [p for k in MODULES[:4] for p in modules[k].parameters()]
@@ -155,10 +174,11 @@ def make_step(cfg: Config, modules: dict, device):
     def step(state: TrainState, a_u8, b_u8, styles=None):
         x1 = normalize_uint8(a_u8.to(device, non_blocking=True))
         x2 = normalize_uint8(b_u8.to(device, non_blocking=True))
+        dp = state.dp
         if styles is None:
-            shape = (x1.shape[0], cfg.style_dim)
+            shape = (global_batch(dp, x1.shape[0]), cfg.style_dim)
             styles = [torch.randn(shape, generator=state.generator) for _ in range(2)]
-        style_1, style_2 = (s.to(device) for s in styles)
+        style_1, style_2 = (local_rows(dp, s).to(device) for s in styles)
 
         # G phase. Only the encoders' and decoders' parameters take
         # gradients; the discriminators are applied but not updated here.
@@ -190,13 +210,16 @@ def make_step(cfg: Config, modules: dict, device):
         loss_d2 = d_update(state, "D2", D2, x2, x12.detach())
 
         state.step += 1
-        return state, {"d_loss": loss_d1 + loss_d2, "g_loss": g_loss.detach()}
+        out = {"d_loss": loss_d1 + loss_d2, "g_loss": g_loss.detach()}
+        return state, global_means(dp, out, tuple(out))
 
     return step
 
 
-def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2):
-    return paired_loader(cfg, device, cfg.img_height, cfg.img_width, split, batch_size, prefetch)
+def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2,
+                dp=None):
+    return paired_loader(cfg, device, cfg.img_height, cfg.img_width, split, batch_size, prefetch,
+                         dp=dp)
 
 
 def make_sampler(cfg: Config, modules: dict, device):
@@ -236,9 +259,10 @@ def run(cfg: Config, device=None) -> TrainState:
     device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
-    state = create_state(cfg, modules, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
     return run_per_step(
-        cfg, make_loader(cfg, device), state, make_step(cfg, modules, device),
+        cfg, make_loader(cfg, device, dp=dp), state, make_step(cfg, modules, device),
         make_sampler(cfg, modules, device),
         lambda out: "[D loss: %f] [G loss: %f]" % (float(out["d_loss"]), float(out["g_loss"])),
         modules, MODULES, epoch_end=lambda: [s.step() for s in state.schedulers.values()])

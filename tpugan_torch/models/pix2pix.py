@@ -13,6 +13,13 @@ instance-norm kernel pair (``nn/im2im.py``). Dropout stays active in
 sampling, as the reference samples the train-mode generator; the sampler
 draws its masks from a generator of its own. Checkpoints are
 ``generator_<E>.pth``/``discriminator_<E>.pth``, resumed with ``--epoch N``.
+
+Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/pix2pix.py:228-230``):
+each rank loads its rows of the global batch, the dropout masks are drawn
+for the global batch and each rank keeps its rows, the losses are global
+means, and rank 0 alone samples and writes checkpoints. The default batch
+of 1 does not divide over the ranks and raises.
 """
 
 from __future__ import annotations
@@ -32,6 +39,13 @@ from tpugan_torch.models._im2im_common import (
     run_per_step,
 )
 from tpugan_torch.nn.im2im import GeneratorUNet, PatchGAN
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    global_batch,
+    global_means,
+    local_rows,
+    replicate_for,
+)
 from tpugan_torch.train.loop import train_device
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -95,9 +109,11 @@ def make_step(cfg: Config, state: TrainState):
     """``step(state, a_u8, b_u8, masks=None) -> (state, out)``: one G update,
     then one D update (pix2pix.py:138-172). ``masks`` holds the keep masks
     of the generator's nine dropout sites in call order; None draws them
-    from ``state.draws``. D sees the real and the fake pair in one forward
-    (its norms are per sample). ``out`` holds ``d_loss``, ``g_loss``,
-    ``loss_pixel`` and ``loss_GAN`` as 0-d tensors."""
+    from ``state.draws``. Under data parallelism (``state.dp``) they are
+    the global batch's, drawn or passed in, and the step keeps this rank's
+    rows. D sees the real and the fake pair in one forward (its norms are
+    per sample). ``out`` holds ``d_loss``, ``g_loss``, ``loss_pixel`` and
+    ``loss_GAN`` as 0-d tensors (global means)."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -106,7 +122,10 @@ def make_step(cfg: Config, state: TrainState):
         device = state.draws.device
         real_a = normalize_uint8(b_u8.to(device, non_blocking=True))  # the swap
         real_b = normalize_uint8(a_u8.to(device, non_blocking=True))
-        n = real_a.shape[0]
+        n, dp = real_a.shape[0], state.dp
+        if masks is None:
+            masks = G.draw_masks(global_batch(dp, n), state.draws, real_a.shape[2:])
+        masks = [local_rows(dp, m) for m in masks]
 
         opt_g.zero_grad(set_to_none=True)
         fake_b = G(real_a, masks, state.draws)
@@ -123,14 +142,17 @@ def make_step(cfg: Config, state: TrainState):
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                       "loss_pixel": loss_pixel.detach(), "loss_GAN": loss_gan.detach()}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+               "loss_pixel": loss_pixel.detach(), "loss_GAN": loss_gan.detach()}
+        return state, global_means(dp, out, tuple(out))
 
     return step
 
 
-def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2):
-    return paired_loader(cfg, device, cfg.img_height, cfg.img_width, split, batch_size, prefetch)
+def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2,
+                dp=None):
+    return paired_loader(cfg, device, cfg.img_height, cfg.img_width, split, batch_size, prefetch,
+                         dp=dp)
 
 
 def make_sampler(cfg: Config, modules: dict, device):
@@ -158,9 +180,10 @@ def run(cfg: Config, device=None) -> TrainState:
     device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
-    state = create_state(cfg, modules, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
     return run_per_step(
-        cfg, make_loader(cfg, device), state, make_step(cfg, state),
+        cfg, make_loader(cfg, device, dp=dp), state, make_step(cfg, state),
         make_sampler(cfg, modules, device),
         lambda out: "[D loss: %f] [G loss: %f, pixel: %f, adv: %f]" % (
             float(out["d_loss"]), float(out["g_loss"]), float(out["loss_pixel"]),

@@ -36,6 +36,14 @@ from tpugan_torch.losses import l1, mse
 from tpugan_torch.nn.sr import SRDiscriminator, SRGANGenerator
 from tpugan_torch.nn.vgg import imagenet_normalize, vgg_features
 from tpugan_torch.ops.image import resize_bicubic, upsample_nearest
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    gather_rows,
+    global_means,
+    is_writer,
+    rank_zero_write,
+    replicate_for,
+)
 from tpugan_torch.train.loop import StepObserver, train_device
 from tpugan_torch.train.state import TrainState
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -111,7 +119,8 @@ def make_step_pairs(cfg: Config, state: TrainState):
     ImageNet-normalized (LR, HR) pair: one G update, then one D update
     (srgan.py:108-145). D's BatchNorm statistics move three times, on the
     fake in the G phase, then on the real and the fake batch. ``out`` holds
-    ``d_loss`` and ``g_loss`` (0-d), ``imgs_lr`` and ``gen_hr`` (NCHW)."""
+    ``d_loss`` and ``g_loss`` (0-d; global means under data parallelism,
+    ``state.dp``), ``imgs_lr`` and ``gen_hr`` (NCHW, this rank's rows)."""
     G, D, V = (state.modules[k] for k in ("generator", "discriminator", "vgg"))
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -134,15 +143,18 @@ def make_step_pairs(cfg: Config, state: TrainState):
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                       "imgs_lr": imgs_lr, "gen_hr": gen_d}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "imgs_lr": imgs_lr,
+               "gen_hr": gen_d}
+        return state, global_means(state.dp, out, ("d_loss", "g_loss"))
 
     return step
 
 
-def make_loader(cfg, device, batch_size=None, prefetch: int = 2) -> DeviceLoader:
+def make_loader(cfg, device, batch_size=None, prefetch: int = 2, dp=None) -> DeviceLoader:
     """CelebA images at (hr_height, hr_height), every one of them a training
-    image, or the synthetic faces (``tpugan/models/srgan.py:make_loader``)."""
+    image, or the synthetic faces (``tpugan/models/srgan.py:make_loader``);
+    under ``dp`` each batch is this rank's rows of the global one, whose LR
+    and HR pairs the step derives on the device."""
     imgs, is_real = celeba_images_or_synthetic(
         cfg.data_dir, cfg.dataset_name, cfg.hr_height, cfg.hr_height,
         mode="train", val_tail=0, synthetic=cfg.synthetic_data, seed=cfg.seed,
@@ -150,7 +162,7 @@ def make_loader(cfg, device, batch_size=None, prefetch: int = 2) -> DeviceLoader
     if not is_real:
         print("[tpugan] CelebA not found on disk — using synthetic faces")
     return DeviceLoader([imgs], batch_size or cfg.batch_size, device, shuffle=True,
-                        seed=cfg.seed, prefetch=prefetch)
+                        seed=cfg.seed, prefetch=prefetch, dp=dp)
 
 
 def nhwc(x: torch.Tensor) -> np.ndarray:
@@ -186,24 +198,31 @@ def run(cfg: Config, device=None) -> TrainState:
     without a newline every ``--log_interval`` batches, a sample every
     ``--sample_interval``, checkpoints every ``--checkpoint_interval``
     epochs. ``device`` None means CUDA, and raises when there is none; the
-    tests pass the CPU. On CUDA, float32 means TF32 off."""
+    tests pass the CPU. On CUDA, float32 means TF32 off. Under a launcher of
+    several ranks it runs data-parallel (``tpugan_torch/parallel/mesh.py``,
+    as ``tpugan/models/srgan.py:268-270``): each rank steps on its rows of
+    the global batch, with global BatchNorm statistics in G and D; the
+    sample's LR and SR images are gathered from the ranks, and rank 0 alone
+    logs, writes it and writes checkpoints."""
     device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(cfg, modules)
-    state = create_state(cfg, modules, device)
-    loader = make_loader(cfg, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
+    loader = make_loader(cfg, device, dp=dp)
     observer = StepObserver(cfg)
     step = observer.checked(make_step(cfg, state))
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
+    writer = is_writer()
     for epoch in range(cfg.epoch, cfg.n_epochs):
         with contextlib.closing(loader.epoch(epoch)) as batches:
             for i, batch in enumerate(batches):
                 if cfg.max_batches >= 0 and i >= cfg.max_batches:
                     break
                 state, out = step(state, *batch)
-                if cfg.log_interval > 0 and i % cfg.log_interval == 0:
+                if writer and cfg.log_interval > 0 and i % cfg.log_interval == 0:
                     sys.stdout.write("[Epoch %d/%d] [Batch %d/%d] [D loss: %f] [G loss: %f]" % (
                         epoch, cfg.n_epochs, i, bpe, float(out["d_loss"]),
                         float(out["g_loss"])))
@@ -211,7 +230,8 @@ def run(cfg: Config, device=None) -> TrainState:
                 batches_done = epoch * bpe + i
                 observer.observe(batches_done, out)
                 if cfg.sample_interval > 0 and batches_done % cfg.sample_interval == 0:
-                    save_sr_sample(cfg, out, batches_done)
+                    sample = {k: gather_rows(dp, out[k]) for k in ("imgs_lr", "gen_hr")}
+                    rank_zero_write(lambda: save_sr_sample(cfg, sample, batches_done))
         if cfg.checkpoint_interval != -1 and epoch % cfg.checkpoint_interval == 0:
             save_checkpoints(cfg, modules, epoch)
     observer.close()

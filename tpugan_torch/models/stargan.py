@@ -24,7 +24,13 @@ sampler drops that update (``tpugan/models/stargan.py:375-381``).
 
 The library functions take an explicit ``device``; the tests run them on the
 CPU. ``run`` trains on CUDA unless told otherwise, and raises when there is
-none.
+none. Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/stargan.py:426-428``):
+each rank loads its rows of the global (image, attributes) batch; the
+sampled attributes and the penalty's alphas are drawn for the global batch
+and each rank keeps its rows; the running buffers move by the global
+batch's means, so they stay equal on every rank; the losses are global
+means, and rank 0 alone logs, samples and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -52,6 +58,15 @@ from tpugan_torch.nn.layers import (
     batch_stats_frozen,
 )
 from tpugan_torch.ops.penalty import wgan_gp_penalty
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    global_batch,
+    global_means,
+    is_writer,
+    local_rows,
+    rank_zero_write,
+    replicate_for,
+)
 from tpugan_torch.train.loop import StepObserver, train_device
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -197,13 +212,16 @@ def make_steps(cfg: Config, state: TrainState):
     generator's forward on ``sampled_c`` (which advances its IN buffers),
     then one D update on WGAN-GP plus the attribute loss of the real batch.
     ``sampled_c`` is (B, c_dim) of 0/1 floats and ``alpha`` the penalty's
-    (B, 1, 1, 1); None draws them from ``state.draws`` in that order.
-    ``out`` holds ``d_adv``, ``d_cls``, ``d_loss`` and ``sampled_c``.
+    (B, 1, 1, 1); None draws them from ``state.draws`` in that order. Under
+    data parallelism (``state.dp``) both are the global batch's, drawn or
+    passed in, and the step keeps this rank's rows. ``out`` holds
+    ``d_adv``, ``d_cls``, ``d_loss`` (global means) and ``sampled_c``, this
+    rank's rows, which the g_step takes.
     ``g_step(state, imgs_u8, labels, sampled_c)``: the translation to
     ``sampled_c`` and back to ``labels`` (two forwards, two buffer
     advances) and one G update; ``out`` holds ``g_loss``, ``g_adv``,
-    ``g_cls`` and ``g_rec``. ``imgs_u8`` is NHWC uint8, ``labels`` (B,
-    c_dim) float."""
+    ``g_cls`` and ``g_rec`` (global means). ``imgs_u8`` is NHWC uint8,
+    ``labels`` (B, c_dim) float, this rank's rows under data parallelism."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -213,15 +231,17 @@ def make_steps(cfg: Config, state: TrainState):
         device = state.draws.device
         imgs = normalize_uint8(imgs_u8.to(device, non_blocking=True))
         labels = labels.to(device, non_blocking=True).float()
-        b = imgs.shape[0]
+        dp = state.dp
+        b = global_batch(dp, imgs.shape[0])
         if sampled_c is None:
             sampled_c = torch.randint(0, 2, (b, c_dim), generator=state.draws,
                                       device=device).float()
-        sampled_c = sampled_c.to(device)
+        sampled_c = local_rows(dp, sampled_c.to(device))
         with torch.no_grad():
             fake = G(imgs, sampled_c)
         if alpha is None:
             alpha = torch.rand((b, 1, 1, 1), generator=state.draws, device=device)
+        alpha = local_rows(dp, alpha)
         opt_d.zero_grad(set_to_none=True)
         real_validity, pred_cls = D(imgs)
         fake_validity, _ = D(fake)
@@ -233,8 +253,9 @@ def make_steps(cfg: Config, state: TrainState):
         d_loss.backward()
         opt_d.step()
         state.step += 1
-        return state, {"d_adv": d_adv.detach(), "d_cls": d_cls.detach(),
-                       "d_loss": d_loss.detach(), "sampled_c": sampled_c}
+        out = {"d_adv": d_adv.detach(), "d_cls": d_cls.detach(), "d_loss": d_loss.detach(),
+               "sampled_c": sampled_c}
+        return state, global_means(dp, out, ("d_adv", "d_cls", "d_loss"))
 
     def g_step(state: TrainState, imgs_u8, labels, sampled_c):
         device = state.draws.device
@@ -250,16 +271,19 @@ def make_steps(cfg: Config, state: TrainState):
         g_loss = g_adv + LAMBDA_CLS * g_cls + LAMBDA_REC * g_rec
         g_loss.backward(inputs=g_params)
         opt_g.step()
-        return state, {"g_loss": g_loss.detach(), "g_adv": g_adv.detach(),
-                       "g_cls": g_cls.detach(), "g_rec": g_rec.detach()}
+        out = {"g_loss": g_loss.detach(), "g_adv": g_adv.detach(), "g_cls": g_cls.detach(),
+               "g_rec": g_rec.detach()}
+        return state, global_means(state.dp, out, tuple(out))
 
     return d_step, g_step
 
 
-def make_loader(cfg: Config, device, mode: str = "train", batch_size=None, prefetch: int = 2):
+def make_loader(cfg: Config, device, mode: str = "train", batch_size=None, prefetch: int = 2,
+                dp=None):
     """CelebA images and the selected attributes (or the synthetic faces),
     shuffled; the training split with the CycleGAN jitter on the images, the
-    val split with seed + 991."""
+    val split with seed + 991. Under ``dp`` each batch is this rank's rows
+    of the global one, images and attributes alike."""
     from tpugan_torch.data.im2im import celeba_or_synthetic, resize_crop_flip_transform
     from tpugan_torch.data.loader import DeviceLoader
 
@@ -272,7 +296,7 @@ def make_loader(cfg: Config, device, mode: str = "train", batch_size=None, prefe
                  if mode == "train" else None)
     return DeviceLoader([imgs, labels], batch_size or cfg.batch_size, device, shuffle=True,
                         seed=cfg.seed if mode == "train" else cfg.seed + 991, prefetch=prefetch,
-                        host_transform=transform)
+                        host_transform=transform, dp=dp)
 
 
 # stargan.py:164-170: the translation sheet of the default five attributes,
@@ -331,13 +355,15 @@ def run(cfg: Config, device=None) -> TrainState:
     ``tpugan/models/stargan.py:run``: a D step every batch; on every
     ``n_critic``-th a G step, the log line and, every ``sample_interval``
     batches, a sample sheet; checkpoints in ``saved_models/`` itself
-    (stargan.py:297-300), ``--epoch N`` resuming from them."""
+    (stargan.py:297-300), ``--epoch N`` resuming from them. Under data
+    parallelism rank 0 alone logs, samples and writes checkpoints."""
     device = train_device(cfg, device)
     ckpt_cfg = dataclasses.replace(cfg, dataset_name="")  # saved_models/<name>_<epoch>.pth
     modules = build(cfg, device)
     maybe_resume(modules, ckpt_cfg, MODULES)
-    loader = make_loader(cfg, device)
-    state = create_state(cfg, modules, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    loader = make_loader(cfg, device, dp=dp)
+    state = replicate_for(dp, create_state(cfg, modules, device))
     observer = StepObserver(cfg)
     d_step, g_step = map(observer.checked, make_steps(cfg, state))
     sample = make_sampler(cfg, modules, device)
@@ -346,6 +372,7 @@ def run(cfg: Config, device=None) -> TrainState:
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
     start_time = time.time()
+    writer = is_writer()
     for epoch in range(cfg.epoch, cfg.n_epochs):
         with contextlib.closing(loader.epoch(epoch)) as batches:
             for i, batch in enumerate(batches):
@@ -358,7 +385,7 @@ def run(cfg: Config, device=None) -> TrainState:
                     continue
                 state, g_out = g_step(state, *batch, d_out["sampled_c"])
                 observer.observe(batches_done, {**d_out, **g_out})
-                if cfg.log_interval > 0:
+                if writer and cfg.log_interval > 0:
                     batches_left = cfg.n_epochs * bpe - batches_done
                     time_left = datetime.timedelta(
                         seconds=batches_left * (time.time() - start_time) / (batches_done + 1))
@@ -370,7 +397,7 @@ def run(cfg: Config, device=None) -> TrainState:
                            float(g_out["g_cls"]), float(g_out["g_rec"]), time_left))
                     sys.stdout.flush()
                 if cfg.sample_interval > 0 and batches_done % cfg.sample_interval == 0:
-                    sample(state, d_out, batches_done)
+                    rank_zero_write(lambda: sample(state, d_out, batches_done))
         checkpoint_epoch(modules, ckpt_cfg, epoch, MODULES)
     observer.close()
     return state

@@ -24,7 +24,12 @@ the LeakyReLU(0.2) or ReLU after it.
 
 The library functions take an explicit ``device``; the tests run them on the
 CPU. ``run`` trains on CUDA unless told otherwise, and raises when there is
-none.
+none. Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/unit.py:360-368``):
+each rank loads its rows of the global batch, each encoding's noise is
+drawn for the global batch and each rank keeps its rows, the losses are
+global means, and rank 0 alone samples and writes checkpoints. The default
+batch of 1 does not divide over the ranks and raises.
 """
 
 from __future__ import annotations
@@ -45,6 +50,13 @@ from tpugan_torch.nn.layers import (
     InstanceNorm,
     LeakyReLU,
     ReflectionPad,
+)
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    global_batch,
+    global_means,
+    local_rows,
+    replicate_for,
 )
 from tpugan_torch.train.loop import train_device
 from tpugan_torch.train.optim import linear_decay_lambda
@@ -89,8 +101,10 @@ class UnitEncoder(nn.Module):
     """models.py:53-90: ``model_blocks`` (ReflectionPad(3), c7, IN +
     LeakyReLU(0.2); ``n_downsample`` stride-2 4x4 convs with IN + ReLU;
     three residual blocks), then ``shared_block``. ``forward(x, noise=None,
-    generator=None)`` returns (mu, z = mu + noise), the noise N(0, 1) of
-    mu's shape drawn from ``generator`` unless passed."""
+    generator=None, dp=None)`` returns (mu, z = mu + noise), the noise N(0,
+    1) of mu's shape drawn from ``generator`` unless passed; under ``dp``
+    the noise is the global batch's, drawn or passed in, and this rank's
+    rows are kept."""
 
     def __init__(self, in_channels: int, dim: int, n_downsample: int, shared_block: nn.Module,
                  generator: Optional[torch.Generator] = None):
@@ -108,11 +122,12 @@ class UnitEncoder(nn.Module):
         self.shared_block = shared_block
 
     def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, dp=None):
         mu = self.shared_block(self.model_blocks(x))
         if noise is None:
-            noise = torch.randn(mu.shape, generator=generator, device=mu.device)
-        return mu, mu + noise
+            shape = (global_batch(dp, mu.shape[0]), *mu.shape[1:])
+            noise = torch.randn(shape, generator=generator, device=mu.device)
+        return mu, mu + local_rows(dp, noise)
 
 
 class UnitGenerator(nn.Module):
@@ -206,8 +221,10 @@ def make_step(cfg: Config, state: UnitState):
     the encoders and generators, then one of D1 and of D2 (unit.py:189-258).
     ``noise`` holds the N(0, 1) of the four encodings in call order, E1(x1),
     E2(x2), E1(fake_x1), E2(fake_x2), each of mu's shape; None draws each
-    from ``state.draws`` as its encoding runs. ``out`` holds ``d_loss`` (D1's
-    plus D2's) and ``g_loss`` as 0-d tensors."""
+    from ``state.draws`` as its encoding runs; under data parallelism
+    (``state.dp``) each is the global batch's, drawn or passed in, and the
+    step keeps this rank's rows. ``out`` holds ``d_loss`` (D1's plus D2's)
+    and ``g_loss`` as 0-d tensors (global means)."""
     E1, E2, G1, G2, D1, D2 = (state.modules[k] for k in ("E1", "E2", "G1", "G2", "D1", "D2"))
     g_params = ge_parameters(state.modules)
 
@@ -224,14 +241,15 @@ def make_step(cfg: Config, state: UnitState):
         x1 = normalize_uint8(a_u8.to(device, non_blocking=True))
         x2 = normalize_uint8(b_u8.to(device, non_blocking=True))
         n = noise if noise is not None else [None] * 4
+        dp = state.dp
         opt_g = state.optimizers["G"]
         opt_g.zero_grad(set_to_none=True)
-        mu1, z1 = E1(x1, n[0], state.draws)
-        mu2, z2 = E2(x2, n[1], state.draws)
+        mu1, z1 = E1(x1, n[0], state.draws, dp)
+        mu2, z2 = E2(x2, n[1], state.draws, dp)
         recon_x1, recon_x2 = G1(z1), G2(z2)
         fake_x1, fake_x2 = G1(z2), G2(z1)
-        mu1_, z1_ = E1(fake_x1, n[2], state.draws)
-        mu2_, z2_ = E2(fake_x2, n[3], state.draws)
+        mu1_, z1_ = E1(fake_x1, n[2], state.draws, dp)
+        mu2_, z2_ = E2(fake_x2, n[3], state.draws, dp)
         cycle_x1, cycle_x2 = G1(z2_), G2(z1_)
         g_loss = (
             L0 * mse(D1(fake_x1), 1.0)
@@ -250,15 +268,18 @@ def make_step(cfg: Config, state: UnitState):
         loss_d1 = d_update(state, "D1", D1, x1, fake_x1.detach())
         loss_d2 = d_update(state, "D2", D2, x2, fake_x2.detach())
         state.step += 1
-        return state, {"d_loss": loss_d1 + loss_d2, "g_loss": g_loss.detach()}
+        out = {"d_loss": loss_d1 + loss_d2, "g_loss": g_loss.detach()}
+        return state, global_means(dp, out, tuple(out))
 
     return step
 
 
-def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2):
+def make_loader(cfg: Config, device, split: str = "train", batch_size=None, prefetch: int = 2,
+                dp=None):
     """Unpaired A and B (``tpugan/models/unit.py:make_loader``): folders under
     ``--data_dir``/``--dataset_name`` or synthetic domains; the training split
-    with the CycleGAN jitter on both, the others with seed + 991."""
+    with the CycleGAN jitter on both, the others with seed + 991. Under
+    ``dp`` each batch is this rank's rows of the global one."""
     from tpugan_torch.data.im2im import resize_crop_flip_transform, unpaired_or_synthetic
     from tpugan_torch.data.loader import UnpairedLoader
 
@@ -272,7 +293,7 @@ def make_loader(cfg: Config, device, split: str = "train", batch_size=None, pref
                  if split == "train" else None)
     return UnpairedLoader(a, b, batch_size or cfg.batch_size, device,
                           seed=cfg.seed if split == "train" else cfg.seed + 991,
-                          prefetch=prefetch, host_transform=transform)
+                          prefetch=prefetch, host_transform=transform, dp=dp)
 
 
 def make_sampler(cfg: Config, modules: dict, device):
@@ -305,9 +326,10 @@ def run(cfg: Config, device=None) -> UnitState:
     device = train_device(cfg, device)
     modules = build(cfg, device)
     maybe_resume(modules, cfg, MODULES)
-    state = create_state(cfg, modules, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
     return run_per_step(
-        cfg, make_loader(cfg, device), state, make_step(cfg, state),
+        cfg, make_loader(cfg, device, dp=dp), state, make_step(cfg, state),
         make_sampler(cfg, modules, device),
         lambda out: "[D loss: %f] [G loss: %f]" % (float(out["d_loss"]), float(out["g_loss"])),
         modules, MODULES, epoch_end=lambda: [s.step() for s in state.schedulers.values()])

@@ -12,8 +12,9 @@ index skips one.
 
 Dropout in the U-Nets takes keep masks: a network's ``forward`` takes
 ``masks``, one for each of its dropout sites in call order (the tests pass
-the JAX package's), or draws each one from ``generator`` where it is
-applied.
+the JAX package's; ``UNet.draw_masks`` draws them ahead, for the global
+batch under data parallelism), or draws each one from ``generator`` where
+it is applied.
 """
 
 from __future__ import annotations
@@ -229,6 +230,22 @@ class UNet(nn.Module):
 
     def forward(self, x, masks=None, generator=None):
         return self.run(x, masks, generator)
+
+    def draw_masks(self, batch: int, generator: torch.Generator, size) -> list:
+        """The keep masks of every dropout site of a forward on ``batch``
+        inputs of spatial ``size`` (H, W), in call order: what ``forward``
+        draws from ``generator`` itself, drawn ahead (a data-parallel step
+        draws for the global batch and keeps its rows)."""
+        h, w = size
+        blocks = [(getattr(self, f"down{i + 1}"), i + 1) for i in range(self.n_down)]
+        blocks += [(getattr(self, f"up{i + 1}"), self.n_down - 1 - i) for i in range(self.n_up)]
+        masks = []
+        for block, halvings in blocks:
+            drops = [layer for layer in block.model if isinstance(layer, MaskedDropout)]
+            for drop in drops:
+                shape = (batch, block.model[0].out_channels, h >> halvings, w >> halvings)
+                masks.append(drop.draw_mask(shape, generator))
+        return masks
 
 
 class GeneratorUNet(UNet):

@@ -244,11 +244,11 @@ def global_batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
     biased global variance and ``running_var`` moves by the unbiased one,
     its factor ``n / max(n - 1, 1)`` with n the global count, so one value a
     channel over all ranks gives ``_one_value_batch_norm``'s result. In
-    float32, rounded once to ``x``'s dtype. The gradient flows to every
-    rank's input through the gather's backward."""
+    float32 (float64 for a float64 ``x``), rounded once to ``x``'s dtype.
+    The gradient flows to every rank's input through the gather's backward."""
     dims = [0, *range(2, x.dim())]
     shape = [1, -1] + [1] * (x.dim() - 2)
-    xf = x.float()
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
     count = xf.numel() // xf.shape[1]
     mean = xf.mean(dims)
     m2 = (xf - mean.view(shape)).square().sum(dims)
@@ -409,11 +409,13 @@ class InstanceNorm(nn.Module):
     normalizes per instance as always; then, without gradients and in place
     (so a captured CUDA graph keeps the buffers), the buffers take torch's
     update with momentum 0.1: the batch mean of the per-plane means, and of
-    the per-plane variances made unbiased over H*W. ``stats_frozen``
-    (``batch_stats_frozen``) skips the update. In eval mode the layer
-    normalizes by the buffers in plain PyTorch, ``(x - running_mean) *
-    rsqrt(running_var + eps)``, as the JAX package does in plain XLA, then
-    applies the affine.
+    the per-plane variances made unbiased over H*W. Under data parallelism
+    (``dp``, attached by ``parallel.replicate_for``) that is the global
+    batch's mean, in one all-reduce of the two means. ``stats_frozen``
+    (``batch_stats_frozen``) skips the update, and its all-reduce. In eval
+    mode the layer normalizes by the buffers in plain PyTorch,
+    ``(x - running_mean) * rsqrt(running_var + eps)``, as the JAX package
+    does in plain XLA, then applies the affine.
 
     A bf16 x (``--dtype bfloat16``) takes the bf16 kernels, whose output is
     bf16; the float32 ``weight`` and ``bias`` then promote the affine's
@@ -440,6 +442,7 @@ class InstanceNorm(nn.Module):
         self.affine = affine
         self.track_running_stats = track_running_stats
         self.stats_frozen = False
+        self.dp = None  # the data-parallel descriptor, attached by parallel.replicate_for
         if affine:
             self.weight = nn.Parameter(torch.ones(num_features))
             self.bias = nn.Parameter(torch.zeros(num_features))
@@ -463,9 +466,15 @@ class InstanceNorm(nn.Module):
     @torch.no_grad()
     def _update_running_stats(self, x: torch.Tensor) -> None:
         var, mean = torch.var_mean(x, dim=(2, 3), correction=1)
+        means = torch.stack([mean.mean(dim=0), var.mean(dim=0)]).to(self.running_mean.dtype)
+        if self.dp is not None:
+            # Equal shares: the mean of the ranks' batch means is the global
+            # batch's (``tpugan/nn/layers.py:544-556`` over a sharded batch).
+            torch.distributed.all_reduce(means)
+            means.div_(self.dp.world)
         m = self.MOMENTUM
-        self.running_mean.mul_(1.0 - m).add_(mean.mean(dim=0), alpha=m)
-        self.running_var.mul_(1.0 - m).add_(var.mean(dim=0), alpha=m)
+        self.running_mean.mul_(1.0 - m).add_(means[0], alpha=m)
+        self.running_var.mul_(1.0 - m).add_(means[1], alpha=m)
 
     def extra_repr(self) -> str:
         return (f"act_slope={self.act_slope}, eps={self.eps}, affine={self.affine}, "

@@ -14,7 +14,11 @@ with the JAX package's global-batch semantics (``tpugan/parallel/mesh.py:1-16``)
   so the ranks' generators stay in step and never share a z;
 - BatchNorm takes its statistics over the global batch
   (``tpugan_torch/nn/layers.py:global_batch_norm``, the descriptor attached
-  by ``replicate_for``);
+  by ``replicate_for``), and a tracked InstanceNorm moves its running
+  buffers by the global batch's mean (stargan's,
+  ``tpugan_torch/nn/layers.py:InstanceNorm``); a collective's backward is a
+  collective, so a penalty that differentiates a gradient through global
+  BatchNorm (dualgan's) sees the global batch too;
 - a loss is a mean over the rank's rows, so the mean of the ranks' losses is
   the global mean, and so is the mean of their gradients: an optimizer step
   pre-hook averages the gradients over the ranks in one all-reduce before
@@ -26,7 +30,16 @@ with the JAX package's global-batch semantics (``tpugan/parallel/mesh.py:1-16``)
   generated images are gathered when a sample is due (``gather_rows``).
 
 Rank 0 alone writes images, checkpoints, metrics and traces, and a barrier
-follows each image and checkpoint (``rank_zero_write``).
+follows each image and checkpoint (``rank_zero_write``). A sampler that
+runs on rank 0 alone reaches no collective: its networks hold no BatchNorm
+in training (eval mode, or none) and its tracked InstanceNorms are frozen
+(``batch_stats_frozen``).
+
+The trainers of ``DP_TRAINERS``: the template-A/B and critic trainers
+(``run_mnist_recipe``, ``run_critic_family``), and the image-to-image,
+style and SR ones, whose loops are ``run_per_step`` or their own
+(cyclegan, pix2pix, discogan, dualgan, stargan, unit, munit, bicyclegan,
+srgan).
 
 Two deviations from the JAX package, both of the launch model: the JAX
 package turns data parallelism on whenever more than one device is visible,
@@ -55,16 +68,15 @@ import torch.distributed as dist
 
 # The trainers ported to data parallelism, and for each other trainer the
 # ROADMAP item that ports it (queue 1, item 9's later slices).
-DP_TRAINERS = ("dcgan", "gan", "lsgan", "bgan", "wgan", "wgan_gp", "wgan_div", "cyclegan")
+DP_TRAINERS = ("dcgan", "gan", "lsgan", "bgan", "wgan", "wgan_gp", "wgan_div", "cyclegan",
+               "pix2pix", "discogan", "dualgan", "stargan", "unit", "munit", "bicyclegan",
+               "srgan")
 _LATER = {
     **{n: "ROADMAP queue 1, item 9b (the batch-local MNIST-class trainers)"
        for n in ("cgan", "acgan", "infogan", "sgan", "aae", "cluster_gan", "ccgan",
                  "context_encoder", "cogan", "pixelda")},
     **{n: "ROADMAP queue 1, item 9c (the trainers with a cross-sample term)"
        for n in ("softmax_gan", "relativistic_gan", "esrgan", "ebgan", "began", "dragan")},
-    **{n: "ROADMAP queue 1, item 9d (the im2im, style and SR trainers)"
-       for n in ("pix2pix", "discogan", "dualgan", "stargan", "unit", "munit", "bicyclegan",
-                 "srgan")},
 }
 
 
@@ -173,18 +185,20 @@ def replicate_for(dp: Optional[DataParallel], state):
     rank 0's parameters and buffers broadcast to every rank; ``dp`` attached
     to every BatchNorm of ``state.modules`` (global statistics) and to the
     state (``state.dp``, which the steps read); the gradient average
-    registered on every optimizer of ``state.optimizers``. ``dp`` None
-    leaves the state as it is."""
+    registered on every optimizer of ``state.optimizers``. ``dp`` is also
+    attached to every tracked InstanceNorm (global running buffers). ``dp``
+    None leaves the state as it is."""
     if dp is None:
         return state
-    from tpugan_torch.nn.layers import BatchNorm1d, BatchNorm2d
+    from tpugan_torch.nn.layers import BatchNorm1d, BatchNorm2d, InstanceNorm
 
     with torch.no_grad():
         for module in state.modules.values():
             for t in [*module.parameters(), *module.buffers()]:
                 dist.broadcast(t, src=0)
             for layer in module.modules():
-                if isinstance(layer, (BatchNorm1d, BatchNorm2d)):
+                if isinstance(layer, (BatchNorm1d, BatchNorm2d)) or (
+                        isinstance(layer, InstanceNorm) and layer.track_running_stats):
                     layer.dp = dp
                 elif isinstance(layer, torch.nn.modules.batchnorm._BatchNorm):
                     raise TypeError(f"{type(layer).__name__} takes per-rank statistics; the "
@@ -214,6 +228,12 @@ def _share(dp: DataParallel, n: int) -> int:
     return n // dp.world
 
 
+def global_batch(dp: Optional[DataParallel], n: int) -> int:
+    """The global batch of a step whose rank holds ``n`` rows: the rows a
+    step draws for, as one process would, before it keeps its own."""
+    return n * (dp.world if dp else 1)
+
+
 def local_rows(dp: Optional[DataParallel], x: torch.Tensor) -> torch.Tensor:
     """This rank's contiguous rows of a global-batch tensor (all of ``x``
     without ``dp``)."""
@@ -224,9 +244,11 @@ def local_rows(dp: Optional[DataParallel], x: torch.Tensor) -> torch.Tensor:
 
 
 class _GatherRows(torch.autograd.Function):
-    """All-gather along dim 0, in rank order. Its backward sums the
-    gathered gradient over the ranks and keeps this rank's rows: the
-    gradient of every rank's loss with respect to this rank's input."""
+    """All-gather along dim 0, in rank order. Its backward is the adjoint,
+    ``_SumRows``: the gathered gradient summed over the ranks, this rank's
+    rows kept (the gradient of every rank's loss with respect to this rank's
+    input). Each is the other's backward, so a gradient that is itself
+    differentiated (a penalty's ``create_graph``) crosses the ranks again."""
 
     @staticmethod
     def forward(ctx, x, dp):
@@ -238,9 +260,23 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        return _SumRows.apply(grad, ctx.dp), None
+
+
+class _SumRows(torch.autograd.Function):
+    """The sum over the ranks of a global-batch tensor, this rank's rows
+    kept (a reduce-scatter along dim 0); its backward is ``_GatherRows``."""
+
+    @staticmethod
+    def forward(ctx, grad, dp):
+        ctx.dp = dp
         grad = grad.contiguous().clone()
         dist.all_reduce(grad)
-        return local_rows(ctx.dp, grad), None
+        return local_rows(dp, grad)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _GatherRows.apply(grad, ctx.dp), None
 
 
 def gather_rows(dp: Optional[DataParallel], x: torch.Tensor) -> torch.Tensor:
