@@ -264,6 +264,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -4453,12 +4454,16 @@ def phase_fid(smi):
 
 # Data parallelism (``tpugan_torch/parallel``). [dp nccl]: DCGAN at 64px,
 # batch 64, K = 5, DP_NCCL_BATCHES batches through ``dcgan.main`` with and
-# without a one-rank NCCL group. [dp gloo]: each DP_GLOO run's ``main`` for
-# two batches on two gloo ranks sharing the card, against one process. The
-# im2im, style and SR trainers run at their reference widths and image sizes
-# at an even batch, and sample at batch 0 (``--sample_interval`` past the
-# run), on rank 0 alone.
+# without a one-rank NCCL group, then pixelda at 32px, batch 64, K =
+# DP_NCCL_PIXELDA_K over DP_NCCL_PIXELDA_BATCHES likewise (the IN pair and
+# global BatchNorm's gathers in one captured graph). [dp gloo]: each DP_GLOO
+# run's ``main`` for two batches on two gloo ranks sharing the card, against
+# one process. Every trainer runs at its reference widths and image size
+# (PERF.md section 4) at an even batch, and samples at batch 0
+# (``--sample_interval`` past the run) on rank 0 alone; cluster_gan and
+# dragan write their epoch's sheets, esrgan its preview at its full step.
 DP_NCCL_K, DP_NCCL_BATCHES = 5, 15
+DP_NCCL_PIXELDA_K, DP_NCCL_PIXELDA_BATCHES = 10, 30
 _SAMPLE_AT_0 = ["--sample_interval", "1000"]
 DP_GLOO_RUNS = {
     "dcgan": ["--img_size", "64", "--batch_size", "64"],
@@ -4472,6 +4477,25 @@ DP_GLOO_RUNS = {
     "munit": ["--batch_size", "2", *_SAMPLE_AT_0],  # 128px
     "bicyclegan": ["--batch_size", "8", *_SAMPLE_AT_0],  # 128px
     "srgan": ["--batch_size", "4", *_SAMPLE_AT_0],  # HR 256
+    # The batch-local MNIST-class trainers.
+    "cgan": ["--batch_size", "64", *_SAMPLE_AT_0],  # 32px
+    "acgan": ["--batch_size", "64", *_SAMPLE_AT_0],  # 32px
+    "sgan": ["--batch_size", "64", *_SAMPLE_AT_0],  # 32px
+    "infogan": ["--batch_size", "64", *_SAMPLE_AT_0],  # 32px
+    "aae": ["--batch_size", "64", *_SAMPLE_AT_0],  # 32px
+    "cluster_gan": ["--batch_size", "64"],  # 28px, n_critic 5: a full step, a d_step
+    "context_encoder": ["--batch_size", "8", *_SAMPLE_AT_0],  # 128px
+    "ccgan": ["--batch_size", "8", *_SAMPLE_AT_0],  # 128px
+    "cogan": ["--batch_size", "32", *_SAMPLE_AT_0],  # 32px
+    "pixelda": ["--batch_size", "64", *_SAMPLE_AT_0],  # 32px
+    # The trainers with a term that couples samples (RaGAN's batch mean
+    # needs --rel_avg_gan).
+    "dragan": ["--batch_size", "64"],  # 32px
+    "began": ["--batch_size", "64", *_SAMPLE_AT_0],  # 32px
+    "softmax_gan": ["--batch_size", "64", *_SAMPLE_AT_0],  # 28px
+    "relativistic_gan": ["--batch_size", "64", "--rel_avg_gan", *_SAMPLE_AT_0],  # 32px
+    "ebgan": ["--batch_size", "64", *_SAMPLE_AT_0],  # 32px
+    "esrgan": ["--batch_size", "4", "--warmup_batches", "1", "--sample_interval", "1"],  # HR 256
 }
 DP_GLOO_BATCHES = 2
 # stargan runs one batch (a d_step and a g_step), so that its tracked IN
@@ -4479,7 +4503,12 @@ DP_GLOO_BATCHES = 2
 # process's within rounding: over a second batch they follow the first Adam
 # step's noise (on an H100, 8.4e-4 of their largest plus one, past the
 # envelope).
-DP_GLOO_BATCHES_OF = {"stargan": 1}
+# pixelda runs one batch too: its step amplifies rounding once Adam's first
+# step has moved every weight by up to lr (on an H100, one process against
+# one NCCL rank: the first step's losses 2.1e-7 apart, 1.1 relative within
+# 30 steps, ``[dp nccl]``), so a second batch's losses sit at the 1e-3 limit
+# (8.1e-4 over two gloo ranks).
+DP_GLOO_BATCHES_OF = {"stargan": 1, "pixelda": 1}
 DP_GLOO_TRACKED_RTOL = 1e-4  # stargan's tracked IN buffers against one process
 
 
@@ -4494,6 +4523,7 @@ def dp_gloo_launches(name: str) -> tuple:
     stargan take a d_step every batch and a g_step on batch 0 (``n_critic``
     5); the sites and counts are ``IM2IM_IN``'s, MUNIT's and CycleGAN's."""
     b = dp_gloo_batches(name)
+    units = IM2IM_IN.get(name, {})
     if name == "wgan_gp":
         return {"gp_fwd": b, "gp_bwd": b}, {}
     if name == "cyclegan":
@@ -4502,12 +4532,16 @@ def dp_gloo_launches(name: str) -> tuple:
         return ({"in_fwd": b * MUNIT_IN_PER_STEP, "in_bwd": b * MUNIT_IN_PER_STEP,
                  "adain_fwd": b * ADAIN_PER_STEP, "adain_bwd": b * ADAIN_PER_STEP},
                 {"in_fwd": MUNIT_IN_PER_SAMPLE, "adain_fwd": ADAIN_PER_SAMPLE})
-    if name in IM2IM_IN:
-        units = ["step"] * b if "step" in IM2IM_IN[name] else ["d_step"] * b + ["g_step"]
-        # (n_critic 5: the g_step of batch 0 alone)
-        steps = {f"in_{d}": sum(im2im_per_unit(name, u, d) for u in units)
+    if units:
+        # (n_critic 5: the g_step of batch 0 alone; pixelda's classifier
+        # also runs forward only on MNIST-M each step, ``telemetry``)
+        seq = ([u for u in ("step", "telemetry") if u in units] * b if "step" in units
+               else ["d_step"] * b + ["g_step"])
+        steps = {f"in_{d}": sum(im2im_per_unit(name, u, d) for u in seq)
                  for d in ("fwd", "bwd")}
-        return steps, {"in_fwd": im2im_per_unit(name, "sample", "fwd")}
+        # context_encoder's, ccgan's and pixelda's samplers reach no IN
+        sample = {"in_fwd": im2im_per_unit(name, "sample", "fwd")} if "sample" in units else {}
+        return steps, sample
     return {}, {}
 
 
@@ -4669,7 +4703,88 @@ def phase_dp_nccl(smi):
     return {"images_per_s": ips, "graph_ms": {m: t["graph_ms"] for m, t in times.items()},
             "device_ms": {m: t["device_ms"] for m, t in times.items()}, "nccl_device_ms": nccl,
             "memcpy_delta_ms": memcpy,
-            "loss_rel_err": loss_err, "param_max_abs_err": worst["param"]}
+            "loss_rel_err": loss_err, "param_max_abs_err": worst["param"],
+            "pixelda": _dp_nccl_pixelda(smi)}
+
+
+def _dp_nccl_pixelda(smi):
+    """``pixelda.main`` at its reference configuration (32px, batch 64) over
+    ``DP_NCCL_PIXELDA_BATCHES`` batches, cuDNN deterministic: with
+    ``DP_NCCL_PIXELDA_K`` steps a CUDA graph without data parallelism and
+    inside a one-rank NCCL group (there the IN pair, global BatchNorm's
+    gathers and the gradient all-reduce run inside one captured graph), and
+    in the group one step a dispatch. Held: the replays; the IN launches on
+    the device (wrapper calls not captured, plus captured calls times
+    replays: 18 forward and 15 backward a step); the group's graphed rows
+    bit for bit its eager ones; the first step's losses within 1e-4 of one
+    process's (after it Adam's first step turns the rounding of global
+    BatchNorm against cuDNN's into moves of up to lr, which pixelda's steps
+    amplify, so the later steps are reported); the sample at batch 0
+    gathered and written by rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from tpugan_torch.models import pixelda
+    from tpugan_torch.parallel.dryrun import free_port
+
+    tag = "[dp nccl]"
+    k, n = DP_NCCL_PIXELDA_K, DP_NCCL_PIXELDA_BATCHES
+    per_step = {d: sum(im2im_per_unit("pixelda", u, d) for u in ("step", "telemetry"))
+                for d in ("fwd", "bwd")}
+    dev = torch.device("cuda", 0)
+    runs = {}
+    shipped = torch.backends.cudnn.deterministic
+    for mode, fused_k in (("one process", k), ("nccl", k), ("nccl eager", 1)):
+        if mode != "one process":
+            dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                    rank=0, world_size=1, device_id=dev)
+        try:
+            out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_nccl_pixelda_")
+            torch.backends.cudnn.deterministic = True
+            try:
+                wall, launches, replays = _run_main(pixelda, [
+                    "--synthetic_data", "--n_epochs", "1", "--max_batches", str(n),
+                    "--log_interval", "0", "--steps_per_dispatch", str(fused_k),
+                    *_SAMPLE_AT_0], out_dir)
+            finally:
+                torch.backends.cudnn.deterministic = shipped
+            device = {d: launches[f"in_{d}"] - launches[f"in_{d}_captured"]
+                      + launches[f"in_{d}_captured"] * replays for d in ("fwd", "bwd")}
+            want = {d: n * per_step[d] for d in ("fwd", "bwd")}
+            want_replays = n // fused_k - 1 if fused_k > 1 else 0
+            if replays != want_replays or device != want:
+                raise AssertionError(f"{tag} pixelda {mode}: {replays} replays (expected "
+                                     f"{want_replays}), IN launches on the device {device} "
+                                     f"(expected {want}), calls {launches}")
+            _check_grids(tag, [os.path.join(out_dir, "images", "0.png")],
+                         _grid_wh(5, 3 * 32, 32, 5))
+            rows = _check_rows(tag, os.path.join(out_dir, "metrics.jsonl"), n)
+            runs[mode] = (rows, wall, device)
+            log(f"{tag} pixelda.main, {n} steps at K = {fused_k} ({mode}): {wall:.1f} s, "
+                f"{replays} replays; IN launches on the device {device} ({per_step} a step), "
+                f"wrapper calls {launches['in_fwd']}/{launches['in_bwd']}, "
+                f"{launches['in_fwd_captured']}/{launches['in_bwd_captured']} captured; wrote "
+                f"images/0.png")
+        finally:
+            if mode != "one process":
+                dist.destroy_process_group()
+    rows1, rows_dp, rows_eager = (runs[m][0] for m in ("one process", "nccl", "nccl eager"))
+    keys = ("d_loss", "g_loss")
+    first_err = max(abs(rows_dp[0][key] - rows1[0][key]) / abs(rows1[0][key]) for key in keys)
+    loss_err = max(abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(rows_dp, rows1)
+                   for key in keys)
+    replay_equal = rows_dp == rows_eager
+    log(f"{tag} pixelda in a one-rank NCCL group on {torch.cuda.get_device_name(0)} ({smi}): "
+        f"graphed rows bit for bit the eager ones: {replay_equal}; against one process the "
+        f"first step's losses within {first_err:.3e} relative (limit 1e-4), any step "
+        f"{loss_err:.3e} (reported)")
+    if not replay_equal or first_err > 1e-4:
+        raise AssertionError(f"{tag} pixelda: graphed rows equal to eager: {replay_equal}; "
+                             f"first step {first_err:.3e} off one process's")
+    return {"in_device_launches": {d: sum(r[2][d] for r in runs.values()) for d in ("fwd", "bwd")},
+            "first_step_rel_err": first_err,
+            "loss_rel_err": loss_err, "replay_equals_eager": replay_equal,
+            "main_s": {m: r[1] for m, r in runs.items()}}
 
 
 def _dp_gloo_rank(rank, world, port, out_dir, results):
@@ -4711,8 +4826,10 @@ def _dp_gloo_run(name, extra, out_dir):
     import torch
 
     mod = importlib.import_module(f"tpugan_torch.models.{name}")
+    # (cluster_gan has no sample interval: it writes its sheets each epoch)
+    quiet = ["--sample_interval", "0"] if hasattr(mod.Config, "sample_interval") else []
     argv = ["--synthetic_data", "--n_epochs", "1", "--max_batches", str(dp_gloo_batches(name)),
-            "--sample_interval", "0", "--log_interval", "0", *extra]
+            *quiet, "--log_interval", "0", *extra]
     os.makedirs(out_dir, exist_ok=True)
     _reset_port_launches()
     t0 = time.perf_counter()
@@ -4744,7 +4861,10 @@ def _dp_gloo_held(tag, smi, name, extra, r0, r1, single) -> dict:
     for key, v in r0["state"].items():
         if not torch.equal(v, r1["state"][key]):
             raise AssertionError(f"{tag} {name}: the ranks differ at {key}")
-    cfg = importlib.import_module(f"tpugan_torch.models.{name}").Config()
+    mod = importlib.import_module(f"tpugan_torch.models.{name}")
+    cfg = mod.Config()
+    if not hasattr(cfg, "b1"):  # cluster_gan's betas are constants of the reference's
+        cfg = types.SimpleNamespace(lr=cfg.lr, b1=mod.B1, b2=mod.B2)
     batches = dp_gloo_batches(name)
     worst = _dp_held(f"{tag} {name}", r0["state"], single["state"], cfg, batches)
     loss_err = max((abs(a[key] - b[key]) / max(abs(b[key]), 1e-6)
@@ -4968,8 +5088,12 @@ def main() -> int:
                         ("munit debug_numerics", flags["debug_numerics"]["munit"]),
                         *((f"{name} dp gloo", dp["gloo"][name])
                           for name in ("cyclegan", "pix2pix", "discogan", "dualgan", "stargan",
-                                       "unit", "munit"))):
+                                       "unit", "munit", "context_encoder", "ccgan",
+                                       "pixelda"))):
             by_path[path] = {"launches": r["launches"][f"in_{k}"]}
+        # pixelda's three runs in [dp nccl], two of them inside one-rank NCCL
+        # groups (launches on the device, a captured call once a replay)
+        by_path["pixelda dp nccl"] = {"launches": dp["nccl"]["pixelda"]["in_device_launches"][k]}
         for path, r in {**inpainting, "pixelda": two_domain["pixelda"]}.items():
             by_path[f"{path} cuda_graph"] = {
                 "launches": r["device_launches"][k],

@@ -416,7 +416,30 @@ def _run_bicyclegan(mod, cfg, state, batch, spec, dp):
         mod.normalize_uint8 = real
 
 
-RUNS = {"dualgan": _run_dualgan, "stargan": _run_stargan, "bicyclegan": _run_bicyclegan}
+def _run_cluster_gan(mod, cfg, state, batch, spec, dp):
+    """cluster_gan's ``full_step`` (a G+E update, then D's) with the spec's
+    draws."""
+    full_step, _ = mod.make_steps(cfg, state)
+    return full_step(state, *batch, **spec["draws"])[1], {}
+
+
+def _run_esrgan(mod, cfg, state, batch, spec, dp):
+    """esrgan's warm-up step, or its full step in float64 (the modules cast
+    by ``im2im_step``, the LR/HR pair resized in float32 and then cast), as
+    ``tests/test_torch_port_sr.py:_esrgan``."""
+    warmup_step, full_step = mod.make_steps(cfg, state)
+    if spec["which"] == "warmup":
+        return warmup_step(state, *batch)[1], {}
+    pair = mod.prepare_lr_hr
+    mod.prepare_lr_hr = lambda x, h: tuple(v.double() for v in pair(x, h))
+    try:
+        return full_step(state, *batch)[1], {}
+    finally:
+        mod.prepare_lr_hr = pair
+
+
+RUNS = {"dualgan": _run_dualgan, "stargan": _run_stargan, "bicyclegan": _run_bicyclegan,
+        "cluster_gan": _run_cluster_gan, "esrgan": _run_esrgan}
 
 
 def im2im_step(spec: dict, dp) -> dict:
@@ -525,17 +548,93 @@ def penalty_case(spec, dp, work_dir) -> dict:
 
 def cli_case(spec, dp, work_dir) -> dict:
     """``spec["trainer"]``'s main from ``spec["argv"]``, each rank into its
-    own output directory; the modules it ends with."""
+    own output directory (and, with ``spec["metrics"]``, its
+    ``--metrics_jsonl`` there); the modules it ends with."""
     import importlib
 
     mod = importlib.import_module(f"tpugan_torch.models.{spec['trainer']}")
     rank_dir = os.path.join(work_dir, "cli_rank%d" % dp.rank)
     os.makedirs(rank_dir)
-    final = mod.main(spec["argv"] + ["--output_dir", rank_dir], "cpu")
+    metrics = ["--metrics_jsonl", os.path.join(rank_dir, "metrics.jsonl")] if spec.get(
+        "metrics") else []
+    final = mod.main(spec["argv"] + ["--output_dir", rank_dir, *metrics], "cpu")
     return {"dir": rank_dir, "final": {n: _sd(m) for n, m in final.modules.items()}}
 
 
-EXTRA = {"tracked_in": tracked_in_case, "penalty": penalty_case, "cli": cli_case}
+def _hinge(margin):
+    def term(dp, x):
+        from tpugan_torch.models.ebgan import fake_hinge
+
+        return fake_hinge(dp, x[:, :2], x[:, 2:4], margin)
+
+    return term
+
+
+def _relativistic(dp, x):
+    from tpugan_torch.losses import bce_with_logits
+    from tpugan_torch.models.relativistic_gan import _centered
+
+    return bce_with_logits(_centered(x[:, :1], x[:, 1:2], True, dp), 1.0)
+
+
+def _partition(dp, x):
+    from tpugan_torch.models.softmax_gan import log_partition
+
+    return log_partition(dp, x[:, 0], x[:, 1])
+
+
+def _pullaway(dp, x):
+    from tpugan_torch.losses import pullaway
+    from tpugan_torch.parallel.mesh import gather_rows
+
+    return pullaway(gather_rows(dp, x))
+
+
+def _std(dp, x):
+    from tpugan_torch.parallel.mesh import global_std
+
+    return global_std(dp, x)
+
+
+# Each cross-sample term as a rank's scalar loss of its rows x (B/world, 4):
+# global ones (the partition, the pull-away term, the hinge, the std) are
+# the same on every rank; the relativistic loss is a mean over the rank's
+# rows of a function of the global batch's mean. The ebgan hinge with
+# margin 50 lies on its active side at the terms' inputs, with margin 0 on
+# its flat side (``test_torch_port_parallel_batch_terms.py`` checks which).
+TERMS = {"softmax_partition": _partition, "relativistic_mean": _relativistic,
+         "pullaway": _pullaway, "ebgan_hinge_active": _hinge(50.0),
+         "ebgan_hinge_flat": _hinge(0.0), "dragan_std": _std}
+
+
+def term_step(name: str, dp, u: torch.Tensor, w: torch.Tensor) -> dict:
+    """``TERMS[name]`` of x = u @ w on this rank's rows of ``u`` (all of it
+    without ``dp``), its gradient with respect to ``w`` averaged over the
+    ranks as the optimizer hook averages it (``parallel/mesh.py:
+    _average_grads``), and the rank's value of the term (a float, which
+    rank 1 reports as it is, not as a digest)."""
+    import torch.distributed as dist
+
+    from tpugan_torch.parallel.mesh import local_rows
+
+    w = w.clone().requires_grad_(True)
+    value = TERMS[name](dp, local_rows(dp, u) @ w)
+    value.backward()
+    grad = w.grad
+    if dp is not None:
+        dist.all_reduce(grad)
+        grad = grad / dp.world
+    return {"value": float(value.detach()), "grad": grad}
+
+
+def terms_case(spec, dp, work_dir) -> dict:
+    """``term_step`` of every term of ``TERMS`` on this rank, from the
+    spec's global ``u`` and ``w``."""
+    return {name: term_step(name, dp, spec["u"], spec["w"]) for name in TERMS}
+
+
+EXTRA = {"tracked_in": tracked_in_case, "penalty": penalty_case, "cli": cli_case,
+         "terms": terms_case}
 
 
 def main() -> None:

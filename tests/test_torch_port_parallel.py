@@ -49,9 +49,9 @@ from tpugan_torch.data.im2im import resize_crop_flip_transform
 from tpugan_torch.data.loader import DeviceLoader, UnpairedLoader
 from tpugan_torch.io.images import decode_png
 from tpugan_torch.io.interop import load_jax_params
-from tpugan_torch.models import cgan, dcgan, esrgan, gan, softmax_gan, wgan_gp
+from tpugan_torch.models import dcgan, gan, registry, wgan_gp
 from tpugan_torch.parallel.dryrun import dryrun_multichip
-from tpugan_torch.parallel.mesh import auto_sharding
+from tpugan_torch.parallel.mesh import DP_TRAINERS, auto_sharding
 
 CPU = torch.device("cpu")
 B, LATENT = 8, 16
@@ -405,11 +405,11 @@ def test_auto_sharding_raises_on_an_indivisible_batch_under_a_launcher(monkeypat
         auto_sharding(7, "cpu")
 
 
-@pytest.mark.parametrize("mod, item", [(cgan, "9b"), (softmax_gan, "9c"), (esrgan, "9c")])
-def test_trainers_outside_the_slice_refuse_several_ranks(monkeypatch, tmp_path, mod, item):
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        mod.main(["--synthetic_data", "--output_dir", str(tmp_path)], "cpu")
+@pytest.mark.parametrize("name", [n for n in registry.names() if n != "test_on_image"])
+def test_every_trainer_runs_data_parallel(name):
+    """Every trainer of the registry, all 32, is ported to data parallelism:
+    none refuses several ranks."""
+    assert name in DP_TRAINERS
 
 
 def test_dryrun_multichip_runs_on_two_cpu_ranks():

@@ -154,29 +154,38 @@ def _floors(grads: dict) -> dict:
 
 
 def check_step(got: dict, want: dict, init: dict, lr: float, stats_exact: bool,
-               excuse: dict = None):
+               excuse: dict = None, weight_decay: dict = None):
     """``got`` (a rank's ``im2im_step``) against ``want`` (a reference in its
     format) at the tolerances of the module docstring; ``init`` the state
     both started from, by the names of the gradients. ``stats_exact``: the
     reference carries ``num_batches_tracked`` (the port's single process).
     ``excuse`` (the other reference): each gradient or parameter element of
     ``got`` may lie as far from ``want`` as ``excuse``'s does, plus the
-    tolerance."""
+    tolerance. ``weight_decay`` gives an optimizer's decay by name, added to
+    the gradient in Adam's first step as torch's ``Adam(weight_decay=)``
+    adds it. A parameter that two optimizers step in turn (infogan's G and D
+    in its information phase's) takes each update from where the one before
+    left it, and is held to the reference's value after the last."""
     assert set(got["out"]) == set(want["out"])
     for k, v in want["out"].items():
         np.testing.assert_allclose(got["out"][k], v, rtol=1e-5, err_msg=k)
     grads = _one_update(got["grads"])
     assert set(grads) == set(want["grads"])
+    held = {role: dict(sd) for role, sd in init.items()}  # each parameter before an update
+    last = {key: name for name, gs in grads.items() for key, (g, _) in gs.items()
+            if g is not None}
     for name, gs in grads.items():
         floor = _floors(want["grads"][name])
         for (role, k), (g, after) in gs.items():
             w, w_after = want["grads"][name][(role, k)]
+            before = held[role][k]
             if g is None:
                 assert w is None or not w.any(), (name, role, k)
-                assert torch.equal(after, init[role][k]), (name, role, k)
+                assert torch.equal(after, before), (name, role, k)
                 continue
-            g64 = g.double()
-            step = (init[role][k].double() - lr * g64 / (g64.abs() + 1e-8)).to(after.dtype)
+            g64 = g.double() + (weight_decay or {}).get(name, 0.0) * before.double()
+            step = (before.double() - lr * g64 / (g64.abs() + 1e-8)).to(after.dtype)
+            held[role][k] = after
             torch.testing.assert_close(after, step, rtol=1e-6, atol=1e-7,
                                        msg=lambda m: f"{name} {role} {k}: {m}")
             tol_g, tol_p = 1e-3 * w.abs() + floor[role], torch.full_like(w, PARAM_ATOL)
@@ -186,6 +195,8 @@ def check_step(got: dict, want: dict, init: dict, lr: float, stats_exact: bool,
                 tol_p = tol_p + (e_after - w_after).abs()
             off_g = (g - w).abs() > tol_g
             off_p = ((after - w_after).abs() > tol_p) & (w.abs() > floor[role])
+            if last[role, k] != name:  # the reference's value is after the last update
+                off_p = torch.zeros_like(off_p)
             assert not off_g.any(), (f"{name} {role} {k}: {int(off_g.sum())} gradient elements "
                                      f"off by up to {float((g - w).abs()[off_g].max()):.3e}")
             assert not off_p.any(), (f"{name} {role} {k}: {int(off_p.sum())} parameter elements "

@@ -1,9 +1,7 @@
 """CLI: ``python -m tpugan_torch <model> [flags]``, with the flags of
 ``python -m tpugan <model>``; data-parallel over N cards with
-``torchrun --nproc_per_node N -m tpugan_torch <model> [flags]`` for the
-trainers of ``parallel.mesh.DP_TRAINERS``: dcgan, gan,
-lsgan, bgan, wgan, wgan_gp, wgan_div, cyclegan, pix2pix, discogan, dualgan,
-stargan, unit, munit, bicyclegan and srgan."""
+``torchrun --nproc_per_node N -m tpugan_torch <model> [flags]`` for every
+trainer (``parallel.mesh.DP_TRAINERS``)."""
 
 from __future__ import annotations
 

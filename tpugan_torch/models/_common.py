@@ -39,11 +39,12 @@ def mnist_loader(cfg, device, dp=None) -> DeviceLoader:
     )
 
 
-def two_domain_loader(cfg, device):
+def two_domain_loader(cfg, device, dp=None):
     """MNIST (grey, repeated to ``--channels``) zipped with MNIST-M, each
     shuffled on its own (seed and seed + 1), at ``--img_size``; synthetic
     when absent or with ``--synthetic_data`` (``tpugan/models/pixelda.py:
-    make_loader``, ``tpugan/models/cogan.py:make_loader``)."""
+    make_loader``, ``tpugan/models/cogan.py:make_loader``); under ``dp``
+    each member loads this rank's share of its batches."""
     ds_a, is_real_a = mnist_or_synthetic(cfg.data_dir, img_size=cfg.img_size, channels=1,
                                          synthetic=cfg.synthetic_data, seed=cfg.seed)
     imgs_a = np.repeat(ds_a.images, cfg.channels, axis=-1)
@@ -52,9 +53,10 @@ def two_domain_loader(cfg, device):
     if not (is_real_a and is_real_b):
         print("[tpugan] MNIST/MNIST-M not found on disk — using synthetic data")
     return ZipLoader(
-        DeviceLoader([imgs_a, ds_a.labels], cfg.batch_size, device, shuffle=True, seed=cfg.seed),
+        DeviceLoader([imgs_a, ds_a.labels], cfg.batch_size, device, shuffle=True, seed=cfg.seed,
+                     dp=dp),
         DeviceLoader([ds_b.images, ds_b.labels], cfg.batch_size, device, shuffle=True,
-                     seed=cfg.seed + 1))
+                     seed=cfg.seed + 1, dp=dp))
 
 
 def std_log_line(cfg):

@@ -28,7 +28,8 @@ from tpugan_torch.losses import bce, l1
 from tpugan_torch.models import gan as _gan
 from tpugan_torch.models._common import run_mnist_recipe, sample_noise, save_grid, std_log_line
 from tpugan_torch.nn.blocks import MLPDiscriminator
-from tpugan_torch.nn.layers import BatchNorm1d, LeakyReLU, Linear, batch_stats_frozen
+from tpugan_torch.nn.layers import BatchNorm1d, LeakyReLU, Linear, batch_stats_frozen, rank_local
+from tpugan_torch.parallel.mesh import global_batch, global_means, local_rows, rank_zero_write
 from tpugan_torch.train.loop import Callbacks
 from tpugan_torch.train.optim import capturable
 from tpugan_torch.train.state import TrainState, normalize_uint8
@@ -129,8 +130,11 @@ def make_step(cfg: Config, state: TrainState):
     out)``: one update of the encoder and decoder, then one of D. Draws, from
     ``state.draws`` in this order unless passed in: ``eps``, the
     reparameterisation's, and ``z``, D's real codes, each (B, latent_dim).
-    ``out`` holds ``d_loss`` and ``g_loss``. No host sync: ``graph_steps``
-    can capture it."""
+    ``out`` holds ``d_loss`` and ``g_loss``. Under data parallelism
+    (``state.dp``) both draws are the global batch's, drawn or passed in,
+    the step keeps this rank's rows and the losses are global means; the
+    encoder's and decoder's BatchNorms take global statistics. No host
+    sync: ``graph_steps`` can capture it."""
     E, Dec, D = (state.modules[k] for k in ("encoder", "decoder", "discriminator"))
     opt_g, opt_d = state.optimizers["g"], state.optimizers["discriminator"]
     g_params = list(E.parameters()) + list(Dec.parameters())
@@ -139,11 +143,13 @@ def make_step(cfg: Config, state: TrainState):
         del labels
         device = state.draws.device
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        shape = (real.shape[0], cfg.latent_dim)
+        dp = state.dp
+        shape = (global_batch(dp, real.shape[0]), cfg.latent_dim)
         if eps is None:
             eps = torch.randn(shape, generator=state.draws, device=device)
         if z is None:
             z = torch.randn(shape, generator=state.draws, device=device)
+        eps, z = local_rows(dp, eps), local_rows(dp, z)
 
         # G phase (aae.py:174-185): the encoder and decoder together.
         opt_g.zero_grad(set_to_none=True)
@@ -160,7 +166,8 @@ def make_step(cfg: Config, state: TrainState):
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach()}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach()}
+        return state, global_means(dp, out, ("d_loss", "g_loss"))
 
     return step
 
@@ -171,17 +178,22 @@ def make_sampler(cfg: Config):
     ``_common.sample_noise`` (a generator of its own: ``state.draws`` stays
     as it was), to ``images/<batches_done>.png``, 10 a row. The running
     statistics stay as they were (``batch_stats_frozen``): the JAX sampler
-    drops its update (``tpugan/models/aae.py:196-200``)."""
+    drops its update (``tpugan/models/aae.py:196-200``). Under data
+    parallelism rank 0 alone samples, the decoder's BatchNorm on the sample
+    batch alone (``rank_local``)."""
     imgdir = os.path.join(cfg.output_dir, "images")
     os.makedirs(imgdir, exist_ok=True)
 
     @torch.no_grad()
-    def sample(state, out, batches_done):
+    def write(state, batches_done):
         Dec = state.modules["decoder"]
         z = sample_noise(cfg, batches_done, (N_ROW * N_ROW, cfg.latent_dim), state.draws.device)
-        with batch_stats_frozen(Dec):
+        with rank_local(Dec), batch_stats_frozen(Dec):
             imgs = Dec(z)
         save_grid(imgs, os.path.join(imgdir, "%d.png" % batches_done), N_ROW)
+
+    def sample(state, out, batches_done):
+        rank_zero_write(lambda: write(state, batches_done))
 
     return sample
 

@@ -26,6 +26,7 @@ from tpugan_torch.models._common import acc_log_line, mnist_loader, run_mnist_re
 from tpugan_torch.models._template_b import create_state_b
 from tpugan_torch.nn.blocks import DCGANAuxDiscriminator, DCGANGenerator
 from tpugan_torch.nn.layers import Embedding
+from tpugan_torch.parallel.mesh import global_batch, global_means, local_rows
 from tpugan_torch.train.loop import Callbacks
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import config_from_args
@@ -97,7 +98,11 @@ def make_step(cfg: Config, state: TrainState):
     latent_dim), ``gen_labels`` (B,) uniform over the classes, and
     ``masks``, the Dropout2d keep masks of D's three forwards (G phase,
     real, fakes). ``out`` holds ``d_loss``, ``g_loss``, ``d_acc`` and
-    ``gen_imgs``. No host sync: ``graph_steps`` can capture it."""
+    ``gen_imgs``. Under data parallelism (``state.dp``) the draws are the
+    global batch's, drawn or passed in, the step keeps this rank's rows and
+    the scalars in ``out`` are global means (``d_acc`` a mean over each
+    rank's equal share of rows, ``tpugan/models/acgan.py:155``). No host
+    sync: ``graph_steps`` can capture it."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -106,7 +111,8 @@ def make_step(cfg: Config, state: TrainState):
         device = state.draws.device
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
         labels = labels.to(device, non_blocking=True).long()
-        b = real.shape[0]
+        dp = state.dp
+        b = global_batch(dp, real.shape[0])
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if gen_labels is None:
@@ -114,6 +120,8 @@ def make_step(cfg: Config, state: TrainState):
                                        device=device)
         if masks is None:
             masks = [D.draw_masks(b, state.draws) for _ in range(3)]
+        z, gen_labels = local_rows(dp, z), local_rows(dp, gen_labels)
+        masks = [[local_rows(dp, m) for m in ms] for ms in masks]
 
         opt_g.zero_grad(set_to_none=True)
         gen = G(z, gen_labels)
@@ -135,8 +143,9 @@ def make_step(cfg: Config, state: TrainState):
                          torch.cat([labels, gen_labels]))
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "d_acc": d_acc,
-                       "gen_imgs": fake}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "d_acc": d_acc,
+               "gen_imgs": fake}
+        return state, global_means(dp, out, ("d_loss", "g_loss", "d_acc"))
 
     return step
 

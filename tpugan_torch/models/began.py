@@ -16,6 +16,12 @@ CUDA graph carries it from replay to replay. The log line adds the
 convergence measure M = L_real + |0.75 * L_real - L_fake| and k
 (began.py:196-205). z is the step's only draw. No kernel of the port runs
 here.
+
+Under data parallelism the equilibrium update reads the global batch's
+L_real and L_fake (``tpugan/models/began.py:151-165`` over a sharded batch),
+one all-reduce with the reported losses, so k stays equal on every rank;
+each rank's D loss uses its own means, whose gradients the optimizer hook
+averages into the global loss's.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from tpugan_torch.models.ebgan import Config as _EBGANConfig
 from tpugan_torch.models.ebgan import autoencoder_down_up
 from tpugan_torch.nn.blocks import DCGANGenerator
 from tpugan_torch.nn.layers import BatchNorm1d, Linear
+from tpugan_torch.parallel.mesh import global_batch, global_mean, local_rows
 from tpugan_torch.train.loop import Callbacks
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import config_from_args
@@ -95,8 +102,10 @@ def make_step(cfg: Config, state: TrainState):
     update, one D update and the equilibrium update of ``state.aux["k"]``,
     in place. ``z`` (B, latent_dim) is drawn from ``state.draws`` unless
     passed in. ``out`` holds ``d_loss``, ``g_loss``, ``M``, ``k`` (the
-    updated value, a tensor of its own) and ``gen_imgs`` (NCHW). No host
-    sync: ``graph_steps`` can capture it."""
+    updated value, a tensor of its own) and ``gen_imgs`` (NCHW). Under data
+    parallelism (``state.dp``) z is the global batch's, drawn or passed in,
+    the step keeps this rank's rows, and k, M and the losses come from the
+    global means. No host sync: ``graph_steps`` can capture it."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -105,8 +114,11 @@ def make_step(cfg: Config, state: TrainState):
         del labels
         device = state.draws.device
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
+        dp = state.dp
         if z is None:
-            z = torch.randn(real.shape[0], cfg.latent_dim, generator=state.draws, device=device)
+            z = torch.randn(global_batch(dp, real.shape[0]), cfg.latent_dim,
+                            generator=state.draws, device=device)
+        z = local_rows(dp, z)
         k = state.aux["k"]
 
         # G phase (began.py:154-166): the L1 target is G(z) itself, not
@@ -127,16 +139,18 @@ def make_step(cfg: Config, state: TrainState):
         d_loss.backward()
         opt_d.step()
 
-        # The equilibrium update (began.py:189-196).
+        # The equilibrium update (began.py:189-196), on the global means.
         with torch.no_grad():
+            means = global_mean(dp, torch.stack([loss_real, loss_fake, d_loss, g_loss]))
+            loss_real, loss_fake, d_loss, g_loss = means.unbind()
             diff = GAMMA * loss_real - loss_fake
             k_new = torch.clamp(k + LAMBDA_K * diff, 0.0, 1.0)
             m = loss_real + torch.abs(diff)
             k.copy_(k_new)
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "M": m,
-                       "k": k_new, "gen_imgs": fake}
+        return state, {"d_loss": d_loss, "g_loss": g_loss, "M": m, "k": k_new,
+                       "gen_imgs": fake}
 
     return step
 

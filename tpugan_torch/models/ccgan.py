@@ -22,6 +22,15 @@ it is, so under fused dispatch a dispatch's rows all carry its last step's
 images): masked over generated over original, 5 a row, to images/<N>.png.
 The generator runs in training mode, its dropout masks from a generator of
 the sampler's own, its BatchNorm update dropped.
+
+Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/ccgan.py:238``): each
+rank loads its rows of every global batch and keeps its rows of the corners
+and of the generator's dropout masks, both drawn for the global batch; the
+generator's BatchNorms take global statistics, the discriminator's IN
+kernel runs on the rank's rows; the losses are global means; rank 0 alone
+logs, keeps the preview (the first row of its rows is the global batch's)
+and samples, its generator's BatchNorm on the sample batch alone.
 """
 
 from __future__ import annotations
@@ -44,8 +53,16 @@ from tpugan_torch.models.context_encoder import (
 from tpugan_torch.data.im2im import celeba_images_or_synthetic
 from tpugan_torch.data.loader import DeviceLoader
 from tpugan_torch.nn.im2im import UNet, UNetDown, UNetUp, _numbered
-from tpugan_torch.nn.layers import Conv2d, Upsample, batch_stats_frozen
+from tpugan_torch.nn.layers import Conv2d, Upsample, batch_stats_frozen, rank_local
 from tpugan_torch.ops.image import resize_bilinear
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    global_batch,
+    global_means,
+    local_rows,
+    rank_zero_write,
+    replicate_for,
+)
 from tpugan_torch.train.loop import Callbacks, run_training, train_device
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -112,10 +129,14 @@ def make_step(cfg: Config, state: TrainState):
     G update, then one D update (ccgan.py:128-151). ``corners`` (B, 2) are
     the masks' top-left (y, x); ``masks`` the keep masks of the generator's
     seven dropout sites in call order; None draws them from ``state.draws``,
-    the corners first. D sees the real and the generated images in one
-    forward (its norms are per sample). ``out`` holds ``d_loss`` and
-    ``g_loss`` (0-d) and the batch's ``imgs``, ``masked`` and ``lowres``
-    (NCHW). No host sync: ``graph_steps`` can capture it."""
+    the corners first, the masks ahead of the forward (``UNet.draw_masks``:
+    the bits the forward would draw). D sees the real and the generated
+    images in one forward (its norms are per sample). ``out`` holds
+    ``d_loss`` and ``g_loss`` (0-d) and the batch's ``imgs``, ``masked``
+    and ``lowres`` (NCHW). Under data parallelism (``state.dp``) the draws
+    are the global batch's, drawn or passed in, the step keeps this rank's
+    rows and the losses in ``out`` are global means. No host sync:
+    ``graph_steps`` can capture it."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -124,14 +145,17 @@ def make_step(cfg: Config, state: TrainState):
     def step(state: TrainState, imgs_u8, corners=None, masks=None):
         device = state.draws.device
         imgs = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        b = imgs.shape[0]
+        b, dp = imgs.shape[0], state.dp
         imgs_lr = resize_bilinear(imgs, lr_size)
         if corners is None:
-            corners = random_corners(cfg, b, state.draws)
+            corners = random_corners(cfg, global_batch(dp, b), state.draws)
+        if masks is None:
+            masks = G.draw_masks(global_batch(dp, b), state.draws, imgs.shape[2:])
+        corners, masks = local_rows(dp, corners), [local_rows(dp, m) for m in masks]
         masked = torch.where(square_mask(corners, cfg.img_size, cfg.mask_size), -1.0, imgs)
 
         opt_g.zero_grad(set_to_none=True)
-        gen = G(masked, imgs_lr, masks, state.draws)
+        gen = G(masked, imgs_lr, masks)
         g_loss = mse(D(gen), 1.0)
         g_loss.backward(inputs=g_params)
         opt_g.step()
@@ -143,13 +167,16 @@ def make_step(cfg: Config, state: TrainState):
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                       "imgs": imgs, "masked": masked, "lowres": imgs_lr}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "imgs": imgs,
+               "masked": masked, "lowres": imgs_lr}
+        return state, global_means(dp, out, ("d_loss", "g_loss"))
 
     return step
 
 
-def make_loader(cfg: Config, device, batch_size=None, prefetch: int = 2):
+def make_loader(cfg: Config, device, batch_size=None, prefetch: int = 2, dp=None):
+    """CelebA (or the synthetic faces) at ``--img_size``, every image a
+    training image; this rank's share of each batch under ``dp``."""
     imgs, is_real = celeba_images_or_synthetic(
         cfg.data_dir, cfg.dataset_name, cfg.img_size, cfg.img_size,
         mode="train", val_tail=0, synthetic=cfg.synthetic_data, seed=cfg.seed,
@@ -157,7 +184,7 @@ def make_loader(cfg: Config, device, batch_size=None, prefetch: int = 2):
     if not is_real:
         print("[tpugan] CelebA not found on disk — using synthetic faces")
     return DeviceLoader([imgs], batch_size or cfg.batch_size, device, shuffle=True,
-                        seed=cfg.seed, prefetch=prefetch)
+                        seed=cfg.seed, prefetch=prefetch, dp=dp)
 
 
 class Preview:
@@ -183,7 +210,9 @@ def make_callbacks(cfg: Config) -> Callbacks:
     """The log line, which also feeds the preview, and the sampler: G on the
     preview's masked and low-res images, in training mode, its dropout
     masks from ``_common.sample_generator`` and its BatchNorm update
-    dropped."""
+    dropped; under data parallelism the sampler, and so the preview it
+    adds to, runs on rank 0 alone, its BatchNorm on the sample batch alone
+    (``rank_local``)."""
     preview = Preview()
     imgdir = os.path.join(cfg.output_dir, "images")
     os.makedirs(imgdir, exist_ok=True)
@@ -194,15 +223,18 @@ def make_callbacks(cfg: Config) -> Callbacks:
             epoch, cfg.n_epochs, i, bpe, float(out["d_loss"]), float(out["g_loss"])))
 
     @torch.no_grad()
-    def sample(state, out, batches_done):
+    def write(state, out, batches_done):
         preview.add(out, batches_done)
         G = state.modules["generator"]
         p = preview.saved
         draws = sample_generator(cfg, batches_done, p["masked"].device)
-        with batch_stats_frozen(G):
+        with rank_local(G), batch_stats_frozen(G):
             gen = G(p["masked"], p["lowres"], generator=draws)
         save_grid(torch.cat([p["masked"], gen, p["imgs"]], dim=2),
                   os.path.join(imgdir, "%d.png" % batches_done), 5)
+
+    def sample(state, out, batches_done):
+        rank_zero_write(lambda: write(state, out, batches_done))
 
     return Callbacks(log=log, sample=sample)
 
@@ -210,11 +242,13 @@ def make_callbacks(cfg: Config) -> Callbacks:
 def run(cfg: Config, device=None) -> TrainState:
     """Train through ``run_training``: eager, or ``--steps_per_dispatch K``
     steps a CUDA graph. ``device`` None means CUDA, and raises when there is
-    none; the tests pass the CPU. On CUDA, float32 means TF32 off."""
+    none; the tests pass the CPU. On CUDA, float32 means TF32 off. Under a
+    launcher of several ranks it runs data-parallel (module docstring)."""
     device = train_device(cfg, device)
     modules = build(cfg, device)
-    state = create_state(cfg, modules, device)
-    return run_training(cfg, make_loader(cfg, device), state, make_step(cfg, state),
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
+    return run_training(cfg, make_loader(cfg, device, dp=dp), state, make_step(cfg, state),
                         make_callbacks(cfg), n_epochs=cfg.n_epochs,
                         sample_interval=cfg.sample_interval)
 

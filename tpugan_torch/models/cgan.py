@@ -31,7 +31,15 @@ from tpugan_torch.models._common import (
 )
 from tpugan_torch.models._template_b import create_state_b
 from tpugan_torch.nn.blocks import forward_masked, mlp_generator_body
-from tpugan_torch.nn.layers import Dropout, Embedding, LeakyReLU, Linear, batch_stats_frozen
+from tpugan_torch.nn.layers import (
+    Dropout,
+    Embedding,
+    LeakyReLU,
+    Linear,
+    batch_stats_frozen,
+    rank_local,
+)
+from tpugan_torch.parallel.mesh import global_batch, global_means, local_rows, rank_zero_write
 from tpugan_torch.train.loop import Callbacks
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -126,7 +134,10 @@ def make_step(cfg: Config, state: TrainState):
     Draws, from ``state.draws`` in this order unless passed in: ``z`` (B,
     latent_dim), ``gen_labels`` (B,) uniform over the classes, and
     ``masks``, the Dropout keep masks of D's three forwards (G phase, real,
-    fakes). No host sync: ``graph_steps`` can capture it."""
+    fakes). Under data parallelism (``state.dp``) the draws are the global
+    batch's, drawn or passed in, the step keeps this rank's rows and the
+    losses in ``out`` are global means. No host sync: ``graph_steps`` can
+    capture it."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -135,7 +146,8 @@ def make_step(cfg: Config, state: TrainState):
         device = state.draws.device
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
         labels = labels.to(device, non_blocking=True).long()
-        b = real.shape[0]
+        dp = state.dp
+        b = global_batch(dp, real.shape[0])
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if gen_labels is None:
@@ -143,6 +155,8 @@ def make_step(cfg: Config, state: TrainState):
                                        device=device)
         if masks is None:
             masks = [D.draw_masks(b, state.draws) for _ in range(3)]
+        z, gen_labels = local_rows(dp, z), local_rows(dp, gen_labels)
+        masks = [[local_rows(dp, m) for m in ms] for ms in masks]
 
         opt_g.zero_grad(set_to_none=True)
         gen = G(z, gen_labels)
@@ -158,7 +172,8 @@ def make_step(cfg: Config, state: TrainState):
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+        return state, global_means(dp, out, ("d_loss", "g_loss"))
 
     return step
 
@@ -174,19 +189,23 @@ def make_sampler(cfg: Config):
     ``_common.sample_noise`` (its own generator: ``state.draws`` stays as it
     was), to ``images/<batches_done>.png``, n_classes a row. G's BatchNorm
     running statistics stay as they were (``batch_stats_frozen``), as the
-    JAX sampler drops its update."""
+    JAX sampler drops its update. Under data parallelism rank 0 alone
+    samples, its BatchNorm on the sample batch alone (``rank_local``)."""
     n_row = cfg.n_classes
     imgdir = os.path.join(cfg.output_dir, "images")
     os.makedirs(imgdir, exist_ok=True)
 
     @torch.no_grad()
-    def sample(state, out, batches_done):
+    def write(state, batches_done):
         G = state.modules["generator"]
         device = state.draws.device
         z = sample_noise(cfg, batches_done, (n_row * n_row, cfg.latent_dim), device)
-        with batch_stats_frozen(G):
+        with rank_local(G), batch_stats_frozen(G):
             imgs = G(z, class_grid(n_row, device))
         save_grid(imgs, os.path.join(imgdir, "%d.png" % batches_done), n_row)
+
+    def sample(state, out, batches_done):
+        rank_zero_write(lambda: write(state, batches_done))
 
     return sample
 

@@ -29,6 +29,13 @@ step), the losses printed at each epoch's end, then the epoch-end
 evaluation in eval mode: the three cycle losses and the sheets
 ``cycle_reg_%06i.png``, ``gen_%06i.png`` and ``gen_classes_%06i.png``
 (clustergan.py:483-566). No kernel of the port runs here.
+
+Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/cluster_gan.py:416``):
+each rank loads its rows of every global batch, the draws are the global
+batch's, G's BatchNorms take global statistics, the losses read once an
+epoch are global means, and rank 0 alone prints them and runs the epoch-end
+evaluation (G in eval mode: no collective) and writes its sheets.
 """
 
 from __future__ import annotations
@@ -56,6 +63,15 @@ from tpugan_torch.nn.layers import (
     Linear,
 )
 from tpugan_torch.ops.penalty import wgan_gp_penalty
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    global_batch,
+    global_means,
+    is_writer,
+    local_rows,
+    rank_zero_write,
+    replicate_for,
+)
 from tpugan_torch.train.loop import StepObserver, train_device
 from tpugan_torch.train.optim import capturable
 from tpugan_torch.train.state import TrainState
@@ -218,21 +234,27 @@ def make_steps(cfg: Config, state: TrainState):
     this order unless passed in: ``zn`` (B, latent_dim), already scaled by
     0.75; ``zc_idx`` (B,), the classes; and, under ``--wass_flag``,
     ``alpha`` (B, 1, 1, 1), the penalty's. ``out`` holds ``d_loss``, and in
-    ``full_step`` ``ge_loss``, and ``gen_imgs`` (NCHW)."""
+    ``full_step`` ``ge_loss``, and ``gen_imgs`` (NCHW). Under data
+    parallelism (``state.dp``) the draws are the global batch's, drawn or
+    passed in, each step keeps this rank's rows and the losses in ``out``
+    are global means."""
     G, E, D = (state.modules[k] for k in ("generator", "encoder", "discriminator"))
     opt_ge, opt_d = state.optimizers["ge"], state.optimizers["discriminator"]
     ge_params = list(G.parameters()) + list(E.parameters())
     d_params = list(D.parameters())
 
     def draw(state, real, zn, zc_idx, alpha):
-        b, device = real.shape[0], state.draws.device
+        dp, device = state.dp, state.draws.device
+        b = global_batch(dp, real.shape[0])
         if zn is None:
             zn = 0.75 * torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if zc_idx is None:
             zc_idx = torch.randint(0, N_C, (b,), generator=state.draws, device=device)
         if alpha is None and cfg.wass_flag:
             alpha = torch.rand(b, 1, 1, 1, generator=state.draws, device=device)
-        return zn, zc_idx, alpha
+        if alpha is not None:
+            alpha = local_rows(dp, alpha)
+        return local_rows(dp, zn), local_rows(dp, zc_idx), alpha
 
     def d_update(real, fake, alpha):
         """D's loss at its current parameters, and its step."""
@@ -267,7 +289,8 @@ def make_steps(cfg: Config, state: TrainState):
         fake = gen.detach()
         d_loss = d_update(real, fake, alpha)
         state.step += 1
-        return state, {"d_loss": d_loss, "ge_loss": ge_loss.detach(), "gen_imgs": fake}
+        out = {"d_loss": d_loss, "ge_loss": ge_loss.detach(), "gen_imgs": fake}
+        return state, global_means(state.dp, out, ("d_loss", "ge_loss"))
 
     def d_step(state: TrainState, imgs_u8, labels=None, zn=None, zc_idx=None, alpha=None):
         del labels
@@ -277,20 +300,21 @@ def make_steps(cfg: Config, state: TrainState):
             fake = G(zn, F.one_hot(zc_idx, N_C).float())
         d_loss = d_update(real, fake, alpha)
         state.step += 1
-        return state, {"d_loss": d_loss, "gen_imgs": fake}
+        return state, global_means(state.dp, {"d_loss": d_loss, "gen_imgs": fake}, ("d_loss",))
 
     return full_step, d_step
 
 
-def make_loader(cfg: Config, device) -> DeviceLoader:
+def make_loader(cfg: Config, device, dp=None) -> DeviceLoader:
     """MNIST (or the synthetic glyphs) at ``--img_size``, one channel,
-    shuffled from ``--seed`` (clustergan.py:344-362)."""
+    shuffled from ``--seed`` (clustergan.py:344-362); this rank's share of
+    each batch under ``dp``."""
     ds, is_real = mnist_or_synthetic(cfg.data_dir, img_size=cfg.img_size, channels=1,
                                      synthetic=cfg.synthetic_data, seed=cfg.seed)
     if not is_real:
         print("[tpugan] MNIST not found on disk — using synthetic dataset")
     return DeviceLoader([ds.images, ds.labels], cfg.batch_size, device, shuffle=True,
-                        seed=cfg.seed)
+                        seed=cfg.seed, dp=dp)
 
 
 def make_epoch_eval(cfg: Config, device):
@@ -345,15 +369,18 @@ def run(cfg: Config, device=None):
     None means CUDA, and raises when there is none; the tests pass the CPU.
     On CUDA, float32 means TF32 off."""
     device = train_device(cfg, device)
-    state = create_state(cfg, build(cfg, device), device)
-    loader = make_loader(cfg, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, build(cfg, device), device))
+    loader = make_loader(cfg, device, dp=dp)
     observer = StepObserver(cfg)
     full_step, d_step = map(observer.checked, make_steps(cfg, state))
     epoch_end = make_epoch_eval(cfg, device)
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
-    print("\nBegin training session with %i epochs...\n" % cfg.n_epochs)
+    writer = is_writer()
+    if writer:
+        print("\nBegin training session with %i epochs...\n" % cfg.n_epochs)
     ge_loss = d_loss = float("nan")
     for epoch in range(cfg.n_epochs):
         with contextlib.closing(loader.epoch(epoch)) as batches:
@@ -368,9 +395,10 @@ def run(cfg: Config, device=None):
                 observer.observe(epoch * bpe + i, out)
                 d_loss = out["d_loss"]
         # The losses are read once an epoch, not after every step.
-        print("[Epoch %d/%d] \n\tModel Losses: [D: %f] [GE: %f]"
-              % (epoch, cfg.n_epochs, float(d_loss), float(ge_loss)))
-        epoch_end(state, epoch)
+        if writer:
+            print("[Epoch %d/%d] \n\tModel Losses: [D: %f] [GE: %f]"
+                  % (epoch, cfg.n_epochs, float(d_loss), float(ge_loss)))
+        rank_zero_write(lambda: epoch_end(state, epoch))
     observer.close()
     return state
 

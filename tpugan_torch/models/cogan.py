@@ -20,6 +20,13 @@ inside a CUDA graph through ``run_training``.
 The library functions take an explicit ``device``; the tests run them on the
 CPU. ``run`` trains on CUDA unless told otherwise, and raises when there is
 none.
+
+Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/cogan.py:256``): each
+rank loads its rows of both domains' global batches (both members of the
+``ZipLoader``), keeps its rows of the draws made for the global batch (z and the Dropout2d masks);
+every BatchNorm takes global statistics; the scalars are global means; rank
+0 alone logs and writes the samples, gathered from the ranks.
 """
 
 from __future__ import annotations
@@ -35,6 +42,15 @@ from tpugan_torch.losses import mse
 from tpugan_torch.models._common import save_grid, std_log_line, two_domain_loader
 from tpugan_torch.nn.blocks import forward_masked
 from tpugan_torch.nn.layers import BatchNorm2d, Conv2d, Dropout2d, LeakyReLU, Linear, Upsample
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    gather_rows,
+    global_batch,
+    global_means,
+    local_rows,
+    rank_zero_write,
+    replicate_for,
+)
 from tpugan_torch.train.loop import Callbacks, run_training, train_device
 from tpugan_torch.train.optim import capturable
 from tpugan_torch.train.state import TrainState, normalize_uint8
@@ -167,7 +183,9 @@ def make_step(cfg: Config, state: TrainState):
     each of the three discriminator forwards (G phase, real pair, fakes).
     Both are drawn from ``state.draws``, z first, unless passed. ``out``
     holds ``d_loss`` and ``g_loss`` (0-d) and ``gen_imgs1``, ``gen_imgs2``
-    (NCHW)."""
+    (NCHW). Under data parallelism (``state.dp``) the draws are the global
+    batch's, drawn or passed in, the step keeps this rank's rows and the
+    losses are global means."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -177,11 +195,14 @@ def make_step(cfg: Config, state: TrainState):
         device = state.draws.device
         imgs1 = normalize_uint8(imgs1_u8.to(device, non_blocking=True))
         imgs2 = normalize_uint8(imgs2_u8.to(device, non_blocking=True))
-        b = imgs1.shape[0]
+        dp = state.dp
+        b = global_batch(dp, imgs1.shape[0])
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if masks is None:
             masks = [D.draw_masks(b, state.draws) for _ in range(3)]
+        z = local_rows(dp, z)
+        masks = [[local_rows(dp, m) for m in ms] for ms in masks]
 
         opt_g.zero_grad(set_to_none=True)
         gen1, gen2 = G(z)
@@ -198,8 +219,9 @@ def make_step(cfg: Config, state: TrainState):
         d_loss.backward()
         opt_d.step()
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                       "gen_imgs1": fake1, "gen_imgs2": fake2}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs1": fake1,
+               "gen_imgs2": fake2}
+        return state, global_means(dp, out, ("d_loss", "g_loss"))
 
     return step
 
@@ -213,15 +235,17 @@ def run(cfg: Config, device=None) -> TrainState:
     is none; the tests pass the CPU. On CUDA, float32 means TF32 off."""
     device = train_device(cfg, device)
     modules = build(cfg, device)
-    state = create_state(cfg, modules, device)
-    loader = make_loader(cfg, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
+    loader = make_loader(cfg, device, dp=dp)
     imgdir = os.path.join(cfg.output_dir, "images")
     os.makedirs(imgdir, exist_ok=True)
 
     def sample(state, out, batches_done):
         # cogan.py:241-243: both domains' batches stacked, 8 a row.
-        save_grid(torch.cat([out["gen_imgs1"], out["gen_imgs2"]]),
-                  os.path.join(imgdir, "%d.png" % batches_done), 8)
+        imgs = torch.cat([gather_rows(dp, out["gen_imgs1"]), gather_rows(dp, out["gen_imgs2"])])
+        rank_zero_write(lambda: save_grid(imgs, os.path.join(imgdir, "%d.png" % batches_done),
+                                          8))
 
     return run_training(cfg, loader, state, make_step(cfg, state),
                         Callbacks(log=std_log_line(cfg), sample=sample),

@@ -17,6 +17,14 @@ step (``--steps_per_dispatch``). The discriminator's IN runs through the
 port's instance-norm kernel pair fused with its LeakyReLU(0.2), inside the
 CUDA graph when fused. The sampler fills the centre mask with the train-mode
 generator, its BatchNorm update dropped as the JAX sampler drops it.
+
+Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/context_encoder.py:274``):
+each rank loads its rows of every global batch and keeps its rows of the
+corners drawn for the global batch; the generator's BatchNorms take global
+statistics, the discriminator's IN kernel runs on the rank's rows; the
+losses are global means; rank 0 alone logs and samples, its generator's
+BatchNorm on the sample batch alone.
 """
 
 from __future__ import annotations
@@ -42,6 +50,15 @@ from tpugan_torch.nn.layers import (
     InstanceNorm,
     LeakyReLU,
     batch_stats_frozen,
+    rank_local,
+)
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    global_batch,
+    global_means,
+    local_rows,
+    rank_zero_write,
+    replicate_for,
 )
 from tpugan_torch.train.loop import Callbacks, run_training, train_device
 from tpugan_torch.train.state import TrainState, normalize_uint8
@@ -162,7 +179,10 @@ def make_step(cfg: Config, state: TrainState):
     the masks' top-left (y, x); None draws them from ``state.draws``. D sees
     the real and the generated patches in one forward (its norms are per
     sample). ``out`` holds ``d_loss``, ``g_adv`` and ``g_pixel`` as 0-d
-    tensors. No host sync: ``graph_steps`` can capture it."""
+    tensors. Under data parallelism (``state.dp``) the corners are the
+    global batch's, drawn or passed in, the step keeps this rank's rows and
+    ``out`` holds global means. No host sync: ``graph_steps`` can capture
+    it."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -170,9 +190,10 @@ def make_step(cfg: Config, state: TrainState):
     def step(state: TrainState, imgs_u8, corners=None):
         device = state.draws.device
         imgs = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        b = imgs.shape[0]
+        b, dp = imgs.shape[0], state.dp
         if corners is None:
-            corners = random_corners(cfg, b, state.draws)
+            corners = random_corners(cfg, global_batch(dp, b), state.draws)
+        corners = local_rows(dp, corners)
         masked = torch.where(square_mask(corners, cfg.img_size, cfg.mask_size), 1.0, imgs)
         parts = crop_squares(imgs, corners, cfg.mask_size)
 
@@ -190,13 +211,17 @@ def make_step(cfg: Config, state: TrainState):
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_adv": g_adv.detach(),
-                       "g_pixel": g_pixel.detach()}
+        out = {"d_loss": d_loss.detach(), "g_adv": g_adv.detach(), "g_pixel": g_pixel.detach()}
+        return state, global_means(dp, out, tuple(out))
 
     return step
 
 
-def make_loader(cfg: Config, device, mode: str = "train", batch_size=None, prefetch: int = 2):
+def make_loader(cfg: Config, device, mode: str = "train", batch_size=None, prefetch: int = 2,
+                dp=None):
+    """CelebA (or the synthetic faces) at ``--img_size``: the training
+    images, or with ``mode="val"`` the held-out tail; this rank's share of
+    each batch under ``dp``."""
     imgs, is_real = celeba_images_or_synthetic(
         cfg.data_dir, cfg.dataset_name, cfg.img_size, cfg.img_size,
         mode=mode, synthetic=cfg.synthetic_data, seed=cfg.seed,
@@ -204,31 +229,36 @@ def make_loader(cfg: Config, device, mode: str = "train", batch_size=None, prefe
     if not is_real and mode == "train":
         print("[tpugan] CelebA not found on disk — using synthetic faces")
     return DeviceLoader([imgs], batch_size or cfg.batch_size, device, shuffle=True,
-                        seed=cfg.seed if mode == "train" else cfg.seed + 991, prefetch=prefetch)
+                        seed=cfg.seed if mode == "train" else cfg.seed + 991, prefetch=prefetch,
+                        dp=dp)
 
 
 def make_sampler(cfg: Config, device):
     """context_encoder.py:109-120: 12 validation images with the centre
     mask; each masked over filled over original, 6 a row, to
     images/<N>.png. The train-mode generator (BatchNorm on batch statistics,
-    running statistics left alone)."""
+    running statistics left alone); under data parallelism on rank 0
+    alone, its BatchNorm on the sample batch alone (``rank_local``)."""
     val_loader = make_loader(cfg, device, mode="val", batch_size=12, prefetch=0)
     imgdir = os.path.join(cfg.output_dir, "images")
     os.makedirs(imgdir, exist_ok=True)
     i0, m = (cfg.img_size - cfg.mask_size) // 2, cfg.mask_size
 
     @torch.no_grad()
-    def sample(state, out, batches_done):
+    def write(state, batches_done):
         G = state.modules["generator"]
         (imgs_u8,) = first_batch(val_loader, batches_done)
         imgs = normalize_uint8(imgs_u8)
         masked = imgs.clone()
         masked[:, :, i0:i0 + m, i0:i0 + m] = 1.0
-        with batch_stats_frozen(G):
+        with rank_local(G), batch_stats_frozen(G):
             filled = masked.clone()
             filled[:, :, i0:i0 + m, i0:i0 + m] = G(masked)
         save_grid(torch.cat([masked, filled, imgs], dim=2),
                   os.path.join(imgdir, "%d.png" % batches_done), 6)
+
+    def sample(state, out, batches_done):
+        rank_zero_write(lambda: write(state, batches_done))
 
     return sample
 
@@ -236,17 +266,19 @@ def make_sampler(cfg: Config, device):
 def run(cfg: Config, device=None) -> TrainState:
     """Train through ``run_training``: eager, or ``--steps_per_dispatch K``
     steps a CUDA graph. ``device`` None means CUDA, and raises when there is
-    none; the tests pass the CPU. On CUDA, float32 means TF32 off."""
+    none; the tests pass the CPU. On CUDA, float32 means TF32 off. Under a
+    launcher of several ranks it runs data-parallel (module docstring)."""
     device = train_device(cfg, device)
     modules = build(cfg, device)
-    state = create_state(cfg, modules, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
 
     def log(epoch, i, bpe, out):
         print("[Epoch %d/%d] [Batch %d/%d] [D loss: %f] [G adv: %f, pixel: %f]" % (
             epoch, cfg.n_epochs, i, bpe, float(out["d_loss"]), float(out["g_adv"]),
             float(out["g_pixel"])))
 
-    return run_training(cfg, make_loader(cfg, device), state, make_step(cfg, state),
+    return run_training(cfg, make_loader(cfg, device, dp=dp), state, make_step(cfg, state),
                         Callbacks(log=log, sample=make_sampler(cfg, device)),
                         n_epochs=cfg.n_epochs, sample_interval=cfg.sample_interval)
 

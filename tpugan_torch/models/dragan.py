@@ -20,6 +20,12 @@ the penalty's forward normalizes by its batch statistics but leaves the
 running ones alone (``batch_stats_frozen``), as the JAX package throws its
 update away (``tpugan/models/dragan.py:99-112``). No kernel of the port runs
 here.
+
+Under data parallelism the penalty's std is the global batch's
+(``parallel.mesh.global_std``), alpha and noise are drawn at the global
+batch's shape and cut to the rank's rows, and the step's ``gen_imgs`` are
+gathered from the ranks, so rank 0, which alone logs, keeps the whole
+batch's fakes for its epoch's grid.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from tpugan_torch.models._common import run_mnist_recipe, save_grid, std_log_lin
 from tpugan_torch.models._template_b import create_state_b
 from tpugan_torch.nn.layers import batch_stats_frozen
 from tpugan_torch.ops.penalty import dragan_penalty
+from tpugan_torch.parallel.mesh import gather_rows, global_batch, global_means, local_rows
 from tpugan_torch.train.loop import Callbacks
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import config_from_args, flag
@@ -70,7 +77,10 @@ def make_step(cfg: Config, state: TrainState):
     (G phase, real, fakes, penalty), each a list from ``D.draw_masks``;
     ``alpha`` and ``noise``, the penalty's, each of the real batch's shape
     (NCHW). ``out`` holds ``d_loss`` (the BCE part), ``g_loss`` and
-    ``gen_imgs``. No host sync: ``graph_steps`` can capture it."""
+    ``gen_imgs``. Under data parallelism (``state.dp``) every draw is the
+    global batch's, drawn or passed in, the step keeps this rank's rows,
+    the losses are global means and ``gen_imgs`` the global batch's. No
+    host sync: ``graph_steps`` can capture it."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params, d_params = list(G.parameters()), list(D.parameters())
@@ -80,15 +90,19 @@ def make_step(cfg: Config, state: TrainState):
         del labels
         device = state.draws.device
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        b = real.shape[0]
+        dp = state.dp
+        b = global_batch(dp, real.shape[0])
+        shape = (b, *real.shape[1:])
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if masks is None:
             masks = [D.draw_masks(b, state.draws) for _ in range(4)]
         if alpha is None:
-            alpha = torch.rand(real.shape, generator=state.draws, device=device)
+            alpha = torch.rand(shape, generator=state.draws, device=device)
         if noise is None:
-            noise = torch.rand(real.shape, generator=state.draws, device=device)
+            noise = torch.rand(shape, generator=state.draws, device=device)
+        z, alpha, noise = (local_rows(dp, x) for x in (z, alpha, noise))
+        masks = [[local_rows(dp, m) for m in ms] for ms in masks]
 
         # G phase (dragan.py:184-200): only G's parameters take gradients.
         opt_g.zero_grad(set_to_none=True)
@@ -103,12 +117,14 @@ def make_step(cfg: Config, state: TrainState):
         opt_d.zero_grad(set_to_none=True)
         d_loss = 0.5 * (bce(D(real, masks[1]), 1.0) + bce(D(fake, masks[2]), 0.0))
         with batch_stats_frozen(D):
-            gp = LAMBDA_GP * dragan_penalty(lambda x: D(x, masks[3]), real, alpha, noise)
+            gp = LAMBDA_GP * dragan_penalty(lambda x: D(x, masks[3]), real, alpha, noise, dp=dp)
         (gp if cfg.reference_quirks else d_loss + gp).backward(inputs=d_params)
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+               "gen_imgs": gather_rows(dp, fake)}
+        return state, global_means(dp, out, ("d_loss", "g_loss"))
 
     return step
 

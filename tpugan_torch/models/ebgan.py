@@ -14,6 +14,13 @@ max(0, margin - MSE of the fakes), margin = max(1, batch_size / 64)
 kink at 0, the same gradient, so the step reads nothing back and a CUDA
 graph can capture it. D has no dropout: z is the step's only draw. No
 kernel of the port runs here.
+
+Under data parallelism (``tpugan/models/ebgan.py:119,158-159`` over a
+sharded batch) two terms couple samples, and each is the global batch's on
+every rank: the pull-away term over the gathered embeddings
+(``gather_rows``), and the hinge on the fakes' global MSE, the ranks' means
+gathered (``mean_over_ranks``, differentiable), so every rank takes the
+same side of the kink. ``margin`` reads ``--batch_size``, the global batch.
 """
 
 from __future__ import annotations
@@ -28,6 +35,14 @@ from torch import nn
 from tpugan_torch.losses import mse, pullaway
 from tpugan_torch.models import dcgan as _dcgan
 from tpugan_torch.models._common import run_mnist_recipe
+from tpugan_torch.parallel.mesh import (
+    DataParallel,
+    gather_rows,
+    global_batch,
+    global_means,
+    local_rows,
+    mean_over_ranks,
+)
 from tpugan_torch.models._template_b import create_state_b
 from tpugan_torch.nn.blocks import DCGANGenerator
 from tpugan_torch.nn.layers import BatchNorm1d, Conv2d, Linear, Upsample
@@ -104,13 +119,25 @@ create_state = create_state_b
 make_loader = _dcgan.make_loader
 
 
+def fake_hinge(dp: Optional[DataParallel], fake_recon: torch.Tensor, fake: torch.Tensor,
+               margin: float) -> torch.Tensor:
+    """D's hinge on the fakes, max(0, margin - MSE(fake_recon, fake))
+    (``tpugan/models/ebgan.py:158-159``), the MSE the global batch's: the
+    ranks' means gathered (``mean_over_ranks``, differentiable), so every
+    rank takes the same side of the kink."""
+    return torch.clamp(margin - mean_over_ranks(dp, mse(fake_recon, fake)), min=0.0)
+
+
 def make_step(cfg: Config, state: TrainState):
     """``step(state, imgs_u8, labels=None, z=None) -> (state, out)``: one G
     update, then one D update. ``z`` (B, latent_dim) is drawn from
     ``state.draws`` unless passed in. ``out`` holds ``d_loss``, ``g_loss``
     and ``gen_imgs`` (NCHW). D's BatchNorm statistics advance through its
     three forwards (the fakes in the G phase, then the real batch and the
-    fakes). No host sync: ``graph_steps`` can capture it."""
+    fakes). Under data parallelism (``state.dp``) z is the global batch's,
+    drawn or passed in, the step keeps this rank's rows, the pull-away term
+    and the hinge are the global batch's and the losses in ``out`` global
+    means. No host sync: ``graph_steps`` can capture it."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -120,15 +147,18 @@ def make_step(cfg: Config, state: TrainState):
         del labels
         device = state.draws.device
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
+        dp = state.dp
         if z is None:
-            z = torch.randn(real.shape[0], cfg.latent_dim, generator=state.draws, device=device)
+            z = torch.randn(global_batch(dp, real.shape[0]), cfg.latent_dim,
+                            generator=state.draws, device=device)
+        z = local_rows(dp, z)
 
         # G phase (ebgan.py:165-182).
         opt_g.zero_grad(set_to_none=True)
         gen = G(z)
         recon, emb = D(gen)
         fake = gen.detach()
-        g_loss = mse(recon, fake) + LAMBDA_PT * pullaway(emb)
+        g_loss = mse(recon, fake) + LAMBDA_PT * pullaway(gather_rows(dp, emb))
         g_loss.backward(inputs=g_params)
         opt_g.step()
 
@@ -137,14 +167,13 @@ def make_step(cfg: Config, state: TrainState):
         opt_d.zero_grad(set_to_none=True)
         real_recon, _ = D(real)
         fake_recon, _ = D(fake)
-        d_loss_fake = mse(fake_recon, fake)
-        hinge = torch.clamp(margin - d_loss_fake, min=0.0)
-        d_loss = mse(real_recon, real) + hinge
+        d_loss = mse(real_recon, real) + fake_hinge(dp, fake_recon, fake, margin)
         d_loss.backward()
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+        return state, global_means(dp, out, ("d_loss", "g_loss"))
 
     return step
 

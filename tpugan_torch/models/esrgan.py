@@ -19,6 +19,15 @@ the zoo's one batch-interval checkpoint).
 ``infer_image`` is test_on_image.py: load a generator ``state_dict`` (the
 reference's own ``.pth`` format), normalize the image, upsample 4x,
 denormalize, write ``images/outputs/sr-<name>``.
+
+Under a launcher of several ranks training runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/esrgan.py:264``): each
+rank loads its rows of every global batch; the relativistic means of the
+full step, D(real) and D(fake) over the batch, are the global batch's on
+every rank (``gather_rows``, differentiable; ``tpugan/models/esrgan.py:
+167,196,199``); D's BatchNorms take global statistics, the VGG stays in
+eval mode; the losses are global means; rank 0 alone logs, writes the
+previews, gathered from the ranks, and the checkpoints.
 """
 
 from __future__ import annotations
@@ -43,6 +52,14 @@ from tpugan_torch.models.srgan import (
 from tpugan_torch.nn.sr import ESRGANGenerator, SRDiscriminator
 from tpugan_torch.nn.vgg import imagenet_denormalize, imagenet_normalize, vgg_features
 from tpugan_torch.ops.image import upsample_nearest
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    gather_rows,
+    global_means,
+    is_writer,
+    rank_zero_write,
+    replicate_for,
+)
 from tpugan_torch.train.loop import StepObserver, train_device
 from tpugan_torch.train.state import TrainState
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -103,10 +120,13 @@ def make_steps(cfg: Config, state: TrainState):
     D's BatchNorm statistics move four times, on the real and the fake batch
     in the G phase and again in the D phase. Its ``out`` holds ``d_loss``,
     ``g_loss``, ``loss_content``, ``loss_GAN``, ``loss_pixel`` (0-d),
-    ``imgs_lr`` and ``gen_hr`` (NCHW)."""
+    ``imgs_lr`` and ``gen_hr`` (NCHW). Under data parallelism
+    (``state.dp``) each step takes this rank's rows, the relativistic means
+    are the global batch's and the losses global means."""
     G, D, V = (state.modules[k] for k in ("generator", "discriminator", "vgg"))
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
+    batch_mean = lambda pred: gather_rows(state.dp, pred).mean(0, keepdim=True)
 
     def batch(state, imgs_u8):
         return prepare_lr_hr(imgs_u8.to(state.draws.device, non_blocking=True), cfg.hr_height)
@@ -118,7 +138,7 @@ def make_steps(cfg: Config, state: TrainState):
         loss_pixel.backward()
         opt_g.step()
         state.step += 1
-        return state, {"loss_pixel": loss_pixel.detach()}
+        return state, global_means(state.dp, {"loss_pixel": loss_pixel.detach()}, ("loss_pixel",))
 
     def full_step(state: TrainState, imgs_u8):
         imgs_lr, imgs_hr = batch(state, imgs_u8)
@@ -128,7 +148,7 @@ def make_steps(cfg: Config, state: TrainState):
         with torch.no_grad():
             pred_real = D(imgs_hr)
             real_features = V(imgs_hr)
-        loss_gan = bce_with_logits(D(gen_hr) - pred_real.mean(0, keepdim=True), 1.0)
+        loss_gan = bce_with_logits(D(gen_hr) - batch_mean(pred_real), 1.0)
         loss_content = l1(V(gen_hr), real_features)
         g_loss = loss_content + cfg.lambda_adv * loss_gan + cfg.lambda_pixel * loss_pixel
         g_loss.backward(inputs=g_params)
@@ -137,16 +157,18 @@ def make_steps(cfg: Config, state: TrainState):
         opt_d.zero_grad(set_to_none=True)
         gen_d = gen_hr.detach()
         pred_real, pred_fake = D(imgs_hr), D(gen_d)
-        loss_real = bce_with_logits(pred_real - pred_fake.mean(0, keepdim=True), 1.0)
-        loss_fake = bce_with_logits(pred_fake - pred_real.mean(0, keepdim=True), 0.0)
+        loss_real = bce_with_logits(pred_real - batch_mean(pred_fake), 1.0)
+        loss_fake = bce_with_logits(pred_fake - batch_mean(pred_real), 0.0)
         d_loss = (loss_real + loss_fake) / 2
         d_loss.backward()
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                       "loss_content": loss_content.detach(), "loss_GAN": loss_gan.detach(),
-                       "loss_pixel": loss_pixel.detach(), "imgs_lr": imgs_lr, "gen_hr": gen_d}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+               "loss_content": loss_content.detach(), "loss_GAN": loss_gan.detach(),
+               "loss_pixel": loss_pixel.detach(), "imgs_lr": imgs_lr, "gen_hr": gen_d}
+        return state, global_means(state.dp, out, ("d_loss", "g_loss", "loss_content",
+                                                   "loss_GAN", "loss_pixel"))
 
     return warmup_step, full_step
 
@@ -165,25 +187,28 @@ def run(cfg: Config, device=None) -> TrainState:
     first ``--warmup_batches`` batches (counted from epoch 0), the full step
     after; previews and checkpoints on full-step batches only. ``device``
     None means CUDA, and raises when there is none; the tests pass the CPU.
-    On CUDA, float32 means TF32 off."""
+    On CUDA, float32 means TF32 off. Under a launcher of several ranks it
+    runs data-parallel (module docstring)."""
     device = train_device(cfg, device)
     modules = build(cfg, device)
     os.makedirs(os.path.join(cfg.output_dir, "images", "training"), exist_ok=True)
     maybe_resume(cfg, modules)
-    state = create_state(cfg, modules, device)
-    loader = make_loader(cfg, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
+    loader = make_loader(cfg, device, dp=dp)
     observer = StepObserver(cfg)
     warmup_step, full_step = map(observer.checked, make_steps(cfg, state))
     bpe = len(loader)
     if cfg.max_batches >= 0:
         bpe = min(bpe, cfg.max_batches)
+    writer = is_writer()
     for epoch in range(cfg.epoch, cfg.n_epochs):
         with contextlib.closing(loader.epoch(epoch)) as batches:
             for i, batch in enumerate(batches):
                 if cfg.max_batches >= 0 and i >= cfg.max_batches:
                     break
                 batches_done = epoch * bpe + i
-                logged = cfg.log_interval > 0 and i % cfg.log_interval == 0
+                logged = writer and cfg.log_interval > 0 and i % cfg.log_interval == 0
                 if batches_done < cfg.warmup_batches:
                     state, out = warmup_step(state, *batch)
                     observer.observe(batches_done, out)
@@ -200,7 +225,8 @@ def run(cfg: Config, device=None) -> TrainState:
                              float(out["g_loss"]), float(out["loss_content"]),
                              float(out["loss_GAN"]), float(out["loss_pixel"])))
                 if cfg.sample_interval > 0 and batches_done % cfg.sample_interval == 0:
-                    save_preview(cfg, out, batches_done)
+                    sample = {k: gather_rows(dp, out[k]) for k in ("imgs_lr", "gen_hr")}
+                    rank_zero_write(lambda: save_preview(cfg, sample, batches_done))
                 if cfg.checkpoint_interval > 0 and batches_done % cfg.checkpoint_interval == 0:
                     save_checkpoints(cfg, modules, epoch)
     observer.close()

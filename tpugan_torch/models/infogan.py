@@ -30,7 +30,8 @@ from tpugan_torch.losses import cross_entropy_on_softmax, mse
 from tpugan_torch.models._common import mnist_loader, run_mnist_recipe, sample_noise, save_grid
 from tpugan_torch.models.cgan import class_grid
 from tpugan_torch.nn.blocks import DCGANAuxDiscriminator, DCGANGenerator
-from tpugan_torch.nn.layers import batch_stats_frozen
+from tpugan_torch.nn.layers import batch_stats_frozen, rank_local
+from tpugan_torch.parallel.mesh import global_batch, global_means, local_rows, rank_zero_write
 from tpugan_torch.train.loop import Callbacks
 from tpugan_torch.train.optim import capturable
 from tpugan_torch.train.state import TrainState, normalize_uint8
@@ -128,7 +129,10 @@ def make_step(cfg: Config, state: TrainState):
     ``info_z``, ``info_labels`` and ``info_code`` alike; then ``masks``, the
     Dropout2d keep masks of D's four forwards (G phase, real, fakes,
     information phase). ``out`` holds ``d_loss``, ``g_loss``, ``info_loss``
-    and ``gen_imgs``. No host sync: ``graph_steps`` can capture it."""
+    and ``gen_imgs``. Under data parallelism (``state.dp``) every draw is
+    the global batch's, drawn or passed in, the step keeps this rank's rows
+    and the losses in ``out`` are global means. No host sync:
+    ``graph_steps`` can capture it."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     opt_info = state.optimizers["info"]
@@ -139,7 +143,8 @@ def make_step(cfg: Config, state: TrainState):
         del labels
         device = state.draws.device
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        b = real.shape[0]
+        dp = state.dp
+        b = global_batch(dp, real.shape[0])
 
         def draw(z, labels, code):
             if z is None:
@@ -155,6 +160,9 @@ def make_step(cfg: Config, state: TrainState):
         info_z, info_labels, info_code = draw(info_z, info_labels, info_code)
         if masks is None:
             masks = [D.draw_masks(b, state.draws) for _ in range(4)]
+        z, gen_labels, code, info_z, info_labels, info_code = (
+            local_rows(dp, x) for x in (z, gen_labels, code, info_z, info_labels, info_code))
+        masks = [[local_rows(dp, m) for m in ms] for ms in masks]
 
         opt_g.zero_grad(set_to_none=True)
         gen = G(z, to_categorical(gen_labels, cfg.n_classes), code)
@@ -178,8 +186,9 @@ def make_step(cfg: Config, state: TrainState):
         opt_info.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
-                       "info_loss": info_loss.detach(), "gen_imgs": fake}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(),
+               "info_loss": info_loss.detach(), "gen_imgs": fake}
+        return state, global_means(dp, out, ("d_loss", "g_loss", "info_loss"))
 
     return step
 
@@ -192,7 +201,8 @@ def make_sampler(cfg: Config):
     images, n_classes a row, to ``images/<dir>/<batches_done>.png`` for each
     of ``SAMPLE_DIRS``; G in training mode, its running statistics left as
     they were, the noise from ``_common.sample_noise`` (``state.draws``
-    stays as it was)."""
+    stays as it was). Under data parallelism rank 0 alone samples, its
+    BatchNorm on the sample batch alone (``rank_local``)."""
     n_row = cfg.n_classes
     n = n_row * n_row
     dirs = {d: os.path.join(cfg.output_dir, "images", d) for d in SAMPLE_DIRS}
@@ -205,7 +215,7 @@ def make_sampler(cfg: Config):
              "varying_c2": np.concatenate([zeros, varied], -1)}
 
     @torch.no_grad()
-    def sample(state, out, batches_done):
+    def write(state, batches_done):
         G = state.modules["generator"]
         device = state.draws.device
         labels = to_categorical(class_grid(n_row, device), cfg.n_classes)
@@ -213,9 +223,12 @@ def make_sampler(cfg: Config):
         for d in SAMPLE_DIRS:
             z = noise.get(d, torch.zeros(n, cfg.latent_dim, device=device))
             code = torch.tensor(codes[d], dtype=torch.float32, device=device)
-            with batch_stats_frozen(G):
+            with rank_local(G), batch_stats_frozen(G):
                 imgs = G(z, labels, code)
             save_grid(imgs, os.path.join(dirs[d], "%d.png" % batches_done), n_row)
+
+    def sample(state, out, batches_done):
+        rank_zero_write(lambda: write(state, batches_done))
 
     return sample
 

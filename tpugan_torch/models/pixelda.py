@@ -26,6 +26,14 @@ generator, so ``--steps_per_dispatch K`` runs it inside a CUDA graph through
 The library functions take an explicit ``device``; the tests run them on the
 CPU. ``run`` trains on CUDA unless told otherwise, and raises when there is
 none.
+
+Under a launcher of several ranks it runs data-parallel
+(``tpugan_torch/parallel/mesh.py``, as ``tpugan/models/pixelda.py:290``): each
+rank loads its rows of both domains' global batches (both members of the
+``ZipLoader``), keeps its rows of the draws made for the global batch (z); the IN kernel runs on
+the rank's rows;
+every BatchNorm takes global statistics; the scalars are global means; rank
+0 alone logs and writes the samples, gathered from the ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +50,15 @@ from torch import nn
 from tpugan_torch.losses import cross_entropy_on_softmax, mse
 from tpugan_torch.models._common import save_grid, two_domain_loader
 from tpugan_torch.nn.layers import BatchNorm2d, Conv2d, InstanceNorm, LeakyReLU, Linear
+from tpugan_torch.parallel.mesh import (
+    auto_sharding,
+    gather_rows,
+    global_batch,
+    global_means,
+    local_rows,
+    rank_zero_write,
+    replicate_for,
+)
 from tpugan_torch.train.loop import Callbacks, run_training, train_device
 from tpugan_torch.train.optim import capturable
 from tpugan_torch.train.state import TrainState, normalize_uint8
@@ -184,7 +201,10 @@ def make_step(cfg: Config, state: TrainState):
     (pixelda.py:238-270). ``z`` is (B, latent_dim), drawn U(-1, 1) from
     ``state.draws`` unless passed. ``out`` holds ``d_loss``, ``g_loss``,
     ``acc`` and ``target_acc`` as 0-d tensors, and ``imgs_a``, ``fake_b`` and
-    ``imgs_b`` (NCHW)."""
+    ``imgs_b`` (NCHW). Under data parallelism (``state.dp``) z is the global
+    batch's, drawn or passed in, the step keeps this rank's rows and the
+    scalars are global means (the accuracies means over each rank's equal
+    share of rows)."""
     G, D, C = (state.modules[k] for k in ("generator", "discriminator", "classifier"))
     opt_g, opt_d = state.optimizers["g"], state.optimizers["discriminator"]
     g_params = [*G.parameters(), *C.parameters()]
@@ -195,9 +215,11 @@ def make_step(cfg: Config, state: TrainState):
         imgs_b = normalize_uint8(imgs_b_u8.to(device, non_blocking=True))
         labels_a = labels_a.to(device, non_blocking=True)
         labels_b = labels_b.to(device, non_blocking=True)
+        dp = state.dp
         if z is None:
-            z = torch.rand(imgs_a.shape[0], cfg.latent_dim, generator=state.draws,
-                           device=device) * 2.0 - 1.0
+            z = torch.rand(global_batch(dp, imgs_a.shape[0]), cfg.latent_dim,
+                           generator=state.draws, device=device) * 2.0 - 1.0
+        z = local_rows(dp, z)
 
         # G and classifier phase; D is applied but not updated.
         opt_g.zero_grad(set_to_none=True)
@@ -220,9 +242,9 @@ def make_step(cfg: Config, state: TrainState):
             acc = _accuracy(label_pred.detach(), labels_a)
             target_acc = _accuracy(C(imgs_b), labels_b)
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "acc": acc,
-                       "target_acc": target_acc, "imgs_a": imgs_a, "fake_b": fake,
-                       "imgs_b": imgs_b}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "acc": acc,
+               "target_acc": target_acc, "imgs_a": imgs_a, "fake_b": fake, "imgs_b": imgs_b}
+        return state, global_means(dp, out, ("d_loss", "g_loss", "acc", "target_acc"))
 
     return step
 
@@ -236,8 +258,9 @@ def run(cfg: Config, device=None) -> TrainState:
     is none; the tests pass the CPU. On CUDA, float32 means TF32 off."""
     device = train_device(cfg, device)
     modules = build(cfg, device)
-    state = create_state(cfg, modules, device)
-    loader = make_loader(cfg, device)
+    dp = auto_sharding(cfg.batch_size, device)
+    state = replicate_for(dp, create_state(cfg, modules, device))
+    loader = make_loader(cfg, device, dp=dp)
     step = make_step(cfg, state)
     imgdir = os.path.join(cfg.output_dir, "images")
     os.makedirs(imgdir, exist_ok=True)
@@ -259,9 +282,10 @@ def run(cfg: Config, device=None) -> TrainState:
     def sample(state, out, batches_done):
         # pixelda.py:305-308: five of A over their translations over five of
         # B, stacked along the height.
-        grid = torch.cat([out["imgs_a"][:5], out["fake_b"][:5], out["imgs_b"][:5]], dim=2)
-        save_grid(grid, os.path.join(imgdir, "%d.png" % batches_done),
-                  int(math.sqrt(cfg.batch_size)))
+        grid = torch.cat([gather_rows(dp, out[k])[:5] for k in ("imgs_a", "fake_b", "imgs_b")],
+                         dim=2)
+        rank_zero_write(lambda: save_grid(grid, os.path.join(imgdir, "%d.png" % batches_done),
+                                          int(math.sqrt(cfg.batch_size))))
 
     return run_training(cfg, loader, state, step, Callbacks(log=log, sample=sample),
                         n_epochs=cfg.n_epochs, sample_interval=cfg.sample_interval)

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import sys
+from typing import Optional
 
 import torch
 
@@ -31,6 +32,13 @@ from tpugan_torch.losses import bce_with_logits
 from tpugan_torch.models import dcgan as _dcgan
 from tpugan_torch.models._common import run_mnist_recipe
 from tpugan_torch.models._template_b import create_state_b
+from tpugan_torch.parallel.mesh import (
+    DataParallel,
+    gather_rows,
+    global_batch,
+    global_means,
+    local_rows,
+)
 from tpugan_torch.nn.blocks import DCGANDiscriminator, DCGANGenerator
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import config_from_args, flag
@@ -64,11 +72,15 @@ create_state = create_state_b
 make_loader = _dcgan.make_loader
 
 
-def _centered(pred: torch.Tensor, other: torch.Tensor, average: bool) -> torch.Tensor:
+def _centered(pred: torch.Tensor, other: torch.Tensor, average: bool,
+              dp: Optional[DataParallel] = None) -> torch.Tensor:
     """``pred - other`` (RSGAN), or ``pred - mean(other)`` over the batch
-    (RaGAN)."""
+    (RaGAN): the global batch's under data parallelism (``dp``), ``other``
+    gathered from the ranks (``gather_rows``, differentiable)."""
     pred, other = pred.float(), other.float()
-    return pred - (torch.mean(other, dim=0, keepdim=True) if average else other)
+    if not average:
+        return pred - other
+    return pred - torch.mean(gather_rows(dp, other), dim=0, keepdim=True)
 
 
 def make_step(cfg: Config, state: TrainState):
@@ -79,7 +91,10 @@ def make_step(cfg: Config, state: TrainState):
     latent_dim); ``masks``, the Dropout2d keep masks of D's four forwards in
     call order (G phase real, G phase fakes, D phase real, D phase fakes),
     each a list from ``D.draw_masks``. ``out`` holds ``d_loss``, ``g_loss``
-    and ``gen_imgs`` (NCHW). No host sync: ``graph_steps`` can capture it."""
+    and ``gen_imgs`` (NCHW). Under data parallelism (``state.dp``) the draws
+    are the global batch's, drawn or passed in, the step keeps this rank's
+    rows, RaGAN's means are the global batch's and the losses in ``out``
+    global means. No host sync: ``graph_steps`` can capture it."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -89,11 +104,14 @@ def make_step(cfg: Config, state: TrainState):
         del labels
         device = state.draws.device
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        b = real.shape[0]
+        dp = state.dp
+        b = global_batch(dp, real.shape[0])
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if masks is None:
             masks = [D.draw_masks(b, state.draws) for _ in range(4)]
+        z = local_rows(dp, z)
+        masks = [[local_rows(dp, m) for m in ms] for ms in masks]
 
         # G phase (relativistic_gan.py:140-160): only G's parameters take
         # gradients; D(real) runs first, its output detached.
@@ -105,7 +123,7 @@ def make_step(cfg: Config, state: TrainState):
         if cfg.reference_quirks:
             g_loss = bce_with_logits(fake_pred, 1.0)
         else:
-            g_loss = bce_with_logits(_centered(fake_pred, real_pred, avg), 1.0)
+            g_loss = bce_with_logits(_centered(fake_pred, real_pred, avg, dp), 1.0)
         g_loss.backward(inputs=g_params)
         opt_g.step()
 
@@ -114,13 +132,14 @@ def make_step(cfg: Config, state: TrainState):
         fake = gen.detach()
         opt_d.zero_grad(set_to_none=True)
         real_pred, fake_pred = D(real, masks[2]), D(fake, masks[3])
-        d_loss = (bce_with_logits(_centered(real_pred, fake_pred, avg), 1.0)
-                  + bce_with_logits(_centered(fake_pred, real_pred, avg), 0.0)) / 2
+        d_loss = (bce_with_logits(_centered(real_pred, fake_pred, avg, dp), 1.0)
+                  + bce_with_logits(_centered(fake_pred, real_pred, avg, dp), 0.0)) / 2
         d_loss.backward()
         opt_d.step()
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+        return state, global_means(dp, out, ("d_loss", "g_loss"))
 
     return step
 

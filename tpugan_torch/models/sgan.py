@@ -32,6 +32,7 @@ from tpugan_torch.models._common import (
 from tpugan_torch.models._template_b import create_state_b
 from tpugan_torch.models.acgan import accuracy
 from tpugan_torch.nn.blocks import DCGANAuxDiscriminator, DCGANGenerator
+from tpugan_torch.parallel.mesh import global_batch, global_means, local_rows
 from tpugan_torch.train.loop import Callbacks
 from tpugan_torch.train.state import TrainState, normalize_uint8
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
@@ -90,8 +91,10 @@ def make_step(cfg: Config, state: TrainState):
     Draws, from ``state.draws`` in this order unless passed in: ``z`` (B,
     latent_dim) and ``masks``, the Dropout2d keep masks of D's three
     forwards (G phase, real, fakes). ``out`` holds ``d_loss``, ``g_loss``,
-    ``d_acc`` and ``gen_imgs``. No host sync: ``graph_steps`` can capture
-    it."""
+    ``d_acc`` and ``gen_imgs``. Under data parallelism (``state.dp``) the
+    draws are the global batch's, drawn or passed in, the step keeps this
+    rank's rows and the scalars in ``out`` are global means. No host sync:
+    ``graph_steps`` can capture it."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -100,12 +103,16 @@ def make_step(cfg: Config, state: TrainState):
         device = state.draws.device
         real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
         labels = labels.to(device, non_blocking=True).long()
-        b = real.shape[0]
+        dp = state.dp
+        b = global_batch(dp, real.shape[0])
         if z is None:
             z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
         if masks is None:
             masks = [D.draw_masks(b, state.draws) for _ in range(3)]
-        fake_aux_gt = torch.full((b,), cfg.num_classes, dtype=torch.long, device=device)
+        z = local_rows(dp, z)
+        masks = [[local_rows(dp, m) for m in ms] for ms in masks]
+        fake_aux_gt = torch.full((real.shape[0],), cfg.num_classes, dtype=torch.long,
+                                 device=device)
 
         opt_g.zero_grad(set_to_none=True)
         gen = G(z)
@@ -127,8 +134,9 @@ def make_step(cfg: Config, state: TrainState):
                          torch.cat([labels, fake_aux_gt]))
 
         state.step += 1
-        return state, {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "d_acc": d_acc,
-                       "gen_imgs": fake}
+        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "d_acc": d_acc,
+               "gen_imgs": fake}
+        return state, global_means(dp, out, ("d_loss", "g_loss", "d_acc"))
 
     return step
 

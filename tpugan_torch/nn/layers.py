@@ -28,7 +28,7 @@ from torch import nn
 
 from tpugan_torch.ops.image import reflection_pad, upsample_nearest, zero_pad_lt
 from tpugan_torch.ops.instance_norm import instance_norm_act
-from tpugan_torch.parallel.mesh import gather_rows
+from tpugan_torch.parallel.mesh import global_moments
 
 _NOT_PORTED = "no trainer of the JAX package uses it (ROADMAP, Not ported)"
 
@@ -252,11 +252,7 @@ def global_batch_norm(bn, x: torch.Tensor) -> torch.Tensor:
     count = xf.numel() // xf.shape[1]
     mean = xf.mean(dims)
     m2 = (xf - mean.view(shape)).square().sum(dims)
-    stats = gather_rows(bn.dp, torch.stack([torch.full_like(mean, count), mean, m2])[None])
-    counts, means, m2s = stats.unbind(1)
-    n = counts.sum(0)
-    g_mean = (counts * means).sum(0) / n
-    var = (m2s + counts * (means - g_mean).square()).sum(0) / n
+    n, g_mean, var = global_moments(bn.dp, torch.full_like(mean, count), mean, m2)
     y = (xf - g_mean.view(shape)) * torch.rsqrt(var + bn.eps).view(shape)
     if bn.affine:
         y = y * bn.weight.view(shape) + bn.bias.view(shape)
@@ -388,6 +384,23 @@ def batch_stats_frozen(module: nn.Module):
             m.track_running_stats = True
         for m in tracked:
             m.stats_frozen = False
+
+
+@contextlib.contextmanager
+def rank_local(module: nn.Module):
+    """Within the block, every norm of ``module`` that takes global
+    statistics under data parallelism (a BatchNorm or tracked InstanceNorm
+    with ``dp``) takes this rank's batch alone, as in one process: a
+    sampler that runs on rank 0 alone (``parallel.mesh.rank_zero_write``)
+    reaches no collective. Without data parallelism it changes nothing."""
+    layers = [(m, m.dp) for m in module.modules() if getattr(m, "dp", None) is not None]
+    for m, _ in layers:
+        m.dp = None
+    try:
+        yield module
+    finally:
+        for m, dp in layers:
+            m.dp = dp
 
 
 class InstanceNorm(nn.Module):

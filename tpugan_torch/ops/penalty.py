@@ -20,6 +20,8 @@ from typing import Callable, Optional
 
 import torch
 
+from tpugan_torch.parallel.mesh import DataParallel, global_std
+
 
 def _safe_sqrt(sq: torch.Tensor) -> torch.Tensor:
     """sqrt whose subgradient at 0 is 0, as torch's ``Tensor.norm`` backward
@@ -67,12 +69,15 @@ def dragan_penalty(
     alpha: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    dp: Optional[DataParallel] = None,
 ) -> torch.Tensor:
     """DRAGAN's penalty on perturbed real data (``penalty.py:72-93``):
     interp = alpha*X + (1-alpha)*(X + 0.5*std(X)*noise), with ``alpha`` and
     ``noise`` element-wise U[0, 1) of X's shape: passed in, or drawn from
     ``generator`` in that order. std is the population std of all of X
-    (ddof 0, ``jnp.std``). Kept for parity: the norm of dD/dx is over the
+    (ddof 0, ``jnp.std``); under data parallelism (``dp``) X is this rank's
+    rows and std that of the global batch (``parallel.mesh.global_std``),
+    as ``jnp.std`` of the sharded batch. Kept for parity: the norm of dD/dx is over the
     channel axis only (dim 1 of NCHW), at every position, as the reference's
     ``gradients.norm(2, dim=1)`` without a flatten (dragan.py:166);
     mean((norm - 1)^2) over batch and positions."""
@@ -80,7 +85,7 @@ def dragan_penalty(
         alpha = torch.rand(real.shape, generator=generator, device=real.device, dtype=real.dtype)
     if noise is None:
         noise = torch.rand(real.shape, generator=generator, device=real.device, dtype=real.dtype)
-    perturbed = real + 0.5 * real.std(correction=0) * noise
+    perturbed = real + 0.5 * global_std(dp, real) * noise
     grads = _grad_wrt_input(d_fn, alpha * real + (1.0 - alpha) * perturbed)
     norms = _safe_sqrt((grads ** 2).sum(dim=1))
     return ((norms - 1.0) ** 2).mean()

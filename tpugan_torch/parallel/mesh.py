@@ -6,40 +6,56 @@ insert the gradient all-reduce. The port runs one process a device,
 
     torchrun --nproc_per_node N -m tpugan_torch <model> [flags]
 
-with the JAX package's global-batch semantics (``tpugan/parallel/mesh.py:1-16``):
+with the JAX package's global-batch semantics (``tpugan/parallel/mesh.py:1-16``)
+for every trainer (``DP_TRAINERS``, all 32). The rule each step keeps:
 
-- every rank takes a contiguous share of each global batch (the loaders'
-  ``dp``) and of each random draw: a step draws for the global batch from
-  its generator, as one process would, and keeps its rows (``local_rows``),
-  so the ranks' generators stay in step and never share a z;
-- BatchNorm takes its statistics over the global batch
+- **Draws.** Every random draw is made for the global batch from
+  ``state.draws``, in the single process's order and before any forward
+  (``global_batch``; dropout masks drawn ahead, ``UNet.draw_masks``), and
+  the step keeps this rank's contiguous rows (``local_rows``): one process
+  draws the bits it drew before, the ranks' generators stay in step and no
+  two ranks share a z. Each rank loads its contiguous share of each global
+  batch (the loaders' ``dp``).
+- **Per-sample means** stay rank-local. An optimizer step pre-hook
+  averages the gradients over the ranks in one all-reduce before each
+  update, where GSPMD puts its all-reduce (``replicate_for``), so the mean
+  of the ranks' gradients of their means is the global mean's. No
+  ``DistributedDataParallel``: a step runs D two or three times and
+  differentiates a graph that holds D for G's parameters alone, which DDP's
+  reducer does not support without ``find_unused_parameters``.
+- **Cross-sample terms**, those that are not a mean of per-sample terms (a
+  nonlinear function of a batch statistic, a sum over pairs or over the
+  batch), are computed on every rank over the global batch, their input
+  gathered with the differentiable ``gather_rows`` (a statistic: each rank's
+  partial moments or means gathered, ``global_moments``, ``mean_over_ranks``).
+  The gather's backward, ``_SumRows``, sums every rank's gradient of the
+  term with respect to this rank's rows, and the hook's mean then gives
+  exactly the global gradient: softmax_gan's partition (rank r's gradient
+  with respect to its logits becomes ``world * dlogZ/dd_r``, and the mean
+  over ranks ``sum_r dlogZ/dd_r * dd_r/dtheta``), the relativistic means
+  (relativistic_gan, esrgan), ebgan's pull-away term and its hinge on the
+  fakes' mean. A detached ``all_reduce`` in place of the gather gives the
+  forward right and the gradient wrong. A statistic of the data alone, such
+  as dragan's std of the real batch, takes no gradient. A value that steers
+  every rank (began's ``k``, ebgan's hinge branch) is computed from the
+  global values, so the ranks take the same branch and stay equal.
+- **Norms.** BatchNorm takes its statistics over the global batch
   (``tpugan_torch/nn/layers.py:global_batch_norm``, the descriptor attached
   by ``replicate_for``), and a tracked InstanceNorm moves its running
   buffers by the global batch's mean (stargan's,
   ``tpugan_torch/nn/layers.py:InstanceNorm``); a collective's backward is a
   collective, so a penalty that differentiates a gradient through global
-  BatchNorm (dualgan's) sees the global batch too;
-- a loss is a mean over the rank's rows, so the mean of the ranks' losses is
-  the global mean, and so is the mean of their gradients: an optimizer step
-  pre-hook averages the gradients over the ranks in one all-reduce before
-  each update, where GSPMD puts its all-reduce (``replicate_for``). No
-  ``DistributedDataParallel``: a step runs D two or three times and
-  differentiates a graph that holds D for G's parameters alone, which DDP's
-  reducer does not support without ``find_unused_parameters``;
-- the scalars a step reports are global means (``global_means``); the
-  generated images are gathered when a sample is due (``gather_rows``).
-
-Rank 0 alone writes images, checkpoints, metrics and traces, and a barrier
-follows each image and checkpoint (``rank_zero_write``). A sampler that
-runs on rank 0 alone reaches no collective: its networks hold no BatchNorm
-in training (eval mode, or none) and its tracked InstanceNorms are frozen
-(``batch_stats_frozen``).
-
-The trainers of ``DP_TRAINERS``: the template-A/B and critic trainers
-(``run_mnist_recipe``, ``run_critic_family``), and the image-to-image,
-style and SR ones, whose loops are ``run_per_step`` or their own
-(cyclegan, pix2pix, discogan, dualgan, stargan, unit, munit, bicyclegan,
-srgan).
+  BatchNorm (dualgan's) sees the global batch too. The IN and AdaIN kernels
+  normalize each sample's planes and run on each rank's rows as they are.
+- **Reported scalars** are global means (``global_means``).
+- **Samples.** Generated images are gathered when a sample is due
+  (``gather_rows``), and rank 0 alone writes images, checkpoints, metrics
+  and traces, a barrier after each image and checkpoint
+  (``rank_zero_write``). A sampler that runs on rank 0 alone reaches no
+  collective: its networks hold no BatchNorm in training (eval mode, or
+  none, or their norms on this rank's batch alone, ``nn/layers.py:
+  rank_local``) and its tracked InstanceNorms are frozen
+  (``batch_stats_frozen``).
 
 Two deviations from the JAX package, both of the launch model: the JAX
 package turns data parallelism on whenever more than one device is visible,
@@ -66,18 +82,12 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-# The trainers ported to data parallelism, and for each other trainer the
-# ROADMAP item that ports it (queue 1, item 9's later slices).
-DP_TRAINERS = ("dcgan", "gan", "lsgan", "bgan", "wgan", "wgan_gp", "wgan_div", "cyclegan",
-               "pix2pix", "discogan", "dualgan", "stargan", "unit", "munit", "bicyclegan",
-               "srgan")
-_LATER = {
-    **{n: "ROADMAP queue 1, item 9b (the batch-local MNIST-class trainers)"
-       for n in ("cgan", "acgan", "infogan", "sgan", "aae", "cluster_gan", "ccgan",
-                 "context_encoder", "cogan", "pixelda")},
-    **{n: "ROADMAP queue 1, item 9c (the trainers with a cross-sample term)"
-       for n in ("softmax_gan", "relativistic_gan", "esrgan", "ebgan", "began", "dragan")},
-}
+# Every trainer of the registry runs data-parallel under a launcher.
+DP_TRAINERS = ("aae", "acgan", "began", "bgan", "bicyclegan", "ccgan", "cgan", "cluster_gan",
+               "cogan", "context_encoder", "cyclegan", "dcgan", "discogan", "dragan", "dualgan",
+               "ebgan", "esrgan", "gan", "infogan", "lsgan", "munit", "pix2pix", "pixelda",
+               "relativistic_gan", "sgan", "softmax_gan", "srgan", "stargan", "unit", "wgan",
+               "wgan_div", "wgan_gp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,18 +108,6 @@ def in_data_parallel() -> bool:
     """Whether this process runs under a launcher of more than one rank or
     inside a process group."""
     return launched_world() > 1 or dist.is_initialized()
-
-
-def refuse_outside_slice(cfg) -> None:
-    """Raise NotImplementedError for a trainer not yet ported to data
-    parallelism (its ``Config``'s module names it) when this process runs
-    under a launcher of more than one rank or inside a process group: no
-    trainer runs rank-local semantics silently."""
-    name = type(cfg).__module__.rsplit(".", 1)[-1]
-    if in_data_parallel() and name in _LATER:
-        raise NotImplementedError(
-            f"{name} is not ported to data parallelism yet ({_LATER[name]}); run it as one "
-            f"process. Ported: {', '.join(DP_TRAINERS)}")
 
 
 def _check_divisible(batch_size: int, world: int) -> None:
@@ -285,6 +283,42 @@ def gather_rows(dp: Optional[DataParallel], x: torch.Tensor) -> torch.Tensor:
     if dp is None:
         return x
     return _GatherRows.apply(x, dp)
+
+
+def mean_over_ranks(dp: Optional[DataParallel], t: torch.Tensor) -> torch.Tensor:
+    """The global batch's mean of ``t``, each rank's mean over its (equal
+    share of) rows, element by element: the ranks' ``t`` gathered
+    (``gather_rows``) and averaged, differentiable, so every rank's
+    gradient reaches every rank's ``t``. ``t`` itself without ``dp``."""
+    if dp is None:
+        return t
+    return gather_rows(dp, t[None]).mean(0)
+
+
+def global_moments(dp: DataParallel, count: torch.Tensor, mean: torch.Tensor,
+                   m2: torch.Tensor) -> tuple:
+    """(n, mean, biased variance) of the global batch from each rank's
+    count, mean and sum of squared deviations (tensors of one shape,
+    element by element), in one differentiable all-gather (``gather_rows``)
+    combined as Chan et al.'s pairwise update: no cancellation between
+    E[x^2] and E[x]^2."""
+    counts, means, m2s = gather_rows(dp, torch.stack([count, mean, m2])[None]).unbind(1)
+    n = counts.sum(0)
+    g_mean = (counts * means).sum(0) / n
+    return n, g_mean, (m2s + counts * (means - g_mean).square()).sum(0) / n
+
+
+def global_std(dp: Optional[DataParallel], x: torch.Tensor) -> torch.Tensor:
+    """The population standard deviation (ddof 0, ``jnp.std``) of every
+    element of the global batch of ``x`` (``global_moments``), in float32
+    (float64 for a float64 ``x``); ``x.std(correction=0)`` without ``dp``."""
+    if dp is None:
+        return x.std(correction=0)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean()
+    _, _, var = global_moments(dp, torch.full_like(mean, xf.numel()), mean,
+                               (xf - mean).square().sum())
+    return torch.sqrt(var)
 
 
 def global_mean(dp: Optional[DataParallel], t: torch.Tensor) -> torch.Tensor:

@@ -82,13 +82,11 @@ def card_device(device=None) -> torch.device:
 
 def train_device(cfg, device=None) -> torch.device:
     """The device a trainer's ``run`` trains on (``card_device``). Refuses
-    the unported flag, and a trainer not ported to data parallelism under
-    several ranks (``mesh.refuse_outside_slice``), and sets the process-wide
-    modes of ``cfg`` (``set_process_modes``: a config built in code has not
-    been through ``config_from_args``)."""
+    the unported flag and sets the process-wide modes of ``cfg``
+    (``set_process_modes``: a config built in code has not been through
+    ``config_from_args``)."""
     device = card_device(device)
     reject_unported_flags(cfg)
-    mesh.refuse_outside_slice(cfg)
     set_process_modes(cfg)
     return device
 
