@@ -1055,7 +1055,7 @@ def phase_slice(smi):
     import torch
 
     from tpugan_torch.models import cyclegan
-    from tpugan_torch.ops import instance_norm as tin
+    from tpugan_torch.utils import tracing
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_")
     metrics = os.path.join(out_dir, "metrics.jsonl")
@@ -1064,12 +1064,12 @@ def phase_slice(smi):
         "--sample_interval", str(SAMPLE_INTERVAL), "--checkpoint_interval", "1",
         "--output_dir", out_dir, "--metrics_jsonl", metrics,
     ]
-    tin.reset_launch_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     cyclegan.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fwd": tin.fwd_launches, "bwd": tin.bwd_launches}
+    launches = {"fwd": tracing.counts["in.fwd"], "bwd": tracing.counts["in.bwd"]}
     log("")
     n_samples = len(range(0, N_STEPS, SAMPLE_INTERVAL))
     want = {
@@ -1390,7 +1390,7 @@ def phase_wgan_slice(smi):
     import torch
 
     from tpugan_torch.models import wgan_gp
-    from tpugan_torch.ops import mlp_gp as gp
+    from tpugan_torch.utils import tracing
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_wgan_gp_")
     metrics = os.path.join(out_dir, "metrics.jsonl")
@@ -1399,12 +1399,12 @@ def phase_wgan_slice(smi):
         "--sample_interval", str(WGAN_SAMPLE_INTERVAL), "--output_dir", out_dir,
         "--metrics_jsonl", metrics,
     ]
-    gp.reset_launch_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     wgan_gp.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fwd": gp.gp_fwd_launches, "bwd": gp.gp_bwd_launches}
+    launches = {"fwd": tracing.counts["gp.fwd"], "bwd": tracing.counts["gp.bwd"]}
     want = {"fwd": WGAN_BATCHES, "bwd": WGAN_BATCHES}
     log(f"[wgan_gp slice] main() took {wall:.1f} s (data, modules, {WGAN_BATCHES} critic steps, "
         f"{WGAN_BATCHES // 5} generator steps, samples); GP launches {launches}, expected {want}")
@@ -1887,8 +1887,7 @@ def phase_munit_slice(smi):
     import torch
 
     from tpugan_torch.models import munit
-    from tpugan_torch.ops import adain as ta
-    from tpugan_torch.ops import instance_norm as tin
+    from tpugan_torch.utils import tracing
 
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_munit_")
     metrics = os.path.join(out_dir, "metrics.jsonl")
@@ -1897,14 +1896,13 @@ def phase_munit_slice(smi):
         "--sample_interval", str(MUNIT_SAMPLE_INTERVAL), "--checkpoint_interval", "1",
         "--output_dir", out_dir, "--metrics_jsonl", metrics,
     ]
-    ta.reset_launch_counts()
-    tin.reset_launch_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     munit.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"adain_fwd": ta.adain_fwd_launches, "adain_bwd": ta.adain_bwd_launches,
-                "in_fwd": tin.fwd_launches, "in_bwd": tin.bwd_launches}
+    launches = {k.replace(".", "_"): tracing.counts[k]
+                for k in ("adain.fwd", "adain.bwd", "in.fwd", "in.bwd")}
     log("")
     n_samples = len(range(0, MUNIT_STEPS, MUNIT_SAMPLE_INTERVAL))
     want = {
@@ -2026,30 +2024,16 @@ def phase_munit_slice(smi):
 
 
 def _port_launches():
-    """Every launch counter of the port's kernels."""
-    from tpugan_torch.ops import adain as ta
-    from tpugan_torch.ops import instance_norm as tin
-    from tpugan_torch.ops import mlp_gp as gp
+    """Every launch counter of the port's kernels (``tracing.counts``), each
+    under its name with ``_`` for ``.``: ``in.fwd.captured`` as
+    ``in_fwd_captured``."""
+    from tpugan_torch.utils import tracing
 
-    return {"in_fwd": tin.fwd_launches, "in_bwd": tin.bwd_launches,
-            "in_fwd_captured": tin.fwd_captured, "in_bwd_captured": tin.bwd_captured,
-            "in_fwd_bf16": tin.fwd_launches_bf16, "in_bwd_bf16": tin.bwd_launches_bf16,
-            "in_fwd_bf16_captured": tin.fwd_captured_bf16,
-            "in_bwd_bf16_captured": tin.bwd_captured_bf16,
-            "adain_fwd": ta.adain_fwd_launches, "adain_bwd": ta.adain_bwd_launches,
-            "adain_fwd_bf16": ta.adain_fwd_launches_bf16,
-            "adain_bwd_bf16": ta.adain_bwd_launches_bf16,
-            "gp_fwd": gp.gp_fwd_launches, "gp_bwd": gp.gp_bwd_launches,
-            "gp_fwd_captured": gp.gp_fwd_captured, "gp_bwd_captured": gp.gp_bwd_captured}
-
-
-def _reset_port_launches():
-    from tpugan_torch.ops import adain as ta
-    from tpugan_torch.ops import instance_norm as tin
-    from tpugan_torch.ops import mlp_gp as gp
-
-    for mod in (ta, tin, gp):
-        mod.reset_launch_counts()
+    return {n.replace(".", "_"): tracing.counts[n] for n in (
+        "in.fwd", "in.bwd", "in.fwd.captured", "in.bwd.captured", "in.fwd.bf16", "in.bwd.bf16",
+        "in.fwd.bf16.captured", "in.bwd.bf16.captured", "adain.fwd", "adain.bwd",
+        "adain.fwd.bf16", "adain.bwd.bf16", "gp.fwd", "gp.bwd", "gp.fwd.captured",
+        "gp.bwd.captured")}
 
 
 def _check_rows(tag, metrics, n_batches) -> list:
@@ -2177,6 +2161,7 @@ def phase_dcgan_slice(smi):
     import torch
 
     from tpugan_torch.models import dcgan, lsgan
+    from tpugan_torch.utils import tracing
 
     for tag, mod, size, n_batches, interval in (
             ("[dcgan slice]", dcgan, 64, DCGAN_BATCHES, DCGAN_SAMPLE_INTERVAL),
@@ -2188,7 +2173,7 @@ def phase_dcgan_slice(smi):
                 "--output_dir", out_dir, "--metrics_jsonl", metrics]
         if size != mod.Config.img_size:
             argv += ["--img_size", str(size)]
-        _reset_port_launches()
+        tracing.reset()
         t0 = time.perf_counter()
         mod.main(argv)
         torch.cuda.synchronize()
@@ -2472,17 +2457,16 @@ def _run_main(mod, argv, out_dir):
     and the port's kernel launches and graph replays it made."""
     import torch
 
-    from tpugan_torch.train import loop
+    from tpugan_torch.utils import tracing
 
-    _reset_port_launches()
-    loop.reset_graph_counts()
+    tracing.reset()
     t0 = time.perf_counter()
     mod.main(argv + ["--output_dir", out_dir, "--metrics_jsonl",
                      os.path.join(out_dir, "metrics.jsonl")])
     torch.cuda.synchronize()
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("fp32 run with TF32 left on")
-    return time.perf_counter() - t0, _port_launches(), loop.graph_replays
+    return time.perf_counter() - t0, _port_launches(), tracing.counts["graph.replays"]
 
 
 def _u8_chunks(shape, seed=0):
@@ -2867,6 +2851,7 @@ def _in_capture_check(tag):
     import torch
 
     from tpugan_torch.ops import instance_norm as tin
+    from tpugan_torch.utils import tracing
 
     shape = (1, 64, 128, 128)
     planes, hw = shape[0] * shape[1], shape[2] * shape[3]
@@ -2882,12 +2867,13 @@ def _in_capture_check(tag):
         tin.in_act_fwd(x, EPS, 0.2)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    before = (tin.fwd_captured, tin.bwd_captured)
+    before = (tracing.counts["in.fwd.captured"], tracing.counts["in.bwd.captured"])
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         y, mean, rstd = tin.in_act_fwd(x, EPS, 0.2)
         dx = tin.in_act_bwd(g, x, mean, rstd, 0.2)
-    captured = (tin.fwd_captured - before[0], tin.bwd_captured - before[1])
+    captured = (tracing.counts["in.fwd.captured"] - before[0],
+                tracing.counts["in.bwd.captured"] - before[1])
     graph.replay()
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip((y, mean, rstd, dx), want))
@@ -3252,6 +3238,7 @@ def phase_tracked_in():
 
     from tpugan_torch.nn.layers import InstanceNorm, batch_stats_frozen
     from tpugan_torch.ops import instance_norm as tin
+    from tpugan_torch.utils import tracing
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -3265,7 +3252,7 @@ def phase_tracked_in():
     w, b = layer.weight.detach().view(1, -1, 1, 1), layer.bias.detach().view(1, -1, 1, 1)
     rm0, rv0 = layer.running_mean.clone(), layer.running_var.clone()
     x = torch.randn(shape, device=dev, generator=gen) * 2.0 + 0.5
-    _reset_port_launches()
+    tracing.reset()
     with torch.no_grad():
         y = layer(x)
     torch.cuda.synchronize()
@@ -3287,7 +3274,7 @@ def phase_tracked_in():
     frozen_same = (torch.equal(layer.running_mean, after[0])
                    and torch.equal(layer.running_var, after[1]) and torch.equal(y_frozen, y))
     layer.eval()
-    _reset_port_launches()
+    tracing.reset()
     with torch.no_grad():
         y_eval = layer(x)
     torch.cuda.synchronize()
@@ -4193,7 +4180,7 @@ def _ragged_run(mod, cfg):
     import torch
 
     from tpugan_torch.ops import mlp_gp
-    from tpugan_torch.train import loop
+    from tpugan_torch.utils import tracing
 
     batches = {"fwd": [], "bwd": []}
     launch = {"fwd": mlp_gp._launch_fwd, "bwd": mlp_gp._launch_bwd}
@@ -4205,8 +4192,7 @@ def _ragged_run(mod, cfg):
             return launch[d](x, *args)
         return call
 
-    _reset_port_launches()
-    loop.reset_graph_counts()
+    tracing.reset()
     mlp_gp._launch_fwd, mlp_gp._launch_bwd = recorder("fwd"), recorder("bwd")
     try:
         t0 = time.perf_counter()
@@ -4217,7 +4203,7 @@ def _ragged_run(mod, cfg):
         mlp_gp._launch_fwd, mlp_gp._launch_bwd = launch["fwd"], launch["bwd"]
     with open(cfg.metrics_jsonl) as f:
         rows = [json.loads(line) for line in f]
-    return state, rows, _port_launches(), loop.graph_replays, batches, wall
+    return state, rows, _port_launches(), tracing.counts["graph.replays"], batches, wall
 
 
 def phase_flags_ragged(smi):
@@ -4615,6 +4601,7 @@ def phase_dp_nccl(smi):
     from tpugan_torch.models import dcgan
     from tpugan_torch.parallel.dryrun import free_port
     from tpugan_torch.parallel.mesh import auto_sharding, replicate_for
+    from tpugan_torch.utils import tracing
 
     tag = "[dp nccl]"
     k, n = DP_NCCL_K, DP_NCCL_BATCHES
@@ -4633,13 +4620,11 @@ def phase_dp_nccl(smi):
             out_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_nccl_")
             torch.backends.cudnn.deterministic = True
             try:
-                from tpugan_torch.train import loop
-
-                loop.reset_graph_counts()
+                tracing.reset()
                 state = dcgan.main(argv + ["--output_dir", out_dir, "--metrics_jsonl",
                                            os.path.join(out_dir, "metrics.jsonl")])
                 torch.cuda.synchronize()
-                replays = loop.graph_replays
+                replays = tracing.counts["graph.replays"]
             finally:
                 torch.backends.cudnn.deterministic = shipped
             if (state.dp is None) != (mode == "one process"):
@@ -4825,13 +4810,15 @@ def _dp_gloo_run(name, extra, out_dir):
 
     import torch
 
+    from tpugan_torch.utils import tracing
+
     mod = importlib.import_module(f"tpugan_torch.models.{name}")
     # (cluster_gan has no sample interval: it writes its sheets each epoch)
     quiet = ["--sample_interval", "0"] if hasattr(mod.Config, "sample_interval") else []
     argv = ["--synthetic_data", "--n_epochs", "1", "--max_batches", str(dp_gloo_batches(name)),
             *quiet, "--log_interval", "0", *extra]
     os.makedirs(out_dir, exist_ok=True)
-    _reset_port_launches()
+    tracing.reset()
     t0 = time.perf_counter()
     state = mod.main(argv + ["--output_dir", out_dir, "--metrics_jsonl",
                              os.path.join(out_dir, "metrics.jsonl")], "cuda:0")

@@ -35,6 +35,7 @@ from tpugan_torch.nn import layers as layers_t
 from tpugan_torch.nn.style import MunitDecoder
 from tpugan_torch.ops import adain as ta
 from tpugan_torch.ops.instance_norm import per_plane_strides
+from tpugan_torch.utils import tracing
 
 FWD_ATOL = 1e-5
 GRAD_ATOL, GRAD_RTOL = 2e-4, 1e-4
@@ -143,7 +144,7 @@ def test_gradcheck_float64():
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    ta.reset_launch_counts()
+    tracing.reset()
     x, w, bias, g = (torch.from_numpy(a) for a in _inputs((2, 4, 4, 8), seed=5))
     x = x.permute(0, 3, 1, 2).contiguous()
     g = g.permute(0, 3, 1, 2).contiguous()
@@ -154,7 +155,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert mean.shape == (16,) and rstd.shape == (16,)  # B*C planes
     dx, dw, db = ta.adain_bwd(g, x, w, mean, rstd)
     assert dx.shape == x.shape and dw.shape == db.shape == (2, 8)
-    assert (ta.adain_fwd_launches, ta.adain_bwd_launches) == (0, 0)
+    assert (tracing.counts["adain.fwd"], tracing.counts["adain.bwd"]) == (0, 0)
 
 
 def test_autograd_function_saves_x_w_and_stats():

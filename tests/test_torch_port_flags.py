@@ -128,7 +128,9 @@ def test_a_loop_that_does_not_fuse_counts_one_step_a_dispatch():
 
 def test_a_cpu_profile_run_writes_a_trace_of_its_window(tmp_path, capsys):
     """``dcgan.main`` fused (K = 2) with ``--profile_steps 3``: dispatches 1
-    and 2 traced, in one TensorBoard trace file that parses as JSON."""
+    and 2 traced, in one TensorBoard trace file that parses as JSON, with
+    the port's spans on inside the window (the stacking of a dispatch's
+    batches)."""
     argv = ["--synthetic_data", "--img_size", "16", "--batch_size", "8", "--latent_dim", "8",
             "--n_epochs", "1", "--max_batches", "8", "--sample_interval", "0",
             "--steps_per_dispatch", "2", "--profile_dir", str(tmp_path / "prof"),
@@ -138,6 +140,7 @@ def test_a_cpu_profile_run_writes_a_trace_of_its_window(tmp_path, capsys):
     names = {e.get("name") for e in json.load(open(trace))["traceEvents"]}
     assert {n for n in names if str(n).startswith("tpugan.dispatch.")} == {
         "tpugan.dispatch.1", "tpugan.dispatch.2"}
+    assert "tpugan.loop.stack" in names
     assert any("conv" in str(n) for n in names)
 
 

@@ -25,6 +25,7 @@ from tpugan.ops.pallas_kernels import (
     instance_norm_pallas,
 )
 from tpugan_torch.ops import instance_norm as tin
+from tpugan_torch.utils import tracing
 
 SLOPES = (0.0, 0.2, 1.0)
 
@@ -119,10 +120,10 @@ def test_gradient_at_exact_zero_is_one():
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
-    tin.reset_launch_counts()
+    tracing.reset()
     x = _nchw(_x((1, 4, 4, 8), seed=5)).requires_grad_(True)
     tin.instance_norm(x).sum().backward()
-    assert (tin.fwd_launches, tin.bwd_launches) == (0, 0)
+    assert (tracing.counts["in.fwd"], tracing.counts["in.bwd"]) == (0, 0)
     y, mean, rstd = tin.in_act_fwd(x.detach(), 1e-5, 0.2)
     y_r, mean_r, rstd_r = tin.in_act_fwd_ref(x.detach(), 1e-5, 0.2)
     assert torch.equal(y, y_r) and torch.equal(mean, mean_r) and torch.equal(rstd, rstd_r)

@@ -53,8 +53,14 @@ import torch
 from tpugan_torch.ops import adain as ta
 from tpugan_torch.ops import instance_norm as tin
 from tpugan_torch.ops import mlp_gp as gp
+from tpugan_torch.utils import tracing
 
 pytestmark = pytest.mark.gpu
+
+
+def launches(*names) -> tuple:
+    """The port's counters ``names`` (``tracing.counts``), in order."""
+    return tuple(tracing.counts[n] for n in names)
 
 
 @pytest.fixture
@@ -81,10 +87,10 @@ def test_kernels_match_plain_version(cuda, shape, slope):
     gen = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(shape, device=cuda, generator=gen)
     g = torch.randn(shape, device=cuda, generator=gen)
-    before = (tin.fwd_launches, tin.bwd_launches)
+    before = launches("in.fwd", "in.bwd")
     y, mean, rstd = tin.in_act_fwd(x, 1e-5, slope)
     dx = tin.in_act_bwd(g, x, mean, rstd, slope)
-    assert (tin.fwd_launches, tin.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert launches("in.fwd", "in.bwd") == (before[0] + 1, before[1] + 1)
     y_r, mean_r, rstd_r = tin.in_act_fwd_ref(x, 1e-5, slope)
     dx_r = tin.in_act_bwd_ref(g, x, mean, rstd, slope)
     torch.testing.assert_close(y, y_r, rtol=0, atol=1e-5)
@@ -117,10 +123,10 @@ def test_a_refused_launch_raises_with_its_plan(cuda, monkeypatch):
     big = tin.Plan("B", 1, 65536, 65536, 512, 2, 4 * 65536)
     monkeypatch.setattr(tin, "_plan_arg",
                         lambda planes, hw, direction, elem=4: (big, tin._c_plan(big, planes, hw)))
-    before = tin.fwd_launches
+    before = tracing.counts["in.fwd"]
     with pytest.raises(RuntimeError, match="CUDA error .* Plan"):
         tin.in_act_fwd(x, 1e-5, 0.0)
-    assert tin.fwd_launches == before
+    assert tracing.counts["in.fwd"] == before
     monkeypatch.undo()
     y, _, _ = tin.in_act_fwd(x, 1e-5, 0.0)  # the error did not stick
     torch.testing.assert_close(y, tin.in_act_fwd_ref(x, 1e-5, 0.0)[0], rtol=0, atol=1e-5)
@@ -160,10 +166,10 @@ def test_one_step_launches_every_site_through_the_kernels(cuda):
     step = cyclegan.make_step(cfg, modules, cuda)
     rng = np.random.default_rng(0)
     a, b = (torch.from_numpy(rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8)) for _ in "ab")
-    tin.reset_launch_counts()
+    tracing.reset()
     state, out = step(state, a, b)
     torch.cuda.synchronize()
-    assert (tin.fwd_launches, tin.bwd_launches) == (104, 104)
+    assert launches("in.fwd", "in.bwd") == (104, 104)
     assert all(torch.isfinite(v) for v in out.values())
 
 
@@ -182,7 +188,7 @@ def _gp_inputs(shape, device, seed=0):
                                    (65, 784, 512, 256), (256, 784, 512, 256)])
 def test_gp_kernels_match_plain_version(cuda, shape):
     ins = _gp_inputs(shape, cuda)
-    before = (gp.gp_fwd_launches, gp.gp_bwd_launches)
+    before = launches("gp.fwd", "gp.bwd")
     got = gp.mlp_gp_fwd(*ins)
     want = gp.mlp_gp_fwd_ref(*ins)
     assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])  # masks
@@ -193,7 +199,7 @@ def test_gp_kernels_match_plain_version(cuda, shape):
     res = (q, m1, m2, ins[1], ins[3], u, t)
     for a, b in zip(gp.mlp_gp_bwd(*res), gp.mlp_gp_bwd_ref(*res)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
-    assert (gp.gp_fwd_launches, gp.gp_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert launches("gp.fwd", "gp.bwd") == (before[0] + 1, before[1] + 1)
 
 
 def test_gp_kernels_reject_what_they_do_not_take(cuda):
@@ -220,10 +226,10 @@ def test_a_refused_gp_launch_raises_with_its_plan(cuda, monkeypatch, direction):
     good = gp.plan(*shape, direction)
     bad = good._replace(products=(good.products[0]._replace(ks=16),) + good.products[1:])
     monkeypatch.setattr(gp, "_plan_arg", lambda *key: (bad, None, gp.ctypes.byref(gp._c_plan(bad))))
-    before = (gp.gp_fwd_launches, gp.gp_bwd_launches)
+    before = launches("gp.fwd", "gp.bwd")
     with pytest.raises(RuntimeError, match="CUDA error .* Plan"):
         gp.mlp_gp_fwd(*ins) if direction == "fwd" else gp.mlp_gp_bwd(*res)
-    assert (gp.gp_fwd_launches, gp.gp_bwd_launches) == before
+    assert launches("gp.fwd", "gp.bwd") == before
     monkeypatch.undo()
     got = gp.mlp_gp_fwd(*ins) if direction == "fwd" else gp.mlp_gp_bwd(*res)  # no error stuck
     want = gp.mlp_gp_fwd_ref(*ins) if direction == "fwd" else gp.mlp_gp_bwd_ref(*res)
@@ -255,10 +261,10 @@ def test_one_wgan_gp_d_step_launches_the_gp_pair_once(cuda):
     d_step, _ = wgan_gp.make_steps(cfg, state)
     imgs = torch.from_numpy(
         np.random.default_rng(0).integers(0, 256, (64, 28, 28, 1), dtype=np.uint8))
-    gp.reset_launch_counts()
+    tracing.reset()
     state, out = d_step(state, imgs)
     torch.cuda.synchronize()
-    assert (gp.gp_fwd_launches, gp.gp_bwd_launches) == (1, 1)
+    assert launches("gp.fwd", "gp.bwd") == (1, 1)
     assert torch.isfinite(out["d_loss"])
 
 
@@ -278,10 +284,10 @@ def _adain_inputs(shape, device, seed=0):
                                    (2, 4, 1, 1), (1, 64, 128, 128), (1, 16, 256, 256)])
 def test_adain_kernels_match_plain_version(cuda, shape):
     x, w, bias, g = _adain_inputs(shape, cuda)
-    before = (ta.adain_fwd_launches, ta.adain_bwd_launches)
+    before = launches("adain.fwd", "adain.bwd")
     y, mean, rstd = ta.adain_fwd(x, w, bias, 1e-5)
     grads = ta.adain_bwd(g, x, w, mean, rstd)
-    assert (ta.adain_fwd_launches, ta.adain_bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert launches("adain.fwd", "adain.bwd") == (before[0] + 1, before[1] + 1)
     y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w, bias, 1e-5)
     torch.testing.assert_close(y, y_r, rtol=0, atol=1e-5 * max(1.0, float(w.abs().max())))
     torch.testing.assert_close(mean, mean_r, rtol=0, atol=1e-5)
@@ -325,8 +331,7 @@ def test_adain_kernels_reject_what_they_do_not_take(cuda, case):
     x, w, bias, g = _adain_inputs((2, 4, 8, 8), cuda)
     _, mean, rstd = ta.adain_fwd(x, w, bias, 1e-5)
     error, call = _refused_adain_call(case, x, w, bias, g, mean, rstd)
-    counts = lambda: (ta.adain_fwd_launches, ta.adain_bwd_launches, ta.adain_fwd_launches_bf16,
-                      ta.adain_bwd_launches_bf16)
+    counts = lambda: launches("adain.fwd", "adain.bwd", "adain.fwd.bf16", "adain.bwd.bf16")
     before = counts()
     with pytest.raises(error):
         call()
@@ -409,12 +414,11 @@ def test_one_munit_step_launches_every_site_through_the_kernels(cuda):
     step = munit.make_step(cfg, modules, cuda)
     rng = np.random.default_rng(0)
     a, b = (torch.from_numpy(rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8)) for _ in "ab")
-    ta.reset_launch_counts()
-    tin.reset_launch_counts()
+    tracing.reset()
     state, out = step(state, a, b)
     torch.cuda.synchronize()
-    assert (ta.adain_fwd_launches, ta.adain_bwd_launches) == (24, 24)
-    assert (tin.fwd_launches, tin.bwd_launches) == (90, 90)
+    assert launches("adain.fwd", "adain.bwd") == (24, 24)
+    assert launches("in.fwd", "in.bwd") == (90, 90)
     assert all(torch.isfinite(v) for v in out.values())
 
 
@@ -440,7 +444,7 @@ def test_dcgan_step_on_the_card_matches_the_cpu(cuda):
     masks = [dcgan.build(cfg, "cpu")["discriminator"].draw_masks(b, draws) for _ in range(3)]
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    counts = (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches, gp.gp_fwd_launches)
+    counts = launches("in.fwd", "in.bwd", "adain.fwd", "gp.fwd")
     runs = {}
     try:
         for dev in (torch.device("cpu"), cuda):
@@ -455,8 +459,7 @@ def test_dcgan_step_on_the_card_matches_the_cpu(cuda):
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
-    assert counts == (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches,
-                      gp.gp_fwd_launches)
+    assert counts == launches("in.fwd", "in.bwd", "adain.fwd", "gp.fwd")
     (mods_c, p0_c, out_c), (mods_g, p0_g, out_g) = runs["cpu"], runs["cuda"]
     for k in ("d_loss", "g_loss"):
         torch.testing.assert_close(out_g[k], out_c[k], rtol=1e-4, atol=0)
@@ -540,12 +543,14 @@ def _fused_against_eager(make, k, batches, n_eager=None):
         torch.cuda.synchronize()
         snaps.append(_snapshot(state))
     state, step = make()
+    replays = tracing.counts["graph.replays"]
     fused = graph_steps(step, k)
     for chunk in batches:
         state, out = fused(state, chunk)
     state, _ = step(state, batches[0][0])
     torch.cuda.synchronize()
     assert (fused.calls, fused.replays) == (3, 2) and fused.graph is not None
+    assert tracing.counts["graph.replays"] - replays == 2
     assert all(bool(torch.isfinite(out[n]).all()) for n in out)
     return snaps, _snapshot(state), fused
 
@@ -628,15 +633,15 @@ def test_replayed_wgan_gp_units_match_eager_units(cuda):
 
     batches = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (3, k, cfg.n_critic, cfg.batch_size, 28, 28, 1), dtype=np.uint8)).to(cuda)
-    gp.reset_launch_counts()
+    tracing.reset()
     eager, replay, fused = _fused_against_eager(make, k, batches)
     _assert_replay_matches_eager(eager, replay)
     # Eager: 4 runs of 3 chunks and one unit; fused: the warm-up chunk, the
     # captured chunk and one unit. Each unit is n_critic critic steps.
     per_chunk = k * cfg.n_critic
     runs = len(eager)
-    assert gp.gp_fwd_captured == gp.gp_bwd_captured == per_chunk
-    assert (gp.gp_fwd_launches == gp.gp_bwd_launches
+    assert tracing.counts["gp.fwd.captured"] == tracing.counts["gp.bwd.captured"] == per_chunk
+    assert (tracing.counts["gp.fwd"] == tracing.counts["gp.bwd"]
             == (runs * 3 + 2) * per_chunk + (runs + 1) * cfg.n_critic)
 
 
@@ -657,7 +662,7 @@ def test_a_replayed_unit_launches_the_gp_kernels_once_each_way_per_critic_step(c
     for _ in range(2):
         state, _ = fused(state, imgs)
     torch.cuda.synchronize()
-    gp.reset_launch_counts()
+    tracing.reset()
     for _ in range(3):  # the profiler drops every event in some runs
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             state, out = fused(state, imgs)
@@ -668,7 +673,7 @@ def test_a_replayed_unit_launches_the_gp_kernels_once_each_way_per_critic_step(c
     # Four forward products and two backward launches per critic step, and
     # no wrapper call on the host: the graph launched them.
     assert sum("gp_gemm<" in n for n in names) == 6 * k * cfg.n_critic, sorted(set(names))
-    assert (gp.gp_fwd_launches, gp.gp_bwd_launches) == (0, 0)
+    assert launches("gp.fwd", "gp.bwd") == (0, 0)
     assert bool(torch.isfinite(out["d_loss"]).all())
 
 
@@ -786,7 +791,7 @@ def test_one_step_on_the_card_matches_the_cpu(cuda, name):
                      torch.Generator().manual_seed(1))
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    counts = (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches, gp.gp_fwd_launches)
+    counts = launches("in.fwd", "in.bwd", "adain.fwd", "gp.fwd")
     runs = []
     try:
         for dev in (torch.device("cpu"), cuda):
@@ -805,8 +810,7 @@ def test_one_step_on_the_card_matches_the_cpu(cuda, name):
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
-    assert counts == (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches,
-                      gp.gp_fwd_launches)
+    assert counts == launches("in.fwd", "in.bwd", "adain.fwd", "gp.fwd")
     (mods_c, rec_c, out_c), (mods_g, rec_g, out_g) = runs
     for k in ("d_loss", "g_loss", "info_loss", "d_acc"):
         if k in out_c:
@@ -971,21 +975,21 @@ def test_one_im2im_step_on_the_card_matches_the_cpu(cuda, name):
                      [[m.to(dev) for m in ms] for ms in v] if k == "masks" else
                      [a.to(dev) for a in v] if k == "alphas" else v.to(dev)
                      for k, v in draws.items() if not k.endswith("stats")}
-            tin.reset_launch_counts()
+            tracing.reset()
             out, masks = _im2im_step(name, mod, cfg, state, [x.to(dev) for x in batch], moved)
             torch.cuda.synchronize()
             draws["masks"] = masks
             stats = {r: draws.pop(f"{r} stats") for r in ("D_A", "D_B") if f"{r} stats" in draws}
             runs.append((modules, rec, {k: v.cpu() for k, v in out.items() if v.ndim == 0},
-                         (tin.fwd_launches, tin.bwd_launches), stats))
+                         launches("in.fwd", "in.bwd"), stats))
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
-    (mods_c, rec_c, out_c, _, d_stats_c), (mods_g, rec_g, out_g, launches, d_stats_g) = runs
+    (mods_c, rec_c, out_c, _, d_stats_c), (mods_g, rec_g, out_g, launched, d_stats_g) = runs
     import chip_smoke
 
     units = ("d_step", "g_step") if name == "dualgan" else ("step",)
     want = tuple(sum(chip_smoke.im2im_per_unit(name, u, d) for u in units) for d in ("fwd", "bwd"))
-    assert launches == want, (launches, want)
+    assert launched == want, (launched, want)
     for k in out_c:
         torch.testing.assert_close(out_g[k], out_c[k], rtol=1e-4, atol=0, msg=k)
     for opt_name, want_rec in rec_c.items():
@@ -1063,10 +1067,10 @@ def test_new_path_steps_launch_every_site_through_the_kernels(cuda):
     per = lambda path, u, d: chip_smoke.im2im_per_unit(path, u, d)
 
     def launched(run):
-        tin.reset_launch_counts()
+        tracing.reset()
         run()
         torch.cuda.synchronize()
-        return tin.fwd_launches, tin.bwd_launches
+        return launches("in.fwd", "in.bwd")
 
     cfg = stargan.Config(batch_size=1, img_height=64, img_width=64)
     state = stargan.create_state(cfg, stargan.build(cfg, cuda), cuda)
@@ -1151,7 +1155,7 @@ def test_one_template_rest_step_on_the_card_matches_the_cpu(cuda, name):
     decay = {"ge": mod.DECAY} if name == "cluster_gan" else {}
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    counts = (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches, gp.gp_fwd_launches)
+    counts = launches("in.fwd", "in.bwd", "adain.fwd", "gp.fwd")
     runs = []
     try:
         for dev in (torch.device("cpu"), cuda):
@@ -1164,8 +1168,7 @@ def test_one_template_rest_step_on_the_card_matches_the_cpu(cuda, name):
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
-    assert counts == (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches,
-                      gp.gp_fwd_launches)
+    assert counts == launches("in.fwd", "in.bwd", "adain.fwd", "gp.fwd")
     (mods_c, rec_c, out_c), (mods_g, rec_g, out_g) = runs
     assert sorted(out_c) == sorted(out_g)
     for k in out_c:
@@ -1293,7 +1296,7 @@ def test_one_sr_or_bicyclegan_step_on_the_card_matches_the_cpu(cuda, name):
         batch, kw = [torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))], {}
     flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    counts = (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches, gp.gp_fwd_launches)
+    counts = launches("in.fwd", "in.bwd", "adain.fwd", "gp.fwd")
     runs = []
     try:
         for dev in (torch.device("cpu"), cuda):
@@ -1312,8 +1315,7 @@ def test_one_sr_or_bicyclegan_step_on_the_card_matches_the_cpu(cuda, name):
         torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
-    assert counts == (tin.fwd_launches, tin.bwd_launches, ta.adain_fwd_launches,
-                      gp.gp_fwd_launches)
+    assert counts == launches("in.fwd", "in.bwd", "adain.fwd", "gp.fwd")
     (mods_c, rec_c, out_c), (mods_g, rec_g, out_g) = runs
     assert sorted(out_c) == sorted(out_g) and sorted(rec_c) == sorted(rec_g)
     for k in out_c:
@@ -1392,8 +1394,7 @@ def test_bf16_kernels_match_plain_version(cuda, shape, slope):
     gen = torch.Generator(device=cuda).manual_seed(2)
     x = torch.randn(shape, device=cuda, generator=gen).bfloat16()
     g = torch.randn(shape, device=cuda, generator=gen).bfloat16()
-    counts = lambda: (tin.fwd_launches, tin.bwd_launches, tin.fwd_launches_bf16,
-                      tin.bwd_launches_bf16)
+    counts = lambda: launches("in.fwd", "in.bwd", "in.fwd.bf16", "in.bwd.bf16")
     before = counts()
     y, mean, rstd = tin.in_act_fwd(x, 1e-5, slope)
     dx = tin.in_act_bwd(g, x, mean, rstd, slope)
@@ -1414,11 +1415,10 @@ def test_bf16_kernels_match_plain_version(cuda, shape, slope):
                                    (1, 64, 128, 128)])
 def test_bf16_adain_kernels_match_plain_version(cuda, shape):
     x, w, bias, g = (t.bfloat16() for t in _adain_inputs(shape, cuda))
-    before = (ta.adain_fwd_launches_bf16, ta.adain_bwd_launches_bf16)
+    before = launches("adain.fwd.bf16", "adain.bwd.bf16")
     y, mean, rstd = ta.adain_fwd(x, w, bias, 1e-5)
     grads = ta.adain_bwd(g, x, w, mean, rstd)
-    assert (ta.adain_fwd_launches_bf16, ta.adain_bwd_launches_bf16) == (before[0] + 1,
-                                                                        before[1] + 1)
+    assert launches("adain.fwd.bf16", "adain.bwd.bf16") == (before[0] + 1, before[1] + 1)
     assert {t.dtype for t in (y, *grads)} == {torch.bfloat16}
     y_r, mean_r, rstd_r = ta.adain_fwd_ref(x, w, bias, 1e-5)
     _assert_within_bf16(y, y_r, 1e-5 * max(1.0, float(w.float().abs().max())))
@@ -1467,7 +1467,7 @@ def test_bf16_cyclegan_step_on_the_card_matches_the_cpu(cuda):
             set_default_compute_dtype(dtype)
             modules = cyclegan.build(cfg, dev)
             state = cyclegan.create_state(cfg, modules, dev)
-            tin.reset_launch_counts()
+            tracing.reset()
             state, out = cyclegan.make_step(cfg, modules, dev)(state, a, b)
             got[key] = ({k: float(v) for k, v in out.items()},
                         {name: torch.cat([p.grad.float().cpu().flatten() for p in m.parameters()])
@@ -1475,8 +1475,8 @@ def test_bf16_cyclegan_step_on_the_card_matches_the_cpu(cuda):
             assert {p.dtype for m in modules.values() for p in m.parameters()} == {torch.float32}
     finally:
         set_default_compute_dtype(None)
-    assert (tin.fwd_launches_bf16, tin.bwd_launches_bf16) == (48, 48)
-    assert (tin.fwd_launches, tin.bwd_launches) == (0, 0)
+    assert launches("in.fwd.bf16", "in.bwd.bf16") == (48, 48)
+    assert launches("in.fwd", "in.bwd") == (0, 0)
     (loss_f, grad_f), (loss_c, grad_c), (loss_g, grad_g) = got["fp32"], got["cpu"], got["cuda"]
     for k, v in loss_c.items():
         assert abs(loss_g[k] - v) <= 2 * abs(v - loss_f[k]) + 1e-3 * abs(v), (k, loss_g[k], v)

@@ -28,6 +28,7 @@ from tpugan_torch.nn.blocks import MLPDiscriminator, MLPGenerator
 from tpugan_torch.nn.layers import Linear
 from tpugan_torch.ops import mlp_gp as gp
 from tpugan_torch.ops.penalty import wgan_gp_penalty
+from tpugan_torch.utils import tracing
 
 VALUE_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
@@ -75,7 +76,7 @@ def test_closed_form_matches_jax(variant, shape):
 
 def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     x, w1, b1, w2, b2, w3 = _to_port(*_inputs(4, 20, 16, 8))
-    before = (gp.gp_fwd_launches, gp.gp_bwd_launches)
+    before = (tracing.counts["gp.fwd"], tracing.counts["gp.bwd"])
     got = gp.mlp_gp_fwd(x, w1, b1, w2, b2, w3)
     want = gp.mlp_gp_fwd_ref(x, w1, b1, w2, b2, w3)
     for a, b in zip(got, want):
@@ -84,7 +85,7 @@ def test_wrappers_take_the_plain_version_on_cpu_and_count_nothing():
     res = (q, got[1], got[2], w1, w2, got[3], got[4])
     for a, b in zip(gp.mlp_gp_bwd(*res), gp.mlp_gp_bwd_ref(*res)):
         assert torch.equal(a, b)
-    assert (gp.gp_fwd_launches, gp.gp_bwd_launches) == before
+    assert (tracing.counts["gp.fwd"], tracing.counts["gp.bwd"]) == before
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from tpugan_torch.parallel.mesh import DataParallel
+from tpugan_torch.utils import tracing
 
 # --debug_numerics: every loader runs on the calling thread, without its
 # producer thread and queue, the input pipeline's only concurrency.
@@ -122,22 +123,33 @@ class DeviceLoader:
 
     def _to_device(self, batch: tuple) -> tuple:
         out = []
-        for a in batch:
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            else:
-                t = t.to(self.device)
-            out.append(t)
+        with tracing.span("tpugan.input.to_device"):
+            for a in batch:
+                t = torch.from_numpy(np.ascontiguousarray(a))
+                if self.device.type == "cuda":
+                    t = t.pin_memory().to(self.device, non_blocking=True)
+                else:
+                    t = t.to(self.device)
+                out.append(t)
         return tuple(out)
 
     def epoch(self, epoch: int) -> Iterator[tuple]:
         """Yield one epoch's device batches, ``prefetch`` ahead on a thread
-        (on the calling thread under ``set_synchronous(True)``)."""
+        (on the calling thread under ``set_synchronous(True)``). The
+        consumer's wait for each batch is the span ``tpugan.input.wait``; on
+        the thread's path each batch handed over counts ``input.handoffs``,
+        and ``input.starved`` where the queue was empty when it was asked
+        for (``utils/tracing.py``)."""
         if _SYNCHRONOUS or self.prefetch <= 0:
-            for batch in self._rank_batches(epoch):
-                yield self._to_device(batch)
-            return
+            batches = self._rank_batches(epoch)
+            while True:
+                with tracing.span("tpugan.input.wait"):
+                    batch = next(batches, None)
+                    if batch is not None:
+                        batch = self._to_device(batch)
+                if batch is None:
+                    return
+                yield batch
 
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -157,11 +169,18 @@ class DeviceLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with tracing.span("tpugan.input.wait"):
+                    try:
+                        item, starved = q.get_nowait(), False
+                    except queue.Empty:
+                        item, starved = q.get(), True
                 if item is None:
                     break
                 if isinstance(item, BaseException):
                     raise item
+                tracing.count("input.handoffs")
+                if starved:
+                    tracing.count("input.starved")
                 yield item
         finally:
             stop.set()

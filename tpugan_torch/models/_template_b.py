@@ -30,6 +30,7 @@ import torch
 from tpugan_torch.parallel.mesh import global_batch, global_means, local_rows
 from tpugan_torch.train.optim import capturable
 from tpugan_torch.train.state import TrainState, normalize_uint8
+from tpugan_torch.utils import tracing
 
 
 def create_state_b(cfg, modules: dict, device) -> TrainState:
@@ -57,7 +58,9 @@ def make_step_b(cfg, state: TrainState, adv_loss: Callable,
     ``draw_masks`` (template A's) takes none. Under data parallelism both
     are the global batch's, drawn or passed in, and the step keeps this
     rank's rows. ``out`` holds ``d_loss`` and ``g_loss`` (0-d tensors, global
-    means) and ``gen_imgs``, the G phase's fakes (NCHW, this rank's)."""
+    means) and ``gen_imgs``, the G phase's fakes (NCHW, this rank's). The
+    step is the span ``tpugan.step``, its phases ``tpugan.step.g`` and
+    ``tpugan.step.d`` (``utils/tracing.py``)."""
     G, D = state.modules["generator"], state.modules["discriminator"]
     opt_g, opt_d = state.optimizers["generator"], state.optimizers["discriminator"]
     g_params = list(G.parameters())
@@ -67,32 +70,36 @@ def make_step_b(cfg, state: TrainState, adv_loss: Callable,
 
     def step(state: TrainState, imgs_u8, labels=None, z=None, masks=None):
         del labels
-        device, dp = state.draws.device, state.dp
-        real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
-        b = global_batch(dp, real.shape[0])
-        if z is None:
-            z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
-        if masks is None:
-            masks = [D.draw_masks(b, state.draws) if uses_masks else None for _ in range(3)]
-        z = local_rows(dp, z)
-        masks = [ms and [local_rows(dp, m) for m in ms] for ms in masks]
+        with tracing.span("tpugan.step", state.step):
+            device, dp = state.draws.device, state.dp
+            real = normalize_uint8(imgs_u8.to(device, non_blocking=True))
+            b = global_batch(dp, real.shape[0])
+            if z is None:
+                z = torch.randn(b, cfg.latent_dim, generator=state.draws, device=device)
+            if masks is None:
+                masks = [D.draw_masks(b, state.draws) if uses_masks else None for _ in range(3)]
+            z = local_rows(dp, z)
+            masks = [ms and [local_rows(dp, m) for m in ms] for ms in masks]
 
-        # G phase: only G's parameters take gradients.
-        opt_g.zero_grad(set_to_none=True)
-        gen = G(z)
-        g_loss = g_adv(d(gen, masks[0]))
-        g_loss.backward(inputs=g_params)
-        opt_g.step()
+            # G phase: only G's parameters take gradients.
+            with tracing.span("tpugan.step.g"):
+                opt_g.zero_grad(set_to_none=True)
+                gen = G(z)
+                g_loss = g_adv(d(gen, masks[0]))
+                g_loss.backward(inputs=g_params)
+                opt_g.step()
 
-        # D phase on the real batch and the pre-update fakes, detached.
-        fake = gen.detach()
-        opt_d.zero_grad(set_to_none=True)
-        d_loss = 0.5 * (adv_loss(d(real, masks[1]), 1.0) + adv_loss(d(fake, masks[2]), 0.0))
-        d_loss.backward()
-        opt_d.step()
+            # D phase on the real batch and the pre-update fakes, detached.
+            with tracing.span("tpugan.step.d"):
+                fake = gen.detach()
+                opt_d.zero_grad(set_to_none=True)
+                d_loss = 0.5 * (adv_loss(d(real, masks[1]), 1.0)
+                                + adv_loss(d(fake, masks[2]), 0.0))
+                d_loss.backward()
+                opt_d.step()
 
-        state.step += 1
-        out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
-        return state, global_means(dp, out, ("d_loss", "g_loss"))
+            state.step += 1
+            out = {"d_loss": d_loss.detach(), "g_loss": g_loss.detach(), "gen_imgs": fake}
+            return state, global_means(dp, out, ("d_loss", "g_loss"))
 
     return step

@@ -47,6 +47,7 @@ from tpugan_torch.train.loop import train_device
 from tpugan_torch.train.optim import linear_decay_lambda
 from tpugan_torch.train.replay import ReplayBuffer
 from tpugan_torch.train.state import normalize_uint8
+from tpugan_torch.utils import tracing
 from tpugan_torch.utils.config import BaseConfig, config_from_args, flag
 
 NAME = "cyclegan"
@@ -124,7 +125,9 @@ def make_step(cfg: Config, modules: dict, device):
     update of D_A and of D_B (cyclegan.py:177-239). ``a_u8``/``b_u8`` are
     NHWC uint8 batches; ``out`` holds the five losses as 0-d tensors (global
     means under data parallelism). After the step each parameter's ``.grad``
-    holds the gradient it was updated with."""
+    holds the gradient it was updated with. The step is the span
+    ``tpugan.step``, its phases ``tpugan.step.g`` and ``tpugan.step.d``, the
+    replay buffers inside the latter (``utils/tracing.py``)."""
     G_AB, G_BA = modules["G_AB"], modules["G_BA"]
     D_A, D_B = modules["D_A"], modules["D_B"]
     g_params = [*G_AB.parameters(), *G_BA.parameters()]
@@ -141,46 +144,49 @@ def make_step(cfg: Config, modules: dict, device):
         return loss.detach()
 
     def step(state: TrainState, a_u8, b_u8):
-        real_a = normalize_uint8(a_u8.to(device, non_blocking=True))
-        real_b = normalize_uint8(b_u8.to(device, non_blocking=True))
-        n = real_a.shape[0]
+        with tracing.span("tpugan.step", state.step):
+            real_a = normalize_uint8(a_u8.to(device, non_blocking=True))
+            real_b = normalize_uint8(b_u8.to(device, non_blocking=True))
+            n = real_a.shape[0]
 
-        # G phase. Only the generators' parameters take gradients; the
-        # discriminators are applied but not updated here.
-        opt_g = state.optimizers["G"]
-        opt_g.zero_grad(set_to_none=True)
-        ab_out = G_AB(torch.cat([real_a, real_b]))
-        fake_b, id_b = ab_out[:n], ab_out[n:]
-        ba_out = G_BA(torch.cat([real_b, real_a]))
-        fake_a, id_a = ba_out[:n], ba_out[n:]
-        loss_identity = (l1(id_a, real_a) + l1(id_b, real_b)) / 2
-        loss_gan = (mse(D_B(fake_b), 1.0) + mse(D_A(fake_a), 1.0)) / 2
-        recov_a = G_BA(fake_b)
-        recov_b = G_AB(fake_a)
-        loss_cycle = (l1(recov_a, real_a) + l1(recov_b, real_b)) / 2
-        g_loss = loss_gan + cfg.lambda_cyc * loss_cycle + cfg.lambda_id * loss_identity
-        g_loss.backward(inputs=g_params)
-        opt_g.step()
+            # G phase. Only the generators' parameters take gradients; the
+            # discriminators are applied but not updated here.
+            with tracing.span("tpugan.step.g"):
+                opt_g = state.optimizers["G"]
+                opt_g.zero_grad(set_to_none=True)
+                ab_out = G_AB(torch.cat([real_a, real_b]))
+                fake_b, id_b = ab_out[:n], ab_out[n:]
+                ba_out = G_BA(torch.cat([real_b, real_a]))
+                fake_a, id_a = ba_out[:n], ba_out[n:]
+                loss_identity = (l1(id_a, real_a) + l1(id_b, real_b)) / 2
+                loss_gan = (mse(D_B(fake_b), 1.0) + mse(D_A(fake_a), 1.0)) / 2
+                recov_a = G_BA(fake_b)
+                recov_b = G_AB(fake_a)
+                loss_cycle = (l1(recov_a, real_a) + l1(recov_b, real_b)) / 2
+                g_loss = loss_gan + cfg.lambda_cyc * loss_cycle + cfg.lambda_id * loss_identity
+                g_loss.backward(inputs=g_params)
+                opt_g.step()
 
-        # Replay buffers, on the global batch of fakes under data
-        # parallelism, then the D phases on [real; replayed fake].
-        dp = state.dp
-        fake_a_pool = local_rows(dp, state.buffers["buf_A"].push_and_pop(
-            gather_rows(dp, fake_a.detach())))
-        fake_b_pool = local_rows(dp, state.buffers["buf_B"].push_and_pop(
-            gather_rows(dp, fake_b.detach())))
-        loss_d_a = d_update(state, "D_A", D_A, real_a, fake_a_pool)
-        loss_d_b = d_update(state, "D_B", D_B, real_b, fake_b_pool)
+            # Replay buffers, on the global batch of fakes under data
+            # parallelism, then the D phases on [real; replayed fake].
+            with tracing.span("tpugan.step.d"):
+                dp = state.dp
+                fake_a_pool = local_rows(dp, state.buffers["buf_A"].push_and_pop(
+                    gather_rows(dp, fake_a.detach())))
+                fake_b_pool = local_rows(dp, state.buffers["buf_B"].push_and_pop(
+                    gather_rows(dp, fake_b.detach())))
+                loss_d_a = d_update(state, "D_A", D_A, real_a, fake_a_pool)
+                loss_d_b = d_update(state, "D_B", D_B, real_b, fake_b_pool)
 
-        state.step += 1
-        out = {
-            "d_loss": (loss_d_a + loss_d_b) / 2,
-            "g_loss": g_loss.detach(),
-            "loss_GAN": loss_gan.detach(),
-            "loss_cycle": loss_cycle.detach(),
-            "loss_identity": loss_identity.detach(),
-        }
-        return state, global_means(dp, out, tuple(out))
+            state.step += 1
+            out = {
+                "d_loss": (loss_d_a + loss_d_b) / 2,
+                "g_loss": g_loss.detach(),
+                "loss_GAN": loss_gan.detach(),
+                "loss_cycle": loss_cycle.detach(),
+                "loss_identity": loss_identity.detach(),
+            }
+            return state, global_means(dp, out, tuple(out))
 
     return step
 

@@ -26,9 +26,9 @@ way, in float32 and in bf16.
 
 Dispatch is by device and dtype: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel of x's dtype or raises (a mixed call, bf16
-with float32, included). ``adain_fwd_launches`` and ``adain_bwd_launches``
-count float32 kernel launches, and only those, ``adain_fwd_launches_bf16``
-and ``adain_bwd_launches_bf16`` bf16 ones.
+with float32, included). The counters ``adain.fwd`` and ``adain.bwd`` of
+``tpugan_torch.utils.tracing.counts`` count float32 kernel launches, and
+only those, ``adain.fwd.bf16`` and ``adain.bwd.bf16`` bf16 ones.
 """
 
 from __future__ import annotations
@@ -36,18 +36,7 @@ from __future__ import annotations
 import torch
 
 from tpugan_torch.ops.instance_norm import _launch_bwd, _launch_fwd, _planes
-
-adain_fwd_launches = 0
-adain_bwd_launches = 0
-adain_fwd_launches_bf16 = 0
-adain_bwd_launches_bf16 = 0
-
-
-def reset_launch_counts() -> None:
-    global adain_fwd_launches, adain_bwd_launches
-    global adain_fwd_launches_bf16, adain_bwd_launches_bf16
-    adain_fwd_launches = adain_bwd_launches = 0
-    adain_fwd_launches_bf16 = adain_bwd_launches_bf16 = 0
+from tpugan_torch.utils import tracing
 
 
 def adain_fwd_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
@@ -87,14 +76,10 @@ def adain_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float):
     """Forward wrapper: (y, mean, rstd). CPU tensors take the plain version;
     CUDA tensors launch the affine forward of ``instance_norm.cu`` for x's
     dtype, which reads w and b in place."""
-    global adain_fwd_launches, adain_fwd_launches_bf16
     if x.is_cpu:
         return adain_fwd_ref(x, w, b, eps)
     out = _launch_fwd("adain_fwd", x, eps, 1.0, w, b)
-    if x.dtype is torch.bfloat16:
-        adain_fwd_launches_bf16 += 1
-    else:
-        adain_fwd_launches += 1
+    tracing.count("adain.fwd.bf16" if x.dtype is torch.bfloat16 else "adain.fwd")
     return out
 
 
@@ -103,14 +88,10 @@ def adain_bwd(g, x, w, mean, rstd):
     version; CUDA tensors launch the affine backward of ``instance_norm.cu``
     for x's dtype, which reads w in place and writes dw and dbias as
     contiguous (B, C) tensors in w's dtype."""
-    global adain_bwd_launches, adain_bwd_launches_bf16
     if x.is_cpu:
         return adain_bwd_ref(g, x, w, mean, rstd)
     out = _launch_bwd("adain_bwd", g, x, mean, rstd, 1.0, w)
-    if x.dtype is torch.bfloat16:
-        adain_bwd_launches_bf16 += 1
-    else:
-        adain_bwd_launches += 1
+    tracing.count("adain.bwd.bf16" if x.dtype is torch.bfloat16 else "adain.bwd")
     return out
 
 

@@ -21,10 +21,11 @@ of 2, 4 or 8 CTAs that add their partial sums in a fixed rank order.
 
 Dispatch is by device and dtype: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel of its dtype or raises; nothing converts a
-map to reach the other kernel. ``fwd_launches`` and ``bwd_launches`` count
-float32 wrapper calls that launched, and only those, ``fwd_launches_bf16``
-and ``bwd_launches_bf16`` bf16 ones; ``fwd_captured`` and ``bwd_captured``
-(and their ``_bf16`` twins) count those of them made while the current
+map to reach the other kernel. The counters ``in.fwd`` and ``in.bwd`` of
+``tpugan_torch.utils.tracing.counts`` count float32 wrapper calls that
+launched, and only those, ``in.fwd.bf16`` and ``in.bwd.bf16`` bf16 ones;
+``in.fwd.captured`` and ``in.bwd.captured`` (and ``in.fwd.bf16.captured``,
+``in.bwd.bf16.captured``) count those of them made while the current
 stream was capturing a CUDA graph. A captured call counts once
 however often its graph is replayed: the kernels that ran on the device are
 the calls not captured plus each captured call times its graph's replays.
@@ -39,15 +40,7 @@ from typing import NamedTuple
 import torch
 
 from tpugan_torch.ops._build import LaunchPlan, check_tensors, library
-
-fwd_launches = 0
-bwd_launches = 0
-fwd_captured = 0
-bwd_captured = 0
-fwd_launches_bf16 = 0
-bwd_launches_bf16 = 0
-fwd_captured_bf16 = 0
-bwd_captured_bf16 = 0
+from tpugan_torch.utils import tracing
 
 # The map dtypes the kernels take, and each one's element size in bytes.
 KERNEL_DTYPES = {torch.float32: 4, torch.bfloat16: 2}
@@ -58,13 +51,6 @@ WARP_HW_MAX = 256  # regime A: a warp holds a plane at 8 values a lane
 SLICE_BYTES_MAX = 64 * 1024  # regime B: shared memory a CTA holds its slice in
 SLICE_BYTES_MIN = 16 * 1024  # regime B: the least slice a plane is split down to
 CLUSTER_MAX = 8  # the portable thread block cluster size
-
-
-def reset_launch_counts() -> None:
-    global fwd_launches, bwd_launches, fwd_captured, bwd_captured
-    global fwd_launches_bf16, bwd_launches_bf16, fwd_captured_bf16, bwd_captured_bf16
-    fwd_launches = bwd_launches = fwd_captured = bwd_captured = 0
-    fwd_launches_bf16 = bwd_launches_bf16 = fwd_captured_bf16 = bwd_captured_bf16 = 0
 
 
 class Plan(NamedTuple):
@@ -307,16 +293,15 @@ def in_act_fwd(x: torch.Tensor, eps: float, slope: float):
     """Forward wrapper: (y, mean, rstd). CPU tensors take the plain version;
     CUDA tensors launch ``in_act_fwd`` (float32) or ``in_act_fwd_bf16`` of
     ``instance_norm.cu``."""
-    global fwd_launches, fwd_captured, fwd_launches_bf16, fwd_captured_bf16
     if x.is_cpu:
         return in_act_fwd_ref(x, eps, slope)
     out = _launch_fwd("in_act_fwd", x, eps, slope)
     if x.dtype is torch.bfloat16:
-        fwd_launches_bf16 += 1
-        fwd_captured_bf16 += _bound[3]()
+        tracing.count("in.fwd.bf16")
+        tracing.count("in.fwd.bf16.captured", _bound[3]())
     else:
-        fwd_launches += 1
-        fwd_captured += _bound[3]()
+        tracing.count("in.fwd")
+        tracing.count("in.fwd.captured", _bound[3]())
     return out
 
 
@@ -324,16 +309,15 @@ def in_act_bwd(g, x, mean, rstd, slope: float):
     """Backward wrapper: dx. CPU tensors take the plain version; CUDA
     tensors launch ``in_act_bwd`` (float32) or ``in_act_bwd_bf16`` of
     ``instance_norm.cu``."""
-    global bwd_launches, bwd_captured, bwd_launches_bf16, bwd_captured_bf16
     if x.is_cpu:
         return in_act_bwd_ref(g, x, mean, rstd, slope)
     dx = _launch_bwd("in_act_bwd", g, x, mean, rstd, slope)
     if x.dtype is torch.bfloat16:
-        bwd_launches_bf16 += 1
-        bwd_captured_bf16 += _bound[3]()
+        tracing.count("in.bwd.bf16")
+        tracing.count("in.bwd.bf16.captured", _bound[3]())
     else:
-        bwd_launches += 1
-        bwd_captured += _bound[3]()
+        tracing.count("in.bwd")
+        tracing.count("in.bwd.captured", _bound[3]())
     return dx
 
 

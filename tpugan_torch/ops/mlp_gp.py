@@ -29,12 +29,13 @@ with torch's norm-at-0 subgradient, and q = dP/dg (``_norm_penalty`` :75,
 ``_q_from`` :84), in plain torch ops.
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain version,
-a CUDA tensor launches the kernels or raises. ``gp_fwd_launches`` and
-``gp_bwd_launches`` count wrapper calls that launched, and only those;
-``gp_fwd_captured`` and ``gp_bwd_captured`` count those of them made while
-the current stream was capturing a CUDA graph. A captured call counts once
-however often its graph is replayed: the kernels that ran on the device are
-the calls not captured plus each captured call times its graph's replays.
+a CUDA tensor launches the kernels or raises. The counters ``gp.fwd`` and
+``gp.bwd`` of ``tpugan_torch.utils.tracing.counts`` count wrapper calls
+that launched, and only those; ``gp.fwd.captured`` and ``gp.bwd.captured``
+count those of them made while the current stream was capturing a CUDA
+graph. A captured call counts once however often its graph is replayed: the
+kernels that ran on the device are the calls not captured plus each
+captured call times its graph's replays.
 """
 
 from __future__ import annotations
@@ -47,13 +48,9 @@ import torch
 from torch import nn
 
 from tpugan_torch.ops._build import GpPlan, GpProduct, check_tensors, library
+from tpugan_torch.utils import tracing
 
 SLOPE = 0.2  # LeakyReLU slope of the critic (wgan/wgan.py:70)
-
-gp_fwd_launches = 0
-gp_bwd_launches = 0
-gp_fwd_captured = 0
-gp_bwd_captured = 0
 
 # The launch plan's constants (``mlp_gp.cu`` holds the same). The H100
 # measurements that set them are in PERF.md (``scripts/sweep_gp_plan.py``).
@@ -67,11 +64,6 @@ TILE_WIDTHS = (32, 16)  # tile columns a split product may take, widest first
 # The launches after the first go out as programmatic dependent launches:
 # 3-5% faster each way than plain stream order on the H100 (PERF.md).
 PDL = True
-
-
-def reset_launch_counts() -> None:
-    global gp_fwd_launches, gp_bwd_launches, gp_fwd_captured, gp_bwd_captured
-    gp_fwd_launches = gp_bwd_launches = gp_fwd_captured = gp_bwd_captured = 0
 
 
 class Product(NamedTuple):
@@ -301,24 +293,22 @@ def _launch_bwd(q, m1, m2, w1, w2, u, t):
 def mlp_gp_fwd(x, w1, b1, w2, b2, w3):
     """Forward wrapper: (g, m1, m2, u, t). CPU tensors take the plain
     version; CUDA tensors launch ``mlp_gp_fwd`` of ``mlp_gp.cu``."""
-    global gp_fwd_launches, gp_fwd_captured
     if x.is_cpu:
         return mlp_gp_fwd_ref(x, w1, b1, w2, b2, w3)
     out = _launch_fwd(x, w1, b1, w2, b2, w3)
-    gp_fwd_launches += 1
-    gp_fwd_captured += _bound[3]()
+    tracing.count("gp.fwd")
+    tracing.count("gp.fwd.captured", _bound[3]())
     return out
 
 
 def mlp_gp_bwd(q, m1, m2, w1, w2, u, t):
     """Backward wrapper: (dw1, dw2, dw3). CPU tensors take the plain
     version; CUDA tensors launch ``mlp_gp_bwd`` of ``mlp_gp.cu``."""
-    global gp_bwd_launches, gp_bwd_captured
     if q.is_cpu:
         return mlp_gp_bwd_ref(q, m1, m2, w1, w2, u, t)
     out = _launch_bwd(q, m1, m2, w1, w2, u, t)
-    gp_bwd_launches += 1
-    gp_bwd_captured += _bound[3]()
+    tracing.count("gp.bwd")
+    tracing.count("gp.bwd.captured", _bound[3]())
     return out
 
 

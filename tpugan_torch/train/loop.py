@@ -26,6 +26,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from tpugan_torch.parallel import mesh
+from tpugan_torch.utils import tracing
 from tpugan_torch.utils.config import set_process_modes
 
 # Flags of the JAX package that the port refuses, with the reason.
@@ -39,15 +40,6 @@ _UNPORTED = {
 # The capture's error mode: "thread_local" leaves the loader's thread free
 # to pin and copy the next batches while the main thread captures.
 CAPTURE_ERROR_MODE = "thread_local"
-
-# Graph replays of every ``graph_steps`` since the last reset (a replay runs
-# the K captured steps once).
-graph_replays = 0
-
-
-def reset_graph_counts() -> None:
-    global graph_replays
-    graph_replays = 0
 
 
 def reject_unported_flags(cfg) -> None:
@@ -99,7 +91,8 @@ def heavy_out_keys(out: dict) -> list:
 
 def _stack_batches(batches) -> tuple:
     """Stack a list of per-step batch tuples along a new leading K axis."""
-    return tuple(torch.stack(xs) for xs in zip(*batches))
+    with tracing.span("tpugan.loop.stack"):
+        return tuple(torch.stack(xs) for xs in zip(*batches))
 
 
 class GraphSteps:
@@ -118,7 +111,8 @@ class GraphSteps:
     buffers, with the state's generator ``state.draws`` registered so that
     the graph's draws continue its stream, then replays it; every later call
     copies its batches in and replays. ``state.step`` advances on the host
-    by the capture's count a replay. The returned ``out`` is the graph's
+    by the capture's count a replay, and each replay counts
+    ``graph.replays`` (``tracing.counts``). The returned ``out`` is the graph's
     static output: the next replay overwrites it, so clone what outlives
     the dispatch. A failed capture or replay raises; nothing falls back to
     eager steps.
@@ -159,14 +153,17 @@ class GraphSteps:
         if state.draws.device.type != "cuda" or self.calls == 1:
             return self._run(state, stacked)
         if self.graph is None:
-            self._capture(state, stacked)
+            with tracing.span("tpugan.graph.capture"):
+                self._capture(state, stacked)
         else:
-            for buf, a in zip(self._inputs, stacked):
-                if buf.shape != a.shape or buf.dtype != a.dtype:
-                    raise ValueError(f"graph_steps: input {tuple(a.shape)} {a.dtype}, the graph "
-                                     f"was captured for {tuple(buf.shape)} {buf.dtype}")
-                buf.copy_(a)
-        self._replay(state)
+            with tracing.span("tpugan.graph.copy_in"):
+                for buf, a in zip(self._inputs, stacked):
+                    if buf.shape != a.shape or buf.dtype != a.dtype:
+                        raise ValueError(f"graph_steps: input {tuple(a.shape)} {a.dtype}, the "
+                                         f"graph was captured for {tuple(buf.shape)} {buf.dtype}")
+                    buf.copy_(a)
+        with tracing.span("tpugan.graph.replay", state.step):
+            self._replay(state)
         return state, self._out
 
     def _capture(self, state, stacked) -> None:
@@ -185,11 +182,10 @@ class GraphSteps:
         self.graph = graph
 
     def _replay(self, state) -> None:
-        global graph_replays
         self.graph.replay()
         state.step += self._step_delta
         self.replays += 1
-        graph_replays += 1
+        tracing.count("graph.replays")
 
 
 def graph_steps(step_fn: Callable, k: int, dp=None) -> GraphSteps:
@@ -206,7 +202,8 @@ def host_rows(out: dict, heavy_keys, k: int) -> list:
     device-to-host read of all its stacked scalars; each row carries the
     heavy entries (the dispatch's last step's) as they are."""
     names = [n for n in out if n not in heavy_keys]
-    host = torch.stack([out[n] for n in names]).cpu() if names else None
+    with tracing.span("tpugan.loop.read"):
+        host = torch.stack([out[n] for n in names]).cpu() if names else None
     return [{**{n: host[a, j] for a, n in enumerate(names)},
              **{n: out[n] for n in heavy_keys}} for j in range(k)]
 
@@ -274,8 +271,11 @@ class StepObserver:
       and works on a resumed run. The trace is TensorBoard's
       (``tensorboard_trace_handler(D)``: ``D/<host>_<pid>.<ns>.pt.trace.json``),
       and each traced dispatch is a range named ``tpugan.dispatch.<n>`` in
-      it; ``traced`` lists them. The device is synchronized before the
-      trace stops, as the JAX package blocks on the outputs.
+      it; ``traced`` lists them. The port's spans (``utils/tracing.py``) are
+      on while the trace runs, and every thread is profiled, so the
+      loader's ``tpugan.input.to_device`` ranges are in it beside the main
+      thread's. The device is synchronized before the trace stops, as the
+      JAX package blocks on the outputs.
     - ``--debug_numerics``: ``checked(step)`` runs a step under autograd's
       anomaly mode, whose NaN check covers the backward of every
       ``autograd.Function`` (the IN, AdaIN and GP kernels included), and
@@ -303,7 +303,7 @@ class StepObserver:
                                            // dispatch_steps))
         self.debug_numerics = bool(getattr(cfg, "debug_numerics", False))
         self.traced = []
-        self._profiler = self._range = None
+        self._profiler = self._range = self._spans = None
         self._calls = 0
 
     def checked(self, step_fn: Callable) -> Callable:
@@ -329,7 +329,7 @@ class StepObserver:
         return step
 
     def _open_range(self, n: int) -> None:
-        self._range = torch.profiler.record_function(f"tpugan.dispatch.{n}")
+        self._range = tracing.span(f"tpugan.dispatch.{n}")
         self._range.__enter__()
 
     def _stop(self) -> None:
@@ -340,6 +340,8 @@ class StepObserver:
             torch.cuda.synchronize()
         self._profiler.stop()
         self._profiler = None
+        self._spans.__exit__(None, None, None)
+        self._spans = None
 
     def profile_tick(self) -> None:
         """Advance the profile window by one device dispatch, the one just
@@ -354,7 +356,11 @@ class StepObserver:
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             self._profiler = torch.profiler.profile(
                 activities=activities,
-                on_trace_ready=torch.profiler.tensorboard_trace_handler(self.profile_dir))
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(self.profile_dir),
+                experimental_config=torch.profiler._ExperimentalConfig(
+                    profile_all_threads=True))
+            self._spans = tracing.enabled()
+            self._spans.__enter__()
             self._profiler.start()
             self._open_range(1)
         elif self._profiler is not None:

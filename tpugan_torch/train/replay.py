@@ -16,6 +16,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from tpugan_torch.utils import tracing
+
 
 class ReplayBuffer:
     def __init__(self, max_size: int, item_shape: Sequence[int], device, generator: torch.Generator):
@@ -37,23 +39,24 @@ class ReplayBuffer:
         [0, 1), swap where > 0.5) and ``idxs`` give the draws for the
         elements that arrive with the buffer full, in order; drawn from the
         generator when omitted."""
-        batch = batch.detach().to(torch.float32)
-        n_full = max(0, len(batch) - max(0, self.max_size - self.count))
-        if coins is None:
-            coins = torch.rand(n_full, generator=self.generator).tolist()
-            idxs = torch.randint(0, self.max_size, (n_full,), generator=self.generator).tolist()
-        out, draw = [], 0
-        for element in batch:
-            if self.count < self.max_size:
-                self.data[self.count] = element
-                self.count += 1
-                out.append(element)
-                continue
-            coin, idx = coins[draw], int(idxs[draw])
-            draw += 1
-            if coin > 0.5:
-                out.append(self.data[idx].clone())
-                self.data[idx] = element
-            else:
-                out.append(element)
-        return torch.stack(out)
+        with tracing.span("tpugan.replay.push_and_pop"):
+            batch = batch.detach().to(torch.float32)
+            n_full = max(0, len(batch) - max(0, self.max_size - self.count))
+            if coins is None:
+                coins = torch.rand(n_full, generator=self.generator).tolist()
+                idxs = torch.randint(0, self.max_size, (n_full,), generator=self.generator).tolist()
+            out, draw = [], 0
+            for element in batch:
+                if self.count < self.max_size:
+                    self.data[self.count] = element
+                    self.count += 1
+                    out.append(element)
+                    continue
+                coin, idx = coins[draw], int(idxs[draw])
+                draw += 1
+                if coin > 0.5:
+                    out.append(self.data[idx].clone())
+                    self.data[idx] = element
+                else:
+                    out.append(element)
+            return torch.stack(out)
